@@ -8,16 +8,32 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K4 / K5b from ``rabbittclust_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain torch version on the card, at the slice's
-   shapes (W = 12, K = 1024, rb = 4096) and on small ragged inputs: exactly
-   equal, timed with CUDA events;
+2. build kernels K1 / K2 / K4 / K5b from ``rabbittclust_tpu_torch/csrc``
+   with nvcc, one process per source;
+3. each kernel against its plain torch version on the card, at the paths'
+   shapes and on small ragged inputs: exactly equal, timed with CUDA
+   events.  K4 / K5b at W = 12, K = 1024, rb = 4096; K1 at rb = 4096 and
+   8192 bits (diagonal, off-diagonal and padded tiles, an invalid slot;
+   small cases of its three bounds and both distances; rb = 8192), beside
+   the shared-bit product alone in float32 and in bfloat16; K2, full and
+   compact, over K1's masks with random labels: panel 0 of the N = 131,072
+   sweep (512 tiles, span n_pad, cap 65,536), and at N = 16,384 with a
+   clear list of repeated targets at rb = 4096 and 8192;
 4. ``clust-mst --fast --device --presketched`` end to end at N = 16,384
    genomes of about 1,000 hashes (64 planted clusters, seed 7), held
    against the native host engine: same partition at 0.05, same MST edge
-   count, sorted MST weights equal to 1e-12 relative; both kernels must
+   count, sorted MST weights equal to 1e-12 relative; K4 and K5b must
    have been launched by that run;
-5. a small from-FASTA run (``-l -i list``) against the planted clusters.
+5. a small from-FASTA run (``-l -i list``) against the planted clusters;
+6. the MST-free main path at full width: ``clust-mst --fast --device
+   --presketched -e`` at N = 131,072 (bench.py's recipe; the dispatcher
+   takes the label-propagation engine, 528 tiles in panels of 512 + 16):
+   the partition must be the 64 planted clusters and K1 and K2 must have
+   been launched by that run;
+7. both MST-free engines forced (stream, then label propagation) at
+   N = 16,384 against phase 4's host partition, and the ``-t 1``
+   exact-order arm at N = 2,000 against the native serial engine's member
+   order.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a visible GPU it exits 2 and
@@ -38,7 +54,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GENOMES, SKETCH, N_CLUSTERS, SEED, THRESHOLD = 16384, 1000, 64, 7, 0.05
-KERNEL_SRC = "rabbittclust_tpu_torch/csrc/pair_counts.cu"
+N_SLICE, BITS, RB = 131072, 8192, 4096
+# name: (source, the JAX function it replaces)
+KERNELS = {
+    "pair_counts_tiles": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
+                          "rabbittclust_tpu/ops/intersect.py:110"),
+    "pair_common": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
+                    "rabbittclust_tpu/ops/engine.py:102"),
+    "filter_mask": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+                    "rabbittclust_tpu/ops/bitmap.py:345"),
+    "labelprop_round": ("rabbittclust_tpu_torch/csrc/labelprop_round.cu",
+                        "rabbittclust_tpu/ops/labelprop.py:101"),
+}
 
 NATIVE_PROBE = r"""
 import os, sys, tempfile
@@ -151,7 +178,7 @@ def check_native():
 
 
 def phase_build():
-    say("== phase 2: build K4 / K5b (nvcc, sm_90a)")
+    say("== phase 2: build K1 / K2 / K4 / K5b (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
     info = _build.build()
     say(f"build seconds: {info['seconds']:.3f} "
@@ -160,8 +187,11 @@ def phase_build():
     for line in info["log"].splitlines():
         m = re.search(r"(pair_counts_tiles_kernel|pair_common_kernel)"
                       r"ILi(\d+)ELb(\d)E", line)
+        k = re.search(r"(filter_mask_kernel|lp_\w+_kernel)", line)
         if "Compiling entry" in line and m:
             name = f"{m.group(1)}<W={m.group(2)},two_plane={m.group(3)}>"
+        elif "Compiling entry" in line and k:
+            name = k.group(1)
         elif name and ("spill" in line or "registers" in line):
             say(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     _build.load_kernels()
@@ -261,25 +291,49 @@ def phase_kernels(hashes, dev):
     return rec
 
 
-def phase_end_to_end(hashes, dev, tmp):
-    say(f"== phase 4: clust-mst --fast --device --presketched, "
-        f"N={len(hashes)}")
-    from rabbittclust_tpu_torch.cli.clust_mst import main
-    from rabbittclust_tpu_torch.host import (
-        KssdParams, SketchSet, clusters_from_forest, compute_mst,
-        cut_forest, sketch_io)
-    from rabbittclust_tpu_torch.ops import intersect as ix
-
+def kssd_params():
+    from rabbittclust_tpu_torch.host import KssdParams
     p = KssdParams.from_kmer_size(21, 3)
     assert not p.use64
+    return p
+
+
+def save_presketched(hashes, folder):
+    """The corpus as a --presketched run folder of genomes genome_<i>."""
+    from rabbittclust_tpu_torch.host import SketchSet, sketch_io
+    p = kssd_params()
     ss = SketchSet("kssd", p, True, p.use64)
     for i, h in enumerate(hashes):
         ss.append_genome(file_name=f"genome_{i}.fna", name=f"genome_{i}",
                          comment=f"cluster{i % N_CLUSTERS}",
                          seq0_len=3_000_000, total_len=3_000_000,
                          num_seqs=1, hashes=h)
-    folder = os.path.join(tmp, "sketches")
     sketch_io.save_kssd_sketches(ss, p, folder)
+    return p
+
+
+def read_cluster_file(path):
+    """Member genome ids of each cluster of a by-file ``.cluster`` file."""
+    clusters = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("the cluster"):
+                clusters.append([])
+            elif line.startswith("\t"):
+                clusters[-1].append(int(line.split("\t")[2]))
+    return clusters
+
+
+def phase_end_to_end(hashes, dev, tmp):
+    say(f"== phase 4: clust-mst --fast --device --presketched, "
+        f"N={len(hashes)}")
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.host import (
+        clusters_from_forest, compute_mst, cut_forest, sketch_io)
+    from rabbittclust_tpu_torch.ops import intersect as ix
+
+    folder = os.path.join(tmp, "sketches")
+    p = save_presketched(hashes, folder)
     out = os.path.join(tmp, "slice.cluster")
 
     ix.reset_launches()
@@ -338,7 +392,7 @@ def phase_end_to_end(hashes, dev, tmp):
         f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); "
         f"tiles {stats['tiles']}, batches {stats['batches']}, candidates "
         f"{stats['candidates']}; launches {launches}")
-    return launches
+    return launches, want
 
 
 def phase_from_fasta(tmp):
@@ -390,6 +444,321 @@ def phase_from_fasta(tmp):
         "= planted")
 
 
+def hold_exact(rec, name, got, want, what):
+    """Kernel output ``got`` must equal the plain version's ``want``."""
+    entry = rec.setdefault(name, {"err": 0, "ms": [], "plain_ms": []})
+    if got.shape != want.shape:
+        raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = 0 if got.numel() == 0 or torch.equal(got, want) else \
+        int((got.long() - want.long()).abs().max())
+    entry["err"] = max(entry["err"], err)
+    if err:
+        raise AssertionError(f"{name} {what}: max |kernel - plain| = {err} "
+                             "(must be 0)")
+
+
+def phase_filter_kernel(hashes, dev, rec):
+    say("== phase 3b: K1 (filter_mask) against batched_mask_plain")
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    k = kssd_params().kmer_size
+    # 3.5 row blocks of genomes: the last row block is padded
+    sig = bm.stage_signatures(hashes[:3 * RB + RB // 2], BITS, RB, dev)
+    sc = bm.filter_scalars(THRESHOLD, k)
+    tiles = (np.array([RB, 2 * RB, 3 * RB, 0]), np.array([RB, 0, RB, 0]),
+             np.array([1, 1, 1, 0]))
+    (cnt, packs), ms = cuda_ms(lambda: bm.batched_mask(
+        sig.xd, sig.cd, sig.sd, *tiles, *sc, False, RB), reps=5)
+    (want_c, want_p), plain_ms = cuda_ms(lambda: bm.batched_mask_plain(
+        sig.xd, sig.cd, sig.sd, *tiles, *sc, False, RB))
+    hold_exact(rec, "filter_mask", cnt, want_c, f"rb={RB} counts")
+    hold_exact(rec, "filter_mask", packs, want_p, f"rb={RB} masks")
+    rec["filter_mask"]["ms"].append(ms / 3)
+    rec["filter_mask"]["plain_ms"].append(plain_ms / 3)
+    say(f"K1 rb={RB} bits={BITS}: tiles ({RB},{RB}) diagonal, "
+        f"({2 * RB},0), ({3 * RB},{RB}) padded, one invalid slot; counts "
+        f"{cnt.tolist()}: exact; kernel {ms / 3:.3f} ms per tile, plain "
+        f"{plain_ms / 3:.3f} ms per tile")
+    # the shared-bit product alone, the floor of any plain version built on
+    # it: float32 on the CUDA cores (the plain version's) and bfloat16 on
+    # the tensor cores with a float32 result; both exact for 0/1 operands
+    xi = bm.unpack_bits(sig.xd[2 * RB:3 * RB])
+    xj = bm.unpack_bits(sig.xd[:RB])
+    f32, f32_ms = cuda_ms(lambda: xi @ xj.T, reps=5)
+    xi, xj = xi.to(torch.bfloat16), xj.to(torch.bfloat16)
+    b16, b16_ms = cuda_ms(lambda: torch.mm(xi, xj.T,
+                                           out_dtype=torch.float32), reps=5)
+    if not torch.equal(b16, f32):
+        raise AssertionError("the bfloat16 product differs from the float32 "
+                             "product")
+    say(f"K1 tile ({2 * RB},0) shared-bit product alone: float32 "
+        f"{f32_ms:.3f} ms, bfloat16 (mm out_dtype=float32) {b16_ms:.3f} ms,"
+        f" equal; K1 (whole mask) {ms / 3:.3f} ms per tile")
+    del sig, packs, want_p, xi, xj, f32, b16
+    small = make_corpus(300, 150, 8, SEED)
+    rng = np.random.default_rng(5)
+    base = np.unique(rng.integers(0, 2 ** 31, 500).astype(np.uint32))
+    contained = [np.unique(np.concatenate([
+        rng.choice(base, size=int(t), replace=False),
+        rng.integers(0, 2 ** 31, int(t) // 5).astype(np.uint32)]))
+        for t in rng.integers(80, 500, 300)]
+    tiles = (np.array([0, 128, 256, 256, 0]), np.array([0, 0, 128, 256, 0]),
+             np.array([1, 1, 1, 1, 0]))
+    for bound in ("mst", "greedy", "minhash"):
+        for cont, hs in ((False, small), (True, contained)):
+            sizes = [len(h) for h in hs]
+            sig = bm.stage_signatures(hs, 1024, 128, dev, bound,
+                                      col_sizes=sizes[::-1])
+            args = (sig.xd, sig.cd, sig.sd, *tiles,
+                    *bm.filter_scalars(THRESHOLD, 21, bound), cont, 128,
+                    bound)
+            got, want = bm.batched_mask(*args), bm.batched_mask_plain(*args)
+            what = f"small {bound} {'aaf' if cont else 'mash'}"
+            hold_exact(rec, "filter_mask", got[0], want[0], what)
+            hold_exact(rec, "filter_mask", got[1], want[1], what)
+    say("K1 small ragged (N=300 -> 384, 1024 bits, rb=128): bounds mst, "
+        "greedy, minhash x mash, containment: exact")
+
+
+def clear_targets(packs, rng, n_bytes=400):
+    """(4, C) int32 clear list over set bits of ``packs``: every bit of
+    random nonzero bytes, half of them bytes with several set bits (so
+    (tile, row, byte) targets repeat), then no-op padding."""
+    t, r, b = np.nonzero(packs)
+    nbits = np.unpackbits(packs[t, r, b][:, None], axis=1).sum(1)
+    multi = rng.permutation(np.flatnonzero(nbits >= 2))[:n_bytes // 2]
+    single = rng.permutation(np.flatnonzero(nbits == 1))
+    pick = np.concatenate([multi, single[:n_bytes - len(multi)]])
+    ents = [(t[q], r[q], b[q], 1 << k) for q in pick for k in range(8)
+            if packs[t[q], r[q], b[q]] >> k & 1]
+    out = np.zeros((4, 4096), dtype=np.int32)
+    out[:, :len(ents)] = np.array(ents, dtype=np.int64).T
+    return out
+
+
+def build_masks(hashes, rb, dev, n_tiles=None):
+    """K1's masks of the first ``n_tiles`` tiles of the triangular sweep of
+    ``hashes`` at ``rb`` (all when None): (signatures, geometry (3, T)
+    int64, packs, milliseconds of the build)."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    sig = bm.stage_signatures(hashes, BITS, rb, dev)
+    tiles = bm.triangle_tiles(sig.n_pad, rb)[:n_tiles]
+    geo = np.array([[r for r, _ in tiles], [c for _, c in tiles],
+                    [1] * len(tiles)], dtype=np.int64)
+    (_, packs), ms = cuda_ms(lambda: bm.batched_mask(
+        sig.xd, sig.cd, sig.sd, *geo,
+        *bm.filter_scalars(THRESHOLD, kssd_params().kmer_size), False, rb),
+        warmup=False)
+    return sig, geo, packs, ms
+
+
+def mixed_labels(planted, rng):
+    """Half the genomes keep their planted cluster's label, the rest get a
+    label of their own: the masks hold same- and cross-label bits."""
+    ids = np.arange(len(planted))
+    return np.where(rng.random(len(planted)) < 0.5, planted,
+                    N_CLUSTERS + ids).astype(np.int32)
+
+
+def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
+                need_repeats=True):
+    """K2 against its plain versions on copies of ``packs``; ``cases`` are
+    (label, None) for the full round and (label, (r_lo, span, cap)) for the
+    compact one.  Kernel and plain outputs and updated masks exactly
+    equal."""
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    geo_d = torch.from_numpy(geo.astype(np.int32)).to(dev)
+    labels_d = torch.from_numpy(labels).to(dev)
+    clr = torch.from_numpy(clr_np).to(dev)
+    live = clr_np[3] > 0
+    repeats = int(live.sum()) - len({tuple(e) for e in clr_np[:3].T[live]})
+    if need_repeats and not repeats:
+        raise AssertionError(f"{what}: the clear list repeats no target")
+    for label, compact in cases:
+        mine, ref = packs.clone(), packs.clone()
+        if compact is None:
+            got, ms = cuda_ms(lambda: lp.lp_round(mine, labels_d, clr,
+                                                  *geo_d, rb), reps=5)
+            want, plain_ms = cuda_ms(lambda: lp.round_plain(
+                ref, labels_d, clr, *geo_d, rb), warmup=False)
+        else:
+            r_lo, span, cap = compact
+            args = (labels_d, clr, *geo_d, r_lo, rb, span, cap)
+            got, ms = cuda_ms(lambda: lp.lp_round_compact(mine, *args),
+                              reps=5)
+            want, plain_ms = cuda_ms(lambda: lp.round_compact_plain(
+                ref, *args), warmup=False)
+        hold_exact(rec, "labelprop_round", got, want, f"{what} {label}")
+        hold_exact(rec, "labelprop_round", mine, ref,
+                   f"{what} {label} masks")
+        if torch.equal(mine, packs):
+            raise AssertionError(f"{what}: the clear list left the masks as "
+                                 "they were")
+        rec["labelprop_round"]["ms"].append(ms)
+        rec["labelprop_round"]["plain_ms"].append(plain_ms)
+        extra = f", ncol {int(want[1])}" if compact else ""
+        say(f"K2 {what} {label}: {len(geo[0])} tiles of rb={rb}, clear list "
+            f"{int(live.sum())} bits ({repeats} repeated targets), cross "
+            f"{int(want[0])}{extra}: exact; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms")
+        del mine, ref, got, want
+        torch.cuda.empty_cache()
+
+
+def phase_round_kernel(corpus, dev, rec):
+    say("== phase 3c: K2 (labelprop_round) against its plain versions")
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    rng = np.random.default_rng(3)
+    # (a) the main path's shapes: panel 0 of the N = 131,072 sweep (512
+    # tiles, n_pad 131,072) and its compact pull (span n_pad, cap 65,536);
+    # the clear list names bits of the panel's first and last 4 tiles
+    n = len(corpus)
+    sig, geo, packs, build_ms = build_masks(corpus, RB, dev, n_tiles=512)
+    n_pad, n_t = sig.n_pad, len(geo[0])
+    del sig
+    say(f"K1 panel 0 of N={n}: {n_t} tiles of rb={RB} in {build_ms:.3f} ms "
+        f"({build_ms / n_t:.3f} ms per tile)")
+    late = clear_targets(packs[-4:].cpu().numpy(), rng)
+    late[0] += n_t - 4
+    clr_np = np.concatenate([clear_targets(packs[:1].cpu().numpy(), rng),
+                             late], axis=1)
+    round_cases(rec, f"N={n} panel 0", packs, geo,
+                mixed_labels(np.arange(n_pad) % N_CLUSTERS, rng), clr_np, RB,
+                [("full", None),
+                 ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
+                dev, need_repeats=False)
+    del packs
+    torch.cuda.empty_cache()
+    # (b) cluster members side by side (genome i moves to cluster i % 64's
+    # block), so mask bytes hold several set bits and clear targets repeat;
+    # at rb = 4096 and at rb = 8192 (K2's shared memory past 48 KB, and K1
+    # held to its plain version there too)
+    hashes = corpus[:N_GENOMES]
+    order = np.argsort(np.arange(N_GENOMES) % N_CLUSTERS, kind="stable")
+    grouped = [hashes[i] for i in order]
+    planted = np.arange(N_GENOMES) * N_CLUSTERS // N_GENOMES
+    for rb, cases in (
+            (RB, [("full", None), ("compact cap=65536", (RB, 2 * RB, 65536)),
+                  ("compact cap=100", (RB, 2 * RB, 100))]),
+            (2 * RB, [("full", None),
+                      ("compact cap=4096", (2 * RB, 2 * RB, 4096))])):
+        sig, geo, packs, _ = build_masks(grouped, rb, dev)
+        if rb != RB:
+            args = (sig.xd, sig.cd, sig.sd, *geo,
+                    *bm.filter_scalars(THRESHOLD, kssd_params().kmer_size),
+                    False, rb)
+            (cnt, _), ms = cuda_ms(lambda: bm.batched_mask(*args), reps=3)
+            want_c, want_p = bm.batched_mask_plain(*args)
+            hold_exact(rec, "filter_mask", cnt, want_c, f"rb={rb} counts")
+            hold_exact(rec, "filter_mask", packs, want_p, f"rb={rb} masks")
+            say(f"K1 rb={rb} bits={BITS}, N={N_GENOMES} grouped: "
+                f"{len(geo[0])} tiles, counts {cnt.tolist()}: exact; kernel "
+                f"{ms / len(geo[0]):.3f} ms per tile")
+            del want_p
+        round_cases(rec, f"N={N_GENOMES} grouped", packs, geo,
+                    mixed_labels(planted, rng),
+                    clear_targets(packs.cpu().numpy(), rng), rb, cases, dev)
+        del sig, packs
+        torch.cuda.empty_cache()
+
+
+def phase_slice(hashes, dev, tmp):
+    say(f"== phase 6: clust-mst --fast --device --presketched -e, "
+        f"N={len(hashes)} (MST-free main path)")
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    folder = os.path.join(tmp, "slice_sketches")
+    t0 = time.perf_counter()
+    save_presketched(hashes, folder)
+    say(f"corpus saved in {time.perf_counter() - t0:.3f} s")
+    out = os.path.join(tmp, "slice_e.cluster")
+    bm.reset_launches()
+    lp.reset_launches()
+    bm.reset_pull_stats()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    rc = main(["--fast", "--device", "--presketched", folder, "-o", out,
+               "-d", str(THRESHOLD), "-e"], stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"filter_mask": bm.LAUNCHES["filter_mask"],
+                "labelprop_round": lp.LAUNCHES["labelprop_round"]}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"clust-mst returned {rc}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{launches}")
+    n = len(hashes)
+    got = partition(read_cluster_file(out))
+    planted = partition([list(range(c, n, N_CLUSTERS))
+                         for c in range(N_CLUSTERS)])
+    if got != planted:
+        raise AssertionError(f"{len(got)} clusters, not the "
+                             f"{N_CLUSTERS} planted ones")
+    st = lp.LP_STATS
+    if st["panels"] != 2:
+        raise AssertionError(f"expected 2 panels, ran {st['panels']}")
+    busy = (st["build_ms"] + st["round_ms"]) / 1e3
+    say(f"slice: {len(got)} clusters = planted; launches {launches}")
+    say("LP_STATS: " + ", ".join(f"{k}={v:.3f}" if isinstance(v, float)
+                                 else f"{k}={v}" for k, v in st.items()))
+    say(f"device (CUDA events): builds {st['build_ms']:.3f} ms, rounds "
+        f"{st['round_ms']:.3f} ms over {st['rounds']} rounds; busy share "
+        f"of the engine wall ~{busy / st['total_s']:.3f}")
+    say(f"wall {wall:.3f} s (clusters {stats['clusters_s']:.3f} s); pulled "
+        f"{bm.PULL_STATS['bytes']} B in {bm.PULL_STATS['pulls']} pulls; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
+    return launches
+
+
+def phase_engines(hashes, want, dev):
+    say(f"== phase 7: both MST-free engines at N={len(hashes)}, and the "
+        "-t 1 exact-order arm")
+    from rabbittclust_tpu_torch.host import (
+        clusters_from_forest, compute_mst, cut_forest)
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import cluster_fast as cf
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    k = kssd_params().kmer_size
+    for engine in ("stream", "lp"):
+        os.environ["RTC_CLUSTER_ENGINE"] = engine
+        bm.reset_launches()
+        lp.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = cf.threshold_clusters_device(hashes, THRESHOLD, k,
+                                               device=dev)
+        finally:
+            del os.environ["RTC_CLUSTER_ENGINE"]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if partition(got) != want:
+            raise AssertionError(f"{engine} engine: partition differs from "
+                                 "the host engine's")
+        k1, k2 = bm.LAUNCHES["filter_mask"], lp.LAUNCHES["labelprop_round"]
+        if k1 <= 0 or (k2 > 0) != (engine == "lp"):
+            raise AssertionError(f"{engine} engine launches: K1 {k1}, K2 "
+                                 f"{k2}")
+        say(f"{engine}: {len(got)} clusters = host engine's partition in "
+            f"{secs:.3f} s (K1 launches {k1}, K2 {k2})")
+    small = make_corpus(2000, SKETCH, N_CLUSTERS, SEED + 2)
+    t0 = time.perf_counter()
+    got, certified = cf.threshold_clusters_device_exact_order(
+        small, THRESHOLD, k, device=dev)
+    secs = time.perf_counter() - t0
+    serial = compute_mst(small, THRESHOLD, k, threads=1)
+    ref = clusters_from_forest(cut_forest(serial.mst, THRESHOLD), len(small))
+    if got != ref:
+        raise AssertionError("-t 1 exact order differs from the native "
+                             "serial engine's member order")
+    say(f"-t 1 exact order, N=2000: {len(got)} clusters, member order = "
+        f"the native serial engine's (certified: {certified}) in "
+        f"{secs:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -399,21 +768,29 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_identify()
     phase_build()
-    hashes = make_corpus(N_GENOMES, SKETCH, N_CLUSTERS, SEED)
+    t0 = time.perf_counter()
+    # one rng drawn in order: the first 16,384 genomes of the 131,072 are
+    # make_corpus(16384, ...)
+    corpus = make_corpus(N_SLICE, SKETCH, N_CLUSTERS, SEED)
+    hashes = corpus[:N_GENOMES]
+    say(f"corpus of {N_SLICE} genomes made in "
+        f"{time.perf_counter() - t0:.3f} s")
     rec = phase_kernels(hashes, dev)
+    phase_filter_kernel(hashes, dev, rec)
+    phase_round_kernel(corpus, dev, rec)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
-        launches = phase_end_to_end(hashes, dev, tmp)
+        launches, want = phase_end_to_end(hashes, dev, tmp)
         phase_from_fasta(tmp)
+        launches.update(phase_slice(corpus, dev, tmp))
+    phase_engines(hashes, want, dev)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
-    replaces = {"pair_counts_tiles": "rabbittclust_tpu/ops/intersect.py:110",
-                "pair_common": "rabbittclust_tpu/ops/engine.py:102"}
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_SRC,
-                "replaces": replaces[name], "launches": launches[name],
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],
                 "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0]}
-               for name in ("pair_counts_tiles", "pair_common")]
+               for name, (src, replaces) in KERNELS.items()]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

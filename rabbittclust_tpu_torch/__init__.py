@@ -7,13 +7,17 @@ the same workflows on an NVIDIA GPU through hand-written CUDA kernels
 ``host.py``.  It never imports ``jax``.
 
 Layout mirrors the JAX package:
-    ops/intersect.py  exact pair counts: kernels K4 / K5b and their plain
-                      torch versions
-    ops/engine.py     dense exact-MST engine (compact pull)
-    ops/pack.py       packed sketch planes on the device
-    ops/bitmap.py     mask bit-packing
-    workflows.py      clust-mst --fast --device workflows
-    cli/clust_mst.py  entry point
-    kernels/_build.py nvcc build of csrc/*.cu at first use
-    device.py         explicit device selection (no CPU fallback)
+    ops/intersect.py    exact pair counts: kernels K4 / K5b and their plain
+                        torch versions
+    ops/engine.py       dense exact-MST engine (compact pull)
+    ops/pack.py         packed sketch planes on the device
+    ops/bitmap.py       bitmap candidate filter: kernel K1, the stream
+                        engine's generator, mask bit-packing
+    ops/labelprop.py    resident-mask label-propagation engine: kernel K2
+    ops/cluster_fast.py MST-free dispatcher (stream / LP, -t 1 order)
+    ops/transfer.py     device-to-host pulls on events
+    workflows.py        clust-mst --fast --device workflows
+    cli/clust_mst.py    entry point
+    kernels/_build.py   nvcc build of csrc/*.cu at first use
+    device.py           explicit device selection (no CPU fallback)
 """

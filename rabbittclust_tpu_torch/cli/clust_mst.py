@@ -37,7 +37,9 @@ def main(argv=None, device: Optional[torch.device] = None,
          stats: Optional[dict] = None) -> int:
     """``device=None`` requires CUDA; ``torch.device("cpu")`` runs the plain
     torch versions of the kernels.  ``stats``, when given, receives the
-    run's phase times and counts (see ``ops.engine.compute_mst_device``)."""
+    run's phase times and counts (see ``ops.engine.compute_mst_device``;
+    ``clusters_s`` for the MST-free ``-e`` engines, whose phases are in
+    ``ops.labelprop.LP_STATS``)."""
     args = base_parser("mst").parse_args(argv)
     validate_common(args, "mst")
     opts = make_output_options(args, "mst")
@@ -60,8 +62,8 @@ def main(argv=None, device: Optional[torch.device] = None,
     device = resolve_device(device)
     if args.presketched:
         wf.clust_from_sketch_fast(args.presketched, args.output,
-                                  args.threshold, is_containment, opts,
-                                  device, stats)
+                                  args.threshold, args.threads,
+                                  is_containment, opts, device, stats)
         return 0
     if not args.input:
         print("ERROR: -i/--input or --presketched needed", file=sys.stderr)

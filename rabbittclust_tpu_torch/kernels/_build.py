@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into a plain-C shared library, at first use.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles ``csrc/*.cu`` (no
-PyTorch headers) into ``build/librtc_kernels_<hash>.so``, keyed by a hash
-of the sources and flags, and the library is loaded with ``ctypes``.
-Nothing runs at import time.  A missing ``nvcc`` or a failed build raises
-with the compiler's output; there is no fallback.
+``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles each ``csrc/*.cu``
+(no PyTorch headers) into an object file, one process per source, all
+started together; one more ``nvcc`` links them into
+``build/librtc_kernels_<hash>.so``, keyed by a hash of the sources and
+flags, and the library is loaded with ``ctypes``.  Nothing runs at import
+time.  A missing ``nvcc`` or a failed build raises with the compiler's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 def _sources():
@@ -67,14 +70,26 @@ def build() -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
     t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+                         for src, obj in zip(cu, objs))]
+    logs = [proc.communicate()[0] for _, proc in procs]  # wait for all
+    for (cmd, proc), out in zip(procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    log = proc.stderr + proc.stdout
+    log = "".join(logs) + proc.stderr + proc.stdout
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)  # atomic: concurrent builders race harmlessly
@@ -91,4 +106,14 @@ def load_kernels() -> ctypes.CDLL:
                                           ci, ci, ci, ci, ci, vp]
     lib.rtc_pair_common.restype = ci
     lib.rtc_pair_common.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    cf = ctypes.c_float
+    lib.rtc_filter_mask.restype = ci
+    lib.rtc_filter_mask.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,
+                                    cf, cf, cf, ci, cf, ci, ci, vp, vp, vp]
+    lib.rtc_lp_round.restype = ci
+    lib.rtc_lp_round.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp,
+                                 vp]
+    lib.rtc_lp_round_compact.restype = ci
+    lib.rtc_lp_round_compact.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci,
+                                         ci, vp, ci, ci, ci, vp, vp]
     return lib

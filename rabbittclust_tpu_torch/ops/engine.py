@@ -34,6 +34,7 @@ from ..host import (
 from .bitmap import pack_mask_u8
 from .intersect import _upload, pair_common, pair_counts_tiles
 from .pack import DevicePlanes, planes_to_device
+from .transfer import _host_async, _host_wait
 
 
 def _mst_batch(planes: DevicePlanes, r0s: np.ndarray, c0s: np.ndarray,
@@ -65,26 +66,6 @@ def _pair_common(planes: DevicePlanes, ii: np.ndarray,
                  jj: np.ndarray) -> np.ndarray:
     """Exact common counts for the surviving pairs (K5b), on the host."""
     return pair_common(planes.plane0, planes.plane1, ii, jj).cpu().numpy()
-
-
-def _host_async(t: torch.Tensor):
-    """Start a device-to-host copy into page-locked memory without waiting
-    for the rest of the stream; ``_host_wait`` returns the numpy array.  A
-    CPU tensor is returned as is."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return host, ev
-
-
-def _host_wait(pending) -> np.ndarray:
-    host, ev = pending
-    if ev is not None:
-        ev.synchronize()
-    return host.numpy()
 
 
 # Source: rabbittclust_tpu/ops/engine.py::_edges_from_pairs (numpy only),

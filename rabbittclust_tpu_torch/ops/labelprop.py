@@ -1,0 +1,421 @@
+"""Resident-mask label-propagation clustering on the GPU (counterpart of
+``rabbittclust_tpu/ops/labelprop.py``).
+
+The candidate masks of a panel of triangular tiles are built once by K1
+(``ops/bitmap.py::batched_mask``) and stay on the device.  Each round,
+kernel K2 (``csrc/labelprop_round.cu``, wrappers ``lp_round`` and
+``lp_round_compact``) clears the bits the host verified as failing and
+proposes, under the current union-find labels, each row's and each
+column's minimum cross-label candidate partner; the host pulls O(N)
+proposals, verifies them exactly (shared native ``gated_verify_merge``),
+merges the passes and pushes the new labels.  A panel is done when no
+cross-label candidate is left in it; the labels carry into the next panel.
+Panels, rounds, the compact pull after panel 0's round 1, the clear-list
+encoding and the ``max_rounds`` host finish are the JAX engine's, so the
+kept edges, and hence the clusters, are the same.
+
+Left out: the fused host input of the tunnel (``_round_fn_*_hin``) and the
+delta-label push (``RTC_LP_LABEL_DELTA``): labels and the clear list are
+two plain pageable copies per round.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..host import (
+    SENT,
+    CsrSketches,
+    UnionFind,
+    _encode_clear,
+    _lp_fallback,
+    clusters_from_forest,
+    gated_verify_merge,
+    sort_edges,
+)
+from .bitmap import (
+    account_pull,
+    batched_mask,
+    filter_scalars,
+    stage_signatures,
+    triangle_tiles,
+    unpack_bits,
+)
+from .intersect import _launch, _upload
+from .transfer import _host_async, _host_wait
+
+SENT = int(SENT)
+LAUNCHES = {"labelprop_round": 0}
+
+# the last run's phases (host seconds), counts and the device milliseconds
+# of the builds and rounds (CUDA events); pulled bytes are in
+# ops.bitmap.PULL_STATS
+LP_STATS = {"pack_s": 0.0, "stage_s": 0.0, "csr_s": 0.0, "pull_s": 0.0,
+            "verify_s": 0.0, "finish_s": 0.0, "total_s": 0.0, "rounds": 0,
+            "panels": 0, "proposals": 0, "build_ms": 0.0, "round_ms": 0.0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["labelprop_round"] = 0
+
+
+def reset_lp_stats() -> None:
+    for k in LP_STATS:
+        LP_STATS[k] = 0.0 if isinstance(LP_STATS[k], float) else 0
+
+
+def _clear_plain(packs: torch.Tensor, clr: torch.Tensor, rb: int) -> None:
+    """Clear the listed bits of ``packs`` in place.  ``clr`` is (4, C)
+    int32: tile, row, byte, bit value (0 = no-op).  Entries that share a
+    byte have their bit values OR-ed first, so none is lost."""
+    t, r, b, sub = clr.long()
+    flat = (t * rb + r) * (rb // 8) + b
+    flat = torch.where(sub != 0, flat, torch.zeros_like(flat))
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    shifts = torch.arange(8, device=clr.device)
+    bits = (sub[:, None] >> shifts) & 1
+    hit = torch.zeros((len(uniq), 8), dtype=torch.long, device=clr.device)
+    hit.index_add_(0, inv, bits)
+    clear = ((hit > 0).long() << shifts).sum(1).to(torch.uint8)
+    view = packs.view(-1)
+    view[uniq] = view[uniq] & ~clear
+
+
+def round_plain(packs, labels, clr, r0s, c0s, valid, rb) -> torch.Tensor:
+    """Plain K2 (``_round_fn``): clears ``clr`` from ``packs`` in place and
+    returns fused = [cross, row_p (n_pad), col_p (n_pad)] int32."""
+    _clear_plain(packs, clr, rb)
+    dev = packs.device
+    n_pad = labels.shape[0]
+    row_p = torch.full((n_pad,), SENT, dtype=torch.int32, device=dev)
+    col_p = torch.full((n_pad,), SENT, dtype=torch.int32, device=dev)
+    cross = torch.zeros(1, dtype=torch.int32, device=dev)
+    iota = torch.arange(rb, dtype=torch.int32, device=dev)
+    sent = torch.tensor(SENT, dtype=torch.int32, device=dev)
+    for t, (r0, c0, ok) in enumerate(zip(r0s.tolist(), c0s.tolist(),
+                                         valid.tolist())):
+        if not ok:
+            continue
+        m = unpack_bits(packs[t], torch.bool)
+        m &= labels[r0:r0 + rb, None] != labels[None, c0:c0 + rb]
+        cross += m.sum(dtype=torch.int32)
+        rmin = torch.where(m, iota[None, :] + c0, sent).amin(1)
+        cmin = torch.where(m, iota[:, None] + r0, sent).amin(0)
+        row_p[r0:r0 + rb] = torch.minimum(row_p[r0:r0 + rb], rmin)
+        col_p[c0:c0 + rb] = torch.minimum(col_p[c0:c0 + rb], cmin)
+    return torch.cat([cross, row_p, col_p])
+
+
+def compact_plain(fused, n_pad, r_lo, span, cap) -> torch.Tensor:
+    """[cross, ncol, row_p[r_lo, +span), col_idx (cap), col_val (cap)]:
+    the first ``cap`` proposing columns in ascending order, padded with
+    index 0 (``jnp.nonzero(size=cap, fill_value=0)``).  A cumulative sum
+    and a scatter, no host synchronisation."""
+    row_p = fused[1:1 + n_pad]
+    col_p = fused[1 + n_pad:]
+    mask = col_p < SENT
+    pos = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (pos < cap), pos, torch.full_like(pos, cap))
+    idx = torch.zeros(cap + 1, dtype=torch.long, device=fused.device)
+    idx.scatter_(0, slot, torch.arange(n_pad, device=fused.device))
+    idx = idx[:cap]
+    return torch.cat([fused[:1], mask.sum(dtype=torch.int32).view(1),
+                      row_p[r_lo:r_lo + span], idx.to(torch.int32),
+                      col_p[idx]])
+
+
+def round_compact_plain(packs, labels, clr, r0s, c0s, valid, r_lo, rb,
+                        span, cap) -> torch.Tensor:
+    """Plain compact K2 (``_round_fn_compact``)."""
+    fused = round_plain(packs, labels, clr, r0s, c0s, valid, rb)
+    return compact_plain(fused, labels.shape[0], r_lo, span, cap)
+
+
+def _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb):
+    dev = packs.device
+    if dev.type != "cuda":
+        raise ValueError(f"masks on {dev}: expected cuda or cpu")
+    if rb <= 0 or rb % 32 or rb > 16384:
+        raise ValueError(f"rb={rb}: must be a multiple of 32, <= 16384")
+    if (packs.dtype != torch.uint8 or packs.dim() != 3
+            or tuple(packs.shape[1:]) != (rb, rb // 8)
+            or not packs.is_contiguous()):
+        raise ValueError("masks must be a contiguous (T, rb, rb // 8) uint8 "
+                         "tensor")
+    for name, t in (("labels", labels), ("clear list", clr), ("r0s", r0s),
+                    ("c0s", c0s), ("valid", valid)):
+        if (t.dtype != torch.int32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{dev}")
+    if clr.dim() != 2 or clr.shape[0] != 4:
+        raise ValueError("the clear list must be (4, C)")
+    if not r0s.shape == c0s.shape == valid.shape == (packs.shape[0],):
+        raise ValueError("r0s, c0s and valid must have one entry per tile")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def lp_round(packs, labels, clr, r0s, c0s, valid, rb,
+             fused: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: ``round_plain``'s result, into ``fused`` when given (so a panel
+    allocates its outputs once).  Tensors on the device; the masks are
+    updated in place."""
+    if packs.device.type == "cpu":
+        return round_plain(packs, labels, clr, r0s, c0s, valid, rb)
+    _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb)
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    n_pad = labels.shape[0]
+    if fused is None:
+        fused = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
+                            device=packs.device)
+    with torch.cuda.device(packs.device):
+        _launch(lib.rtc_lp_round, packs.data_ptr(), labels.data_ptr(),
+                clr.data_ptr(), clr.shape[1], r0s.data_ptr(), c0s.data_ptr(),
+                valid.data_ptr(), packs.shape[0], rb, n_pad,
+                fused.data_ptr(), _stream(packs.device))
+    LAUNCHES["labelprop_round"] += 1
+    return fused
+
+
+def lp_round_compact(packs, labels, clr, r0s, c0s, valid, r_lo, rb, span,
+                     cap, work: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Compact K2: ``round_compact_plain``'s result, into ``out`` (with
+    ``work`` as the full round's scratch) when given."""
+    if packs.device.type == "cpu":
+        return round_compact_plain(packs, labels, clr, r0s, c0s, valid,
+                                   r_lo, rb, span, cap)
+    _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb)
+    n_pad = labels.shape[0]
+    if not (0 <= r_lo and r_lo + span <= n_pad and cap >= 0):
+        raise ValueError(f"row span [{r_lo}, +{span}) or cap {cap} outside "
+                         f"the {n_pad} labels")
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    dev = packs.device
+    if work is None:
+        work = torch.empty(1 + 2 * n_pad, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty(2 + span + 2 * cap, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(lib.rtc_lp_round_compact, packs.data_ptr(),
+                labels.data_ptr(), clr.data_ptr(), clr.shape[1],
+                r0s.data_ptr(), c0s.data_ptr(), valid.data_ptr(),
+                packs.shape[0], rb, n_pad, work.data_ptr(), r_lo, span, cap,
+                out.data_ptr(), _stream(dev))
+    LAUNCHES["labelprop_round"] += 1
+    return out
+
+
+def threshold_clusters_device_lp(
+    hashes: List[np.ndarray],
+    threshold: float,
+    kmer_size: int,
+    is_containment: bool = False,
+    bits: int = 8192,
+    row_block: int = 8192,
+    max_rounds: int = 256,
+    panel_tiles: int = 0,
+    device: Optional[torch.device] = None,
+) -> List[List[int]]:
+    """Exact single-linkage clusters at ``threshold`` (BFS-ordered like the
+    reference MST cut), the clusters of the JAX
+    ``threshold_clusters_device_lp``.  At most ``panel_tiles`` (default
+    ``RTC_LP_PANEL_TILES`` = 512) mask tiles are resident at once."""
+    n = len(hashes)
+    if n == 0:
+        return []
+    from ..device import resolve_device
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    clock = time.perf_counter
+    reset_lp_stats()
+    if os.environ.get("RTC_LP_LABEL_DELTA", "0") == "1":
+        print("-----note: RTC_LP_LABEL_DELTA is ignored (the port pushes "
+              "the full labels every round)", file=sys.stderr)
+    t_all = clock()
+    rb = min(row_block, max(128, 1 << max(n - 1, 1).bit_length()))
+    sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS)
+    n_pad = sig.n_pad
+    scalars = filter_scalars(threshold, kmer_size)
+
+    tiles = triangle_tiles(n_pad, rb)
+    if panel_tiles <= 0:
+        panel_tiles = int(os.environ.get("RTC_LP_PANEL_TILES", "512"))
+    t_cap = 1
+    while t_cap < min(len(tiles), panel_tiles):
+        t_cap *= 2
+    panels = [tiles[p:p + t_cap] for p in range(0, len(tiles), t_cap)]
+    panel_geo = [(min(r0 for r0, _ in panel),
+                  max(r0 for r0, _ in panel) + rb) for panel in panels]
+    multi = len(panels) > 1
+    span = cap = 0
+    if multi:
+        span = min(n_pad, max(hi - lo for lo, hi in panel_geo))
+        cap = min(n_pad, int(os.environ.get("RTC_LP_COL_CAP", "65536")))
+    prefetch = os.environ.get("RTC_LP_PREFETCH", "1") != "0" and multi
+
+    uf = UnionFind(n)
+    csr = None  # built after the first build is queued (overlaps it)
+    sizes64 = np.zeros(n_pad, dtype=np.int64)
+    sizes64[:n] = [len(h) for h in hashes]
+    kept_i: List[int] = []
+    kept_j: List[int] = []
+    kept_d: List[float] = []
+    build_events, round_events = [], []
+    g = np.arange(n_pad, dtype=np.int64)
+
+    def timed(events, fn, *args, **kw):
+        if not cuda:
+            return fn(*args, **kw)
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        out = fn(*args, **kw)
+        ev1.record()
+        events.append((ev0, ev1))
+        return out
+
+    def build(panel):
+        r0s = np.array([r0 for r0, _ in panel], dtype=np.int64)
+        c0s = np.array([c0 for _, c0 in panel], dtype=np.int64)
+        val = np.ones(len(panel), dtype=np.int64)
+        _counts, packs = timed(build_events, batched_mask, sig.xd, sig.cd,
+                               sig.sd, r0s, c0s, val, *scalars,
+                               is_containment, rb)
+        return packs, _upload(np.stack([r0s, c0s, val]), device)
+
+    def labels_arr():
+        roots = np.empty(n_pad, dtype=np.int32)
+        roots[:n] = uf.roots_array()[:n]
+        # padded rows keep distinct labels (they are maskless anyway)
+        roots[n:] = n + np.arange(n_pad - n, dtype=np.int32)
+        return roots
+
+    next_build = None
+    for p_idx, panel in enumerate(panels):
+        LP_STATS["panels"] += 1
+        t_off = p_idx * t_cap  # global index of the panel's first tile
+        packs, geo = next_build if next_build is not None else build(panel)
+        next_build = None
+        if csr is None:
+            t0 = clock()
+            csr = CsrSketches(hashes)
+            LP_STATS["csr_s"] += clock() - t0
+        r0s_d, c0s_d, val_d = geo
+        empty = np.empty(0, dtype=np.int64)
+        clr = _encode_clear(empty, empty, rb, t_off)
+        r_lo = min(panel_geo[p_idx][0], n_pad - span) if multi else 0
+        fused_buf = work = out = None
+        if cuda:  # the round's outputs, once per panel
+            fused_buf = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
+                                    device=device)
+            if multi:
+                work = fused_buf
+                out = torch.empty(2 + span + 2 * cap, dtype=torch.int32,
+                                  device=device)
+        rounds = 0
+        converged = False
+        while rounds < max_rounds:
+            rounds += 1
+            LP_STATS["rounds"] += 1
+            # panel 0 round 1: full pull; later rounds: compact pull
+            use_compact = multi and not (p_idx == 0 and rounds == 1)
+            labels_d = _upload(labels_arr(), device)
+            clr_d = _upload(np.stack([clr[0], clr[1], clr[2],
+                                      clr[3].astype(np.int32)]), device)
+            if use_compact:
+                res = timed(round_events, lp_round_compact, packs, labels_d,
+                            clr_d, r0s_d, c0s_d, val_d, r_lo, rb, span, cap,
+                            work=work, out=out)
+            else:
+                res = timed(round_events, lp_round, packs, labels_d, clr_d,
+                            r0s_d, c0s_d, val_d, rb, fused=fused_buf)
+            pending = _host_async(res)
+            if prefetch and rounds == 1 and p_idx + 1 < len(panels):
+                # the next panel's build queues behind this round and runs
+                # while the host verifies
+                next_build = build(panels[p_idx + 1])
+            t0 = clock()
+            fused = _host_wait(pending)
+            LP_STATS["pull_s"] += clock() - t0
+            account_pull(fused.nbytes)
+            if int(fused[0]) == 0:
+                converged = True
+                break
+            t0 = clock()
+            if use_compact:
+                ncol = int(fused[1])
+                row_p = np.full(n_pad, SENT, dtype=np.int32)
+                row_p[r_lo:r_lo + span] = fused[2:2 + span]
+                col_p = np.full(n_pad, SENT, dtype=np.int32)
+                k = min(ncol, cap)
+                col_p[fused[2 + span:2 + span + k]] = \
+                    fused[2 + span + cap:2 + span + cap + k]
+            else:
+                row_p = fused[1:1 + n_pad]
+                col_p = fused[1 + n_pad:]
+            rp = row_p < SENT
+            cp = col_p < SENT
+            # rows first: they star-collapse most components, and the
+            # re-gate below then drops most column proposals
+            ri, rj = g[rp], row_p[rp].astype(np.int64)
+            LP_STATS["proposals"] += len(ri)
+            ki, kj, kd, ok_r = gated_verify_merge(
+                uf, csr, sizes64, ri, rj, threshold, kmer_size,
+                is_containment)
+            kept_i.extend(ki.tolist())
+            kept_j.extend(kj.tolist())
+            kept_d.extend(kd.tolist())
+            ci, cj = col_p[cp].astype(np.int64), g[cp]
+            roots = uf.roots_array()
+            alive = roots[ci] != roots[cj]
+            ci, cj = ci[alive], cj[alive]
+            LP_STATS["proposals"] += len(ci)
+            ki, kj, kd, ok_c = gated_verify_merge(
+                uf, csr, sizes64, ci, cj, threshold, kmer_size,
+                is_containment)
+            kept_i.extend(ki.tolist())
+            kept_j.extend(kj.tolist())
+            kept_d.extend(kd.tolist())
+            # failed pairs -> the next round's clear list, each bit once
+            fi = np.concatenate([ri[~ok_r], ci[~ok_c]])
+            fj = np.concatenate([rj[~ok_r], cj[~ok_c]])
+            if len(fi):
+                _, sel = np.unique(fi * n_pad + fj, return_index=True)
+                fi, fj = fi[sel], fj[sel]
+            clr = _encode_clear(fi, fj, rb, t_off)
+            LP_STATS["verify_s"] += clock() - t0
+        if not converged:  # the exact host finish, from the pulled masks
+            host_packs = packs.cpu().numpy()
+            account_pull(host_packs.nbytes)
+            _lp_fallback(host_packs, panel, rb, n, uf, csr, sizes64,
+                         threshold, kmer_size, is_containment, kept_i,
+                         kept_j, kept_d)
+        del packs  # free this panel's masks before the next build
+
+    t0 = clock()
+    # the kept edges are union-find-gated, so they form a spanning forest
+    # already: sorting them gives Kruskal's order for the BFS
+    forest = sort_edges((np.asarray(kept_i, dtype=np.int64),
+                         np.asarray(kept_j, dtype=np.int64),
+                         np.asarray(kept_d, dtype=np.float64)))
+    clusters = clusters_from_forest(forest, n)
+    LP_STATS["finish_s"] = clock() - t0
+    if cuda:
+        torch.cuda.synchronize(device)
+        LP_STATS["build_ms"] = sum(a.elapsed_time(z)
+                                   for a, z in build_events)
+        LP_STATS["round_ms"] = sum(a.elapsed_time(z)
+                                   for a, z in round_events)
+    LP_STATS["total_s"] = clock() - t_all
+    return clusters

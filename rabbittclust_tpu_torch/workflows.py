@@ -3,12 +3,14 @@ branch of ``rabbittclust_tpu/workflows.py``).
 
 Sketching, persistence and the output tail (trees, auto-threshold, cluster
 files, noise removal, dedup/reps) are the shared host functions; only the
-pair engine differs: the dense exact-MST engine of ``ops/engine.py`` on an
-explicit torch device.
+engines differ, on an explicit torch device: the MST-free cluster engines
+of ``ops/cluster_fast.py`` for ``-e`` with no MST consumer, the dense
+exact-MST engine of ``ops/engine.py`` otherwise.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -22,6 +24,11 @@ from .host import (
     sketch_files_kssd,
     sketch_io,
     sketch_sequences_kssd,
+    write_cluster_file,
+)
+from .ops.cluster_fast import (
+    threshold_clusters_device,
+    threshold_clusters_device_exact_order,
 )
 from .ops.engine import compute_mst_device
 
@@ -56,19 +63,53 @@ def _compute_mst_engine(ss: SketchSet, threshold: float, kmer_size: int,
         with_dense=opts.dense, device=device, stats=stats)
 
 
+def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
+                       output_file: str, is_containment: bool, threads: int,
+                       device: torch.device, stats: Optional[dict]):
+    """The MST-free branch of the JAX ``compute_kssd_clusters``: ``-t 1``
+    gives the reference's serial member order, ``-t >1`` the BFS order of
+    the verified spanning forest; the partition is the same."""
+    timer = Timer()
+    phase = "computing clusters (device, MST-free)"
+    if threads == 1:
+        log("-----using the MST-free device cluster engine "
+            "(-t 1: reference serial member order)")
+        with timer.phase(phase):
+            clusters, exact = threshold_clusters_device_exact_order(
+                ss.hashes, threshold, p.kmer_size,
+                is_containment=is_containment, device=device)
+        if not exact:
+            log("-----note: clusters share hashes across the threshold "
+                "partition — ran the full serial engine for the "
+                "reference-exact member order")
+    else:
+        log("-----using the MST-free device cluster engine "
+            "(partition-exact; member order is deterministic but not the "
+            "serial reference's — use -t 1 for that)")
+        with timer.phase(phase):
+            clusters = threshold_clusters_device(
+                ss.hashes, threshold, p.kmer_size,
+                is_containment=is_containment, device=device)
+    write_cluster_file(output_file, clusters, ss, threshold)
+    log(f"-----write the cluster result into: {output_file}")
+    log(f"-----the number of clusters is: {len(clusters)}")
+    if stats is not None:
+        stats["clusters_s"] = timer.phases[phase]
+    return clusters, ss
+
+
 def compute_kssd_clusters(ss: SketchSet, p: KssdParams, threshold: float,
                           output_file: str,
                           is_containment: bool, opts: OutputOptions,
                           folder: Optional[str], device: torch.device,
-                          stats: Optional[dict] = None):
+                          stats: Optional[dict] = None, threads: int = 1):
     """The MST module of the JAX ``compute_kssd_clusters``.  ``-e`` with no
-    MST consumer runs the dense engine too (the JAX package's MST-free
-    engine is not ported yet); the partition is the one the JAX package
-    gives with ``RTC_MST_CLUSTERS_FAST=0``."""
-    if not _mst_consumers(opts):
-        log("-----note: -e with no MST consumer runs the dense MST engine "
-            "(the MST-free cluster engine is not ported yet; same "
-            "partition)")
+    MST consumer takes the MST-free engines, under the JAX package's
+    condition (``RTC_MST_CLUSTERS_FAST=0`` restores the dense engine)."""
+    if (os.environ.get("RTC_MST_CLUSTERS_FAST", "1") != "0"
+            and opts.use_device and not _mst_consumers(opts)):
+        return _mst_free_clusters(ss, p, threshold, output_file,
+                                  is_containment, threads, device, stats)
     timer = Timer()
     with timer.phase("computing mst"):
         res = _compute_mst_engine(ss, threshold, p.kmer_size, is_containment,
@@ -115,11 +156,13 @@ def clust_from_genome_fast(input_file: str, output_file: str,
     if stats is not None:
         stats["sketch_s"] = timer.phases["computing sketch (with index)"]
     return compute_kssd_clusters(ss, p, threshold, output_file,
-                                 is_containment, opts, folder, device, stats)
+                                 is_containment, opts, folder, device, stats,
+                                 threads)
 
 
 def clust_from_sketch_fast(folder_path: str, output_file: str,
-                           threshold: float, is_containment: bool, opts: OutputOptions,
+                           threshold: float, threads: int,
+                           is_containment: bool, opts: OutputOptions,
                            device: torch.device,
                            stats: Optional[dict] = None):
     """--presketched path."""
@@ -127,7 +170,7 @@ def clust_from_sketch_fast(folder_path: str, output_file: str,
     log(f"-----load {len(ss)} kssd sketches from: {folder_path}")
     return compute_kssd_clusters(ss, p, threshold, output_file,
                                  is_containment, opts, folder_path, device,
-                                 stats)
+                                 stats, threads)
 
 
 # --premsted needs no pair engine: the shared host function

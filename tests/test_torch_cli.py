@@ -2,9 +2,11 @@
 the JAX package's CLI: cluster files, trees and edge.mst byte-equal.
 
 The JAX side runs with RTC_MESH=0 (the conftest's 8 virtual CPU devices
-would otherwise select the mesh ring) and, for ``-e``,
-RTC_MST_CLUSTERS_FAST=0: the port runs the dense MST engine for ``-e``
-until its MST-free engine is ported."""
+would otherwise select the mesh ring).  The dense-engine tests set
+RTC_MST_CLUSTERS_FAST=0 for both CLIs (``-e`` then keeps the dense MST
+engine); the MST-free tests leave it unset, the default, and pin the JAX
+stream engine to packed-mask pulls (RTC_PULL_MODE=mask), the port's only
+pull."""
 
 import os
 import shutil
@@ -21,11 +23,16 @@ CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_both(tmp_path, monkeypatch, argv, presketched=None):
+def _run_both(tmp_path, monkeypatch, argv, presketched=None,
+              mst_free=False):
     """Run argv through both CLIs, each in its own working directory (run
     folders are named by the clock); returns {side: (out_dir, folder)}."""
     monkeypatch.setenv("RTC_MESH", "0")
-    monkeypatch.setenv("RTC_MST_CLUSTERS_FAST", "0")
+    if mst_free:
+        monkeypatch.delenv("RTC_MST_CLUSTERS_FAST", raising=False)
+        monkeypatch.setenv("RTC_PULL_MODE", "mask")
+    else:
+        monkeypatch.setenv("RTC_MST_CLUSTERS_FAST", "0")
     res = {}
     for side, fn in (("jax", jax_main), ("port", port_main)):
         wd = tmp_path / side
@@ -72,6 +79,24 @@ def test_cli_no_save_byte_equal(synthetic_genomes, tmp_path, monkeypatch):
     (jw, jf), (pw, pf) = res["jax"], res["port"]
     assert jf is None and pf is None  # nothing saved
     assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+
+
+@pytest.mark.parametrize("threads", ["1", "2"])
+def test_cli_mst_free_e_byte_equal(synthetic_genomes, tmp_path, monkeypatch,
+                                   capsys, threads):
+    """``-e`` with no MST consumer, the JAX CLI's default MST-free engine:
+    ``-t 1`` the reference's serial member order, ``-t 2`` the BFS order of
+    the verified forest."""
+    res = _run_both(tmp_path, monkeypatch,
+                    _fresh_args(synthetic_genomes) + ["-e", "-t", threads],
+                    mst_free=True)
+    # both CLIs took the MST-free engine
+    assert capsys.readouterr().err.count("MST-free device cluster") == 2
+    (jw, jf), (pw, pf) = res["jax"], res["port"]
+    assert jf is None and pf is None  # nothing saved
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    with open(pw / "out.cluster") as f:
+        assert f.read().count("the cluster") == 4
 
 
 def test_cli_newick_tree_byte_equal(synthetic_genomes, tmp_path,

@@ -1,5 +1,5 @@
-"""Kernels K4 / K5b and the slice's engine on the card, against their plain
-torch versions and the native host engine.  Marked ``cuda``; every test
+"""Kernels K1 / K2 / K4 / K5b and the port's engines on the card, against
+their plain torch versions and the native host engine.  Marked ``cuda``; every test
 skips inside itself when no GPU is visible.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -17,10 +17,13 @@ from rabbittclust_tpu_torch.host import (
     cut_forest,
     pack_sketches,
 )
-from rabbittclust_tpu_torch.ops import engine
+from rabbittclust_tpu_torch.ops import bitmap as bm
+from rabbittclust_tpu_torch.ops import cluster_fast, engine
 from rabbittclust_tpu_torch.ops import intersect as ix
+from rabbittclust_tpu_torch.ops import labelprop as lp
 from rabbittclust_tpu_torch.ops.pack import planes_to_device
-from torch_port_data import clustered_sketches
+from torch_port_data import clear_list, clustered_sketches, \
+    containment_sketches
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +121,115 @@ def test_engine_on_card_matches_host(gpu):
     assert sorted(part) == sorted(ref)
     assert np.array_equal(got.ani, want.ani)
     assert stats["sweep_ms"] > 0
+
+
+def _signatures(hashes, bits, rb, device, bound="mst"):
+    sizes = [len(h) for h in hashes]
+    return bm.stage_signatures(hashes, bits, rb, device, bound,
+                               col_sizes=sizes[::-1])
+
+
+TILES = ([0, 128, 256, 256, 0], [0, 0, 128, 256, 0], [1, 1, 1, 1, 0])
+
+
+@pytest.mark.parametrize("bound", ["mst", "greedy", "minhash"])
+@pytest.mark.parametrize("containment", [False, True], ids=["mash", "aaf"])
+@pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
+def test_k1_matches_plain_small_ragged(gpu, bound, containment, use64):
+    """300 genomes padded to 384 (a padded last row block), diagonal and
+    off-diagonal tiles and a valid == 0 slot."""
+    hashes = containment_sketches(300) if containment else \
+        clustered_sketches(n=300, dtype=np.uint64 if use64 else np.uint32)
+    sig = _signatures(hashes, 1024, 128, gpu, bound)
+    sc = bm.filter_scalars(0.05, 21, bound)
+    before = bm.LAUNCHES["filter_mask"]
+    got = bm.batched_mask(sig.xd, sig.cd, sig.sd, *TILES, *sc,
+                          containment, 128, bound)
+    torch.cuda.synchronize()
+    assert bm.LAUNCHES["filter_mask"] == before + 1
+    want = bm.batched_mask_plain(sig.xd, sig.cd, sig.sd,
+                                 *map(np.asarray, TILES), *sc, containment,
+                                 128, bound)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert int(want[0].sum()) > 0
+
+
+def test_k1_matches_plain_slice_shape(gpu):
+    """rb = 4096, 8192 bits: a diagonal and an off-diagonal tile."""
+    hashes = clustered_sketches(n=8000, s=1000, n_clusters=64, seed=7)
+    sig = _signatures(hashes, 8192, 4096, gpu)
+    sc = bm.filter_scalars(0.05, 22)
+    tiles = ([4096, 4096, 0], [0, 4096, 0], [1, 1, 0])
+    got = bm.batched_mask(sig.xd, sig.cd, sig.sd, *tiles, *sc, False, 4096)
+    want = bm.batched_mask_plain(sig.xd, sig.cd, sig.sd,
+                                 *map(np.asarray, tiles), *sc, False, 4096)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[0][0]) > 0
+
+
+def _resident_masks(gpu, n=600, rb=128):
+    """K1's masks of every triangular tile, one of them invalid; cluster
+    members sit side by side, so mask bytes hold several set bits."""
+    hashes = clustered_sketches(n=n, n_clusters=12)
+    hashes = [hashes[i] for i in np.argsort(np.arange(n) % 12,
+                                            kind="stable")]
+    sig = _signatures(hashes, 1024, rb, gpu)
+    tiles = bm.triangle_tiles(sig.n_pad, rb)
+    r0s = np.array([r for r, _ in tiles])
+    c0s = np.array([c for _, c in tiles])
+    val = np.ones(len(tiles), dtype=np.int64)
+    val[3] = 0
+    _, packs = bm.batched_mask(sig.xd, sig.cd, sig.sd, r0s, c0s, val,
+                               *bm.filter_scalars(0.05, 21), False, rb)
+    geo = torch.from_numpy(np.stack([r0s, c0s, val]).astype(np.int32))
+    return packs, geo.to(gpu), sig.n_pad
+
+
+@pytest.mark.parametrize("cap", [None, 5, 100000], ids=["full", "cap5",
+                                                          "cap_large"])
+def test_k2_matches_plain(gpu, cap):
+    rb = 128
+    packs, geo, n_pad = _resident_masks(gpu, rb=rb)
+    rng = np.random.default_rng(2)
+    labels = torch.from_numpy(rng.integers(0, 40, n_pad).astype(
+        np.int32)).to(gpu)
+    clr_np = clear_list(packs.cpu().numpy(), rng)
+    assert len({tuple(e) for e in clr_np[:3].T[clr_np[3] > 0]}) < \
+        int((clr_np[3] > 0).sum())  # repeated targets
+    clr = torch.from_numpy(clr_np).to(gpu)
+    mine, ref = packs.clone(), packs.clone()
+    before = lp.LAUNCHES["labelprop_round"]
+    if cap is None:
+        got = lp.lp_round(mine, labels, clr, *geo, rb)
+        want = lp.round_plain(ref, labels, clr, *geo, rb)
+    else:
+        span = min(256, n_pad)
+        got = lp.lp_round_compact(mine, labels, clr, *geo, 128, rb, span,
+                                  min(cap, n_pad))
+        want = lp.round_compact_plain(ref, labels, clr, *geo, 128, rb,
+                                      span, min(cap, n_pad))
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES["labelprop_round"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(mine, ref)
+    assert not torch.equal(mine, packs)  # the clear list took effect
+    assert int(want[0]) > 0
+
+
+@pytest.mark.parametrize("engine_name", ["stream", "lp"])
+def test_cluster_engines_on_card_match_host(gpu, engine_name):
+    hashes = clustered_sketches(n=1500, s=300, n_clusters=25, seed=4)
+    bm.reset_launches()
+    lp.reset_launches()
+    if engine_name == "lp":  # 21 tiles in panels of 4: compact pulls
+        got = lp.threshold_clusters_device_lp(
+            hashes, 0.05, 21, row_block=256, panel_tiles=4, device=gpu)
+    else:
+        got = cluster_fast.threshold_clusters_device(
+            hashes, 0.05, 21, row_block=256, engine="stream", device=gpu)
+    assert bm.LAUNCHES["filter_mask"] > 0
+    assert (lp.LAUNCHES["labelprop_round"] > 0) == (engine_name == "lp")
+    want = clusters_from_forest(cut_forest(compute_mst(hashes, 0.05,
+                                                       21).mst, 0.05), 1500)
+    assert sorted(map(sorted, got)) == sorted(map(sorted, want))

@@ -36,3 +36,27 @@ def containment_sketches(n=100, seed=5):
             np.uint32))
         out.append(np.unique(np.concatenate([sub, noise])))
     return out
+
+
+def clear_list(packs, rng, n_pairs=40, pad_to=256):
+    """(4, pad_to) int32 clear list (tile, row, byte, bit value) over set
+    bits of the packed masks ``packs`` (T, rb, rb // 8) uint8: every set
+    bit of ``n_pairs`` random nonzero bytes, half of them bytes with
+    several set bits, one entry per bit, so (tile, row, byte) targets
+    repeat; then no-op padding (bit value 0)."""
+    t, r, b = np.nonzero(packs)
+    nbits = np.unpackbits(packs[t, r, b][:, None], axis=1).sum(1)
+    multi = rng.permutation(np.flatnonzero(nbits >= 2))[:n_pairs // 2]
+    single = rng.permutation(np.flatnonzero(nbits == 1))
+    order = np.concatenate([multi, single[:n_pairs - len(multi)]])
+    ents = []
+    for q in order:
+        byte = int(packs[t[q], r[q], b[q]])
+        for k in range(8):
+            if byte >> k & 1:
+                ents.append((t[q], r[q], b[q], 1 << k))
+    ents = ents[:pad_to]
+    out = np.zeros((4, pad_to), dtype=np.int32)
+    if ents:
+        out[:, :len(ents)] = np.array(ents, dtype=np.int32).T
+    return out
