@@ -12,10 +12,15 @@ Phases, one line or block each; any failure raises (non-zero exit):
    with nvcc, one process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
-   events.  K4 / K5b at W = 12, K = 1024, rb = 4096; K1 at rb = 4096 and
-   8192 bits (diagonal, off-diagonal and padded tiles, an invalid slot;
-   small cases of its three bounds and both distances; rb = 8192), beside
-   the shared-bit product alone in float32 and in bfloat16; K2, full and
+   events, beside the least time the card could take for the same work
+   (its bound: bytes over 3.35 TB/s or operations over the peak of their
+   type, computed from this run's inputs; NVIDIA publishes no rate for
+   K1's single-bit tensor-core products, so phase 3b measures the card's
+   rate of that instruction first).  K4 / K5b at W = 12, K = 1024,
+   rb = 4096; K1 at rb = 4096 and 8192 bits (diagonal, off-diagonal and
+   padded tiles, an invalid slot; small cases of its three bounds and both
+   distances, ragged rb of 96 and 160 and 64 to 8192 bits; rb = 8192),
+   beside the shared-bit product alone in float32 and in bfloat16; K2, full and
    compact, over K1's masks with random labels: panel 0 of the N = 131,072
    sweep (512 tiles, span n_pad, cap 65,536), and at N = 16,384 with a
    clear list of repeated targets at rb = 4096 and 8192;
@@ -55,6 +60,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GENOMES, SKETCH, N_CLUSTERS, SEED, THRESHOLD = 16384, 1000, 64, 7, 0.05
 N_SLICE, BITS, RB = 131072, 8192, 4096
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
+HBM_BPS = 3.35e12       # device memory, bytes/s
+INT8_TC_OPS = 1979e12   # int8 tensor-core operations/s
+CORE_OPS = 67e12        # operations/s outside the tensor cores (float32;
+#                         an int32 compare is issued at most at this rate)
 # name: (source, the JAX function it replaces)
 KERNELS = {
     "pair_counts_tiles": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
@@ -70,8 +80,10 @@ KERNELS = {
 NATIVE_PROBE = r"""
 import os, sys, tempfile
 import numpy as np
-from rabbittclust_tpu_torch.host import (
-    _decode_packed_mask, compute_mst, load_native, sketch_files_kssd)
+from rabbittclust_tpu_torch.cluster.mst import compute_mst
+from rabbittclust_tpu_torch.ops.bitmap import _decode_packed_mask
+from rabbittclust_tpu_torch.sketch.kssd import sketch_files_kssd
+from rabbittclust_tpu_torch.utils.native import load_native
 assert load_native() is not None, "the native library did not load"
 rng = np.random.default_rng(0)
 hashes = [np.unique(rng.integers(0, 2**31, 300).astype(np.uint32))
@@ -137,7 +149,8 @@ def phase_identify():
                          text=True, timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    say(smi.stdout.strip())
+    card = smi.stdout.strip()
+    say(card)
     say(f"torch.cuda.get_device_name(0)={torch.cuda.get_device_name(0)} "
         f"device_count={torch.cuda.device_count()} torch={torch.__version__}"
         f" cuda={torch.version.cuda} python={sys.version.split()[0]}")
@@ -152,6 +165,7 @@ def phase_identify():
         f"{'avx512f' in info.get('flags', '').split()}, "
         f"{os.cpu_count()} cores)")
     check_native()
+    return card
 
 
 def check_native():
@@ -197,6 +211,21 @@ def phase_build():
     _build.load_kernels()
 
 
+def bound(n_bytes, n_ops, ops_rate):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``n_bytes`` and do ``n_ops`` operations at ``ops_rate``."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / ops_rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def occupancy(pl):
+    """(G, K) int64: the non-pad slots of each (genome, bucket); a pad has
+    the top bit set (in plane1 for 64-bit hashes, ``ops/pack.py``)."""
+    top = pl.plane0 if pl.plane1 is None else pl.plane1
+    return (top >= 0).sum(1, dtype=torch.int64)
+
+
 def _k4_plain_tile(pl, r0, c0, rb, rows=512):
     """Plain K4 over one tile, in slices of ``rows`` rows."""
     out = torch.empty((rb, rb), dtype=torch.int32, device=pl.plane0.device)
@@ -212,11 +241,12 @@ def _k4_plain_tile(pl, r0, c0, rb, rows=512):
 
 def phase_kernels(hashes, dev):
     say("== phase 3: kernels against their plain versions on the card")
-    from rabbittclust_tpu_torch.host import pack_sketches
+    from rabbittclust_tpu_torch.ops.pack import pack_sketches
     from rabbittclust_tpu_torch.ops import intersect as ix
     from rabbittclust_tpu_torch.ops.pack import planes_to_device
-    rec = {"pair_counts_tiles": {"err": 0, "ms": [], "plain_ms": []},
-           "pair_common": {"err": 0, "ms": [], "plain_ms": []}}
+    rec = {"pair_counts_tiles": {"err": 0, "ms": [], "plain_ms": [],
+                                 "bound": []},
+           "pair_common": {"err": 0, "ms": [], "plain_ms": [], "bound": []}}
 
     def check(name, got, want, what):
         if got.shape != want.shape:
@@ -242,11 +272,22 @@ def phase_kernels(hashes, dev):
         want, plain_ms = cuda_ms(lambda: _k4_plain_tile(pl, r0, c0, rb),
                                  warmup=False)
         check("pair_counts_tiles", got[0], want, f"{label} tile")
+        # the compares these inputs need: the real slots of each bucket of
+        # the rows against those of the same bucket of the columns
+        occ = occupancy(pl)
+        need = int((occ[r0:r0 + rb].sum(0) * occ[c0:c0 + rb].sum(0)).sum())
+        planes = 1 + int(use64)
+        k4_bound = bound(2 * rb * pk.width * pk.k * 4 * planes + rb * rb * 4,
+                         need, CORE_OPS)
         rec["pair_counts_tiles"]["ms"].append(ms)
         rec["pair_counts_tiles"]["plain_ms"].append(plain_ms)
+        rec["pair_counts_tiles"]["bound"].append(k4_bound)
         say(f"K4 {label}: N={pk.n} W={pk.width} K={pk.k} rb={rb} tile "
             f"({r0},{c0}): exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms; pairs with common>0: {int((want > 0).sum())}")
+            f"ms; pairs with common>0: {int((want > 0).sum())}; compares "
+            f"needed {need} of the W^2 K rb^2 = "
+            f"{pk.width ** 2 * pk.k * rb * rb} made; bound {k4_bound[0]:.4f}"
+            f" ms ({k4_bound[1]}), kernel at {k4_bound[0] / ms:.4f} of it")
         rng = np.random.default_rng(1)
         ii = rng.integers(0, len(hs), size=100_000)
         jj = rng.integers(0, len(hs), size=100_000)
@@ -256,10 +297,17 @@ def phase_kernels(hashes, dev):
         want, plain_ms = cuda_ms(lambda: ix.pair_common_plain(
             pl.plane0, pl.plane1, it, jt))
         check("pair_common", got, want, label)
+        need = sum(int((occ[it[s:s + 10_000]] * occ[jt[s:s + 10_000]]).sum())
+                   for s in range(0, len(ii), 10_000))
+        touched = len(np.union1d(ii, jj))
+        k5_bound = bound(touched * pk.width * pk.k * 4 * planes
+                         + 12 * len(ii), need, CORE_OPS)
         rec["pair_common"]["ms"].append(ms)
         rec["pair_common"]["plain_ms"].append(plain_ms)
+        rec["pair_common"]["bound"].append(k5_bound)
         say(f"K5b {label}: 100000 random pairs: exact; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms; compares needed {need}, bound "
+            f"{k5_bound[0]:.4f} ms ({k5_bound[1]})")
         del pl, got, want
         torch.cuda.empty_cache()
 
@@ -292,7 +340,7 @@ def phase_kernels(hashes, dev):
 
 
 def kssd_params():
-    from rabbittclust_tpu_torch.host import KssdParams
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams
     p = KssdParams.from_kmer_size(21, 3)
     assert not p.use64
     return p
@@ -300,7 +348,8 @@ def kssd_params():
 
 def save_presketched(hashes, folder):
     """The corpus as a --presketched run folder of genomes genome_<i>."""
-    from rabbittclust_tpu_torch.host import SketchSet, sketch_io
+    from rabbittclust_tpu_torch.sketch.base import SketchSet
+    from rabbittclust_tpu_torch.state import sketch_io
     p = kssd_params()
     ss = SketchSet("kssd", p, True, p.use64)
     for i, h in enumerate(hashes):
@@ -328,8 +377,9 @@ def phase_end_to_end(hashes, dev, tmp):
     say(f"== phase 4: clust-mst --fast --device --presketched, "
         f"N={len(hashes)}")
     from rabbittclust_tpu_torch.cli.clust_mst import main
-    from rabbittclust_tpu_torch.host import (
-        clusters_from_forest, compute_mst, cut_forest, sketch_io)
+    from rabbittclust_tpu_torch.cluster.mst import (
+        clusters_from_forest, compute_mst, cut_forest)
+    from rabbittclust_tpu_torch.state import sketch_io
     from rabbittclust_tpu_torch.ops import intersect as ix
 
     folder = os.path.join(tmp, "sketches")
@@ -398,8 +448,9 @@ def phase_end_to_end(hashes, dev, tmp):
 def phase_from_fasta(tmp):
     say("== phase 5: clust-mst --fast --device -l -i list (from FASTA)")
     from rabbittclust_tpu_torch.cli.clust_mst import main
-    from rabbittclust_tpu_torch.host import (
-        clusters_from_forest, cut_forest, sketch_io)
+    from rabbittclust_tpu_torch.cluster.mst import (
+        clusters_from_forest, cut_forest)
+    from rabbittclust_tpu_torch.state import sketch_io
     rng = np.random.default_rng(11)
     ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
     work = os.path.join(tmp, "fasta")
@@ -446,7 +497,8 @@ def phase_from_fasta(tmp):
 
 def hold_exact(rec, name, got, want, what):
     """Kernel output ``got`` must equal the plain version's ``want``."""
-    entry = rec.setdefault(name, {"err": 0, "ms": [], "plain_ms": []})
+    entry = rec.setdefault(name, {"err": 0, "ms": [], "plain_ms": [],
+                                  "bound": []})
     if got.shape != want.shape:
         raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -458,9 +510,76 @@ def hold_exact(rec, name, got, want, what):
                              "(must be 0)")
 
 
-def phase_filter_kernel(hashes, dev, rec):
+def b1_rate(dev):
+    """Operations/s of ``mma.sync m16n8k256 .b1 .and.popc`` on this card,
+    two a bit multiply-add as int8 rates count them.  NVIDIA publishes no
+    such rate for the H100, so it is measured: register-only chains of the
+    instruction (``filter_mask.cu::mma_b1_peak_kernel``), 4, 8 or 16
+    independent chains a thread at two launch shapes, each launch ~1 ms
+    or more; the fastest."""
+    from rabbittclust_tpu_torch.kernels import _build
+    lib = _build.load_kernels()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    best = 0.0
+    for chains in (4, 8, 16):
+        iters = 32768 // chains
+        for per_sm, threads in ((2, 256), (4, 256)):
+            blocks = sms * per_sm
+            out = torch.empty(blocks * threads, dtype=torch.int32,
+                              device=dev)
+
+            def run():
+                rc = lib.rtc_mma_b1_peak(chains, blocks, threads, iters,
+                                         out.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"rtc_mma_b1_peak: CUDA error {rc}")
+
+            _, ms = cuda_ms(run, reps=5)
+            rate = (blocks * threads // 32 * iters * chains * 2 * 16 * 8
+                    * 256 / (ms * 1e-3))
+            say(f"mma.sync m16n8k256 .b1 .and.popc alone: {blocks} blocks x"
+                f" {threads} threads, {chains} chains of {iters}: "
+                f"{ms:.4f} ms, {rate / 1e12:.1f} TOP/s")
+            best = max(best, rate)
+    return best
+
+
+def k1_bound(rb, bits, b1_ops):
+    """K1's bound per tile: the rb^2 bits bit multiply-adds of the
+    shared-bit product, two operations each, at ``b1_ops`` (the measured
+    rate of K1's instruction); its bytes are the tile's two signature row
+    blocks and its packed mask."""
+    return bound(2 * rb * bits // 8 + rb * rb // 8, 2 * rb * rb * bits,
+                 b1_ops)
+
+
+def bf16_product_ms(bm, xd, r0, c0, rb):
+    """The shared-bit product of tile (r0, c0) alone as one bfloat16
+    ``torch.mm`` with a float32 result (exact for 0/1 operands): milliseconds,
+    and whether it equals the float32 product."""
+    xi = bm.unpack_bits(xd[r0:r0 + rb], torch.bfloat16)
+    xj = bm.unpack_bits(xd[c0:c0 + rb], torch.bfloat16)
+    b16, ms = cuda_ms(lambda: torch.mm(xi, xj.T, out_dtype=torch.float32),
+                      reps=5)
+    return b16, ms
+
+
+def say_k1(rb, ms, mm_ms, card, b1_ops):
+    b, by = k1_bound(rb, BITS, b1_ops)
+    int8 = 1e3 * 2 * rb * rb * BITS / INT8_TC_OPS
+    say(f"K1 per {rb}^2 tile at {BITS} bits: {ms:.4f} ms; bfloat16 torch.mm "
+        f"of the same product {mm_ms:.4f} ms (same call); bound {b:.4f} ms "
+        f"({by}, at the measured .b1 rate {b1_ops / 1e12:.1f} TOP/s); K1 at "
+        f"{b / ms:.3f} of the bound; the same operations at the published "
+        f"int8 rate take {int8:.4f} ms (an s8 product's floor, not this "
+        f"kernel's); card {card}")
+
+
+def phase_filter_kernel(hashes, dev, rec, card):
     say("== phase 3b: K1 (filter_mask) against batched_mask_plain")
     from rabbittclust_tpu_torch.ops import bitmap as bm
+    b1_ops = b1_rate(dev)
     k = kssd_params().kmer_size
     # 3.5 row blocks of genomes: the last row block is padded
     sig = bm.stage_signatures(hashes[:3 * RB + RB // 2], BITS, RB, dev)
@@ -475,6 +594,7 @@ def phase_filter_kernel(hashes, dev, rec):
     hold_exact(rec, "filter_mask", packs, want_p, f"rb={RB} masks")
     rec["filter_mask"]["ms"].append(ms / 3)
     rec["filter_mask"]["plain_ms"].append(plain_ms / 3)
+    rec["filter_mask"]["bound"].append(k1_bound(RB, BITS, b1_ops))
     say(f"K1 rb={RB} bits={BITS}: tiles ({RB},{RB}) diagonal, "
         f"({2 * RB},0), ({3 * RB},{RB}) padded, one invalid slot; counts "
         f"{cnt.tolist()}: exact; kernel {ms / 3:.3f} ms per tile, plain "
@@ -485,16 +605,17 @@ def phase_filter_kernel(hashes, dev, rec):
     xi = bm.unpack_bits(sig.xd[2 * RB:3 * RB])
     xj = bm.unpack_bits(sig.xd[:RB])
     f32, f32_ms = cuda_ms(lambda: xi @ xj.T, reps=5)
-    xi, xj = xi.to(torch.bfloat16), xj.to(torch.bfloat16)
-    b16, b16_ms = cuda_ms(lambda: torch.mm(xi, xj.T,
-                                           out_dtype=torch.float32), reps=5)
+    del xi, xj
+    b16, b16_ms = bf16_product_ms(bm, sig.xd, 2 * RB, 0, RB)
     if not torch.equal(b16, f32):
         raise AssertionError("the bfloat16 product differs from the float32 "
                              "product")
+    rec["filter_mask"]["library_ms"] = b16_ms
     say(f"K1 tile ({2 * RB},0) shared-bit product alone: float32 "
         f"{f32_ms:.3f} ms, bfloat16 (mm out_dtype=float32) {b16_ms:.3f} ms,"
         f" equal; K1 (whole mask) {ms / 3:.3f} ms per tile")
-    del sig, packs, want_p, xi, xj, f32, b16
+    say_k1(RB, ms / 3, b16_ms, card, b1_ops)
+    del sig, packs, want_p, f32, b16
     small = make_corpus(300, 150, 8, SEED)
     rng = np.random.default_rng(5)
     base = np.unique(rng.integers(0, 2 ** 31, 500).astype(np.uint32))
@@ -502,22 +623,31 @@ def phase_filter_kernel(hashes, dev, rec):
         rng.choice(base, size=int(t), replace=False),
         rng.integers(0, 2 ** 31, int(t) // 5).astype(np.uint32)]))
         for t in rng.integers(80, 500, 300)]
-    tiles = (np.array([0, 128, 256, 256, 0]), np.array([0, 0, 128, 256, 0]),
-             np.array([1, 1, 1, 1, 0]))
-    for bound in ("mst", "greedy", "minhash"):
-        for cont, hs in ((False, small), (True, contained)):
-            sizes = [len(h) for h in hs]
-            sig = bm.stage_signatures(hs, 1024, 128, dev, bound,
-                                      col_sizes=sizes[::-1])
-            args = (sig.xd, sig.cd, sig.sd, *tiles,
-                    *bm.filter_scalars(THRESHOLD, 21, bound), cont, 128,
-                    bound)
-            got, want = bm.batched_mask(*args), bm.batched_mask_plain(*args)
-            what = f"small {bound} {'aaf' if cont else 'mash'}"
-            hold_exact(rec, "filter_mask", got[0], want[0], what)
-            hold_exact(rec, "filter_mask", got[1], want[1], what)
-    say("K1 small ragged (N=300 -> 384, 1024 bits, rb=128): bounds mst, "
-        "greedy, minhash x mash, containment: exact")
+    # rb = 128 at 1024 bits; ragged rb (a multiple of 32, not of the
+    # kernel's 128-pair block tile) and signatures shorter than one stage
+    for rb, bits in ((128, 1024), (96, 64), (160, 128), (96, 8192)):
+        n_pad = -(-300 // rb) * rb
+        last = n_pad - rb
+        tiles = (np.array([0, rb, last, last, 0]),
+                 np.array([0, 0, rb, last, 0]), np.array([1, 1, 1, 1, 0]))
+        for bound_name in ("mst", "greedy", "minhash"):
+            for cont, hs in ((False, small), (True, contained)):
+                sizes = [len(h) for h in hs]
+                sig = bm.stage_signatures(hs, bits, rb, dev, bound_name,
+                                          col_sizes=sizes[::-1])
+                args = (sig.xd, sig.cd, sig.sd, *tiles,
+                        *bm.filter_scalars(THRESHOLD, 21, bound_name), cont,
+                        rb, bound_name)
+                got = bm.batched_mask(*args)
+                want = bm.batched_mask_plain(*args)
+                what = (f"small rb={rb} bits={bits} {bound_name} "
+                        f"{'aaf' if cont else 'mash'}")
+                hold_exact(rec, "filter_mask", got[0], want[0], what)
+                hold_exact(rec, "filter_mask", got[1], want[1], what)
+        say(f"K1 small (N=300 -> {n_pad}, {bits} bits, rb={rb}, tiles "
+            f"{tiles[0].tolist()} x {tiles[1].tolist()}, the last invalid): "
+            "bounds mst, greedy, minhash x mash, containment: exact")
+    return b1_ops
 
 
 def clear_targets(packs, rng, n_bytes=400):
@@ -566,6 +696,7 @@ def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
     (label, None) for the full round and (label, (r_lo, span, cap)) for the
     compact one.  Kernel and plain outputs and updated masks exactly
     equal."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import labelprop as lp
     geo_d = torch.from_numpy(geo.astype(np.int32)).to(dev)
     labels_d = torch.from_numpy(labels).to(dev)
@@ -574,6 +705,10 @@ def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
     repeats = int(live.sum()) - len({tuple(e) for e in clr_np[:3].T[live]})
     if need_repeats and not repeats:
         raise AssertionError(f"{what}: the clear list repeats no target")
+    # the bound: the masks read once, labels and clear list in, the round's
+    # outputs out; one label compare for each set bit of the masks
+    set_bits = sum(int(bm.unpack_bits(t, torch.uint8).sum(dtype=torch.int64))
+                   for t in packs)
     for label, compact in cases:
         mine, ref = packs.clone(), packs.clone()
         if compact is None:
@@ -594,18 +729,23 @@ def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
         if torch.equal(mine, packs):
             raise AssertionError(f"{what}: the clear list left the masks as "
                                  "they were")
+        k2_bound = bound(packs.numel() + 4 * labels_d.numel()
+                         + 4 * clr.numel() + 4 * got.numel(), set_bits,
+                         CORE_OPS)
         rec["labelprop_round"]["ms"].append(ms)
         rec["labelprop_round"]["plain_ms"].append(plain_ms)
+        rec["labelprop_round"]["bound"].append(k2_bound)
         extra = f", ncol {int(want[1])}" if compact else ""
         say(f"K2 {what} {label}: {len(geo[0])} tiles of rb={rb}, clear list "
             f"{int(live.sum())} bits ({repeats} repeated targets), cross "
             f"{int(want[0])}{extra}: exact; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
+            f"{plain_ms:.3f} ms; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}),"
+            f" kernel at {k2_bound[0] / ms:.3f} of it")
         del mine, ref, got, want
         torch.cuda.empty_cache()
 
 
-def phase_round_kernel(corpus, dev, rec):
+def phase_round_kernel(corpus, dev, rec, card, b1_ops):
     say("== phase 3c: K2 (labelprop_round) against its plain versions")
     from rabbittclust_tpu_torch.ops import bitmap as bm
     rng = np.random.default_rng(3)
@@ -655,6 +795,8 @@ def phase_round_kernel(corpus, dev, rec):
                 f"{len(geo[0])} tiles, counts {cnt.tolist()}: exact; kernel "
                 f"{ms / len(geo[0]):.3f} ms per tile")
             del want_p
+            _, mm_ms = bf16_product_ms(bm, sig.xd, rb, 0, rb)
+            say_k1(rb, ms / len(geo[0]), mm_ms, card, b1_ops)
         round_cases(rec, f"N={N_GENOMES} grouped", packs, geo,
                     mixed_labels(planted, rng),
                     clear_targets(packs.cpu().numpy(), rng), rb, cases, dev)
@@ -717,7 +859,7 @@ def phase_slice(hashes, dev, tmp):
 def phase_engines(hashes, want, dev):
     say(f"== phase 7: both MST-free engines at N={len(hashes)}, and the "
         "-t 1 exact-order arm")
-    from rabbittclust_tpu_torch.host import (
+    from rabbittclust_tpu_torch.cluster.mst import (
         clusters_from_forest, compute_mst, cut_forest)
     from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import cluster_fast as cf
@@ -766,7 +908,7 @@ def main() -> int:
         return 2
     import rabbittclust_tpu_torch  # noqa: F401  (fails outside the repo)
     dev = torch.device("cuda", 0)
-    phase_identify()
+    card = phase_identify()
     phase_build()
     t0 = time.perf_counter()
     # one rng drawn in order: the first 16,384 genomes of the 131,072 are
@@ -776,20 +918,28 @@ def main() -> int:
     say(f"corpus of {N_SLICE} genomes made in "
         f"{time.perf_counter() - t0:.3f} s")
     rec = phase_kernels(hashes, dev)
-    phase_filter_kernel(hashes, dev, rec)
-    phase_round_kernel(corpus, dev, rec)
+    b1_ops = phase_filter_kernel(hashes, dev, rec, card)
+    phase_round_kernel(corpus, dev, rec, card, b1_ops)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
         launches, want = phase_end_to_end(hashes, dev, tmp)
         phase_from_fasta(tmp)
         launches.update(phase_slice(corpus, dev, tmp))
     phase_engines(hashes, want, dev)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
+              or m.startswith(("jax.", "rabbittclust_tpu."))]
+    if loaded:
+        raise AssertionError(f"jax or the JAX package was imported: {loaded}")
+    # each kernel's first timed case, its bound and, for K1, the one
+    # PyTorch call that computes its product (no single call computes
+    # K2's, K4's or K5b's function)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],
-                "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0]}
+                "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0],
+                "bound_ms": rec[name]["bound"][0][0],
+                "bound_by": rec[name]["bound"][0][1],
+                "library_ms": rec[name].get("library_ms")}
                for name, (src, replaces) in KERNELS.items()]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 The JAX package ``rabbittclust_tpu`` is the reference.  This package runs
 the same workflows on an NVIDIA GPU through hand-written CUDA kernels
-(``csrc/``), and shares the JAX package's backend-free host code
-(sketching, distances, Kruskal, persistence, outputs) by import, through
-``host.py``.  It never imports ``jax``.
+(``csrc/``).  It keeps its own copies of the JAX package's backend-free
+host code (sketching, distances, Kruskal, persistence, outputs), each at
+the relative path of its original and marked ``# Source:``, and imports
+nothing of ``rabbittclust_tpu`` and no ``jax``.  Only the native C++ host
+library ``native/librtc_native.so`` at the repository root is shared.
 
 Layout mirrors the JAX package:
     ops/intersect.py    exact pair counts: kernels K4 / K5b and their plain
@@ -16,8 +18,13 @@ Layout mirrors the JAX package:
     ops/labelprop.py    resident-mask label-propagation engine: kernel K2
     ops/cluster_fast.py MST-free dispatcher (stream / LP, -t 1 order)
     ops/transfer.py     device-to-host pulls on events
-    workflows.py        clust-mst --fast --device workflows
-    cli/clust_mst.py    entry point
+    workflows.py        clust-mst --fast --device workflows and their
+                        output tail
+    cli/clust_mst.py    entry point; cli/common.py its flags
+    sketch/ io/ state/ distance/ cluster/ post/ utils/
+                        host code: KSSD sketching, FASTA input,
+                        persistence, distances, Kruskal and forest cuts,
+                        trees / auto-threshold / dedup, the native loader
     kernels/_build.py   nvcc build of csrc/*.cu at first use
     device.py           explicit device selection (no CPU fallback)
 """

@@ -4,7 +4,8 @@ explicit torch device.
     python -m rabbittclust_tpu_torch.cli.clust_mst --fast --device \\
         -l -i genomes.list -o out.cluster -d 0.05
 
-The flags are the shared parser's (``rabbittclust_tpu/cli/common.py``).
+The flags are the reference's (``cli/common.py``, a copy of the JAX
+package's clust-mst parser).
 Arms not ported yet exit with status 1 and name the ROADMAP item that will
 port them; none of them falls back to the JAX package.
 """
@@ -17,9 +18,8 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..host import (base_parser, make_output_options, shared_wf,
-                    validate_common)
 from .. import workflows as wf
+from .common import base_parser, make_output_options, validate_common
 
 # (predicate on the parsed args, what it is, ROADMAP Queue 1 item)
 _NOT_PORTED = [
@@ -40,9 +40,9 @@ def main(argv=None, device: Optional[torch.device] = None,
     run's phase times and counts (see ``ops.engine.compute_mst_device``;
     ``clusters_s`` for the MST-free ``-e`` engines, whose phases are in
     ``ops.labelprop.LP_STATS``)."""
-    args = base_parser("mst").parse_args(argv)
-    validate_common(args, "mst")
-    opts = make_output_options(args, "mst")
+    args = base_parser().parse_args(argv)
+    validate_common(args)
+    opts = make_output_options(args)
     is_containment = args.contain_compress is not None
 
     for applies, what, item in _NOT_PORTED:
@@ -68,7 +68,7 @@ def main(argv=None, device: Optional[torch.device] = None,
     if not args.input:
         print("ERROR: -i/--input or --presketched needed", file=sys.stderr)
         return 1
-    tuned = shared_wf.tune_kssd_parameters(
+    tuned = wf.tune_kssd_parameters(
         args.sketch_by_file, args.kmer_size is not None, args.input,
         args.threads, args.min_len, is_containment, args.kmer_size or 19,
         args.threshold, args.drlevel)

@@ -1,4 +1,4 @@
-// Bitmap candidate filter (kernel K1) for Hopper.
+// Bitmap candidate filter (kernel K1) for Hopper, on the tensor cores.
 //
 // Replaces rabbittclust_tpu/ops/bitmap.py::_batched_mask_fn over _tile_mask
 // (jitted jnp: an unpacked 0/1 bf16 product on the MXU, then a float32
@@ -13,21 +13,56 @@
 // __fadd_rn, __fdiv_rn: no FMA contraction, no fast-math division).  The
 // (rb, rb) count matrix never reaches device memory.
 //
-// Design: a block computes a 32 x 32 pair sub-tile.  The rows' and
-// columns' 64-bit signature words are staged in shared memory KW words at
-// a time; warp w owns rows w, w+8, w+16, w+24 and lane l column l, so each
-// thread keeps 4 counts in registers.  The epilogue packs the mask with one
-// __ballot_sync per row (lane l -> bit l: little-endian bit order as it
-// stands) and lane 0 stores the 32-bit word.  The tile count is a
-// shared-memory sum plus one integer atomicAdd per block: exact in any
-// order, and equal to the popcount of the packed mask by construction.
+// Bound: the shared-bit counts are a 0/1 matrix product, rb^2 * bits
+// bit multiply-adds per tile.  A 4096^2 tile at 8192 bits is 1.37e11 of
+// them, 2.75e11 operations.  As an int8 product that is 0.139 ms at the
+// H100's 1,979 dense int8 TOP/s, the floor of an s8 form; this kernel's
+// single-bit instruction carries 8 times the bits of an s8 one, so its
+// bound is the same operations at the card's rate of that instruction.
+// NVIDIA publishes none for the H100: mma_b1_peak_kernel below measures it
+// (chip_smoke.py phase 3b), and the bound follows from it.  The tile's
+// bytes (two 4 MB signature row blocks, a 2 MB mask) take ~3 us at
+// 3.35 TB/s.  The popcount form this replaces issued two POPC per 64-bit
+// word on the CUDA cores (~1.15 ms per tile) and left the tensor cores
+// idle.
 //
-// Bound: popcount throughput.  A 4096^2 tile at 8192 bits is 2.1e9
-// 64-bit popcounts (two POPC each; Hopper runs 16 per SM per clock), so
-// ~1.2 ms per tile, ~0.6 s for the 528-tile sweep at N = 131,072.  Shared
-// loads (5 per 4 popcounts) and L2 staging traffic stay below that.  A
-// tensor-core form (int8 or b1 MMA over unpacked or packed bits) is later
-// work.
+// Design: popcount(x_i & x_j) summed over a signature is what the tensor
+// cores' single-bit product computes: mma.sync m16n8k256 .b1 .and.popc
+// with s32 accumulators, exact (counts <= bits).  It takes the packed
+// signature words as they are, 256 bits of k an instruction, with no
+// expansion of bits to bytes.  An s8 m16n8k32 form needs 8 times the
+// instructions for the same bits, plus two integer operations per fragment
+// register to expand the bits to 0/1 bytes; on an H100 (80GB HBM3, 700 W)
+// it took 0.481 ms per 4096^2 tile at 8192 bits, this form 0.151 ms and,
+// in a second run, 0.176 ms (chip_smoke.py phase 3b).
+//
+// A block owns 128 x 128 pairs: 8 warps as 2 x 4, each a 64 x 32 warp tile
+// (4 x 4 fragments, 64 int32 accumulators a thread).  The packed words of
+// the block's 128 rows and 128 columns come through a 3-deep cp.async ring
+// in dynamic shared memory (96 KB, two blocks an SM), 1024 bits per genome
+// a stage, in 16-byte copies (8-byte ones for 64-bit signatures).  A
+// 256-bit k-step is 8 words of a genome; its fragments are the 64-bit
+// words (2q, 2q + 1) of rows g and g + 8 and of column g (g = lane / 4,
+// q = lane % 4).  The PTX fragment gives those registers the k bits
+// [32q, +32) and [128 + 32q, +32); the count does not depend on the order
+// of k, and rows and columns use the same mapping, so it is exact.  The
+// k-step groups of each genome's 32 words are XOR-swizzled by (genome & 3)
+// so that the four genomes of a half-warp's 64-bit loads fall on distinct
+// banks.
+//
+// Epilogue: each thread holds the counts of 8 rows x 8 columns.  It applies
+// _tile_mask's bound, ratio gate and triangle to them, ORs its 8 mask bits
+// of a row into the row's 32-bit word, and two shuffles across the lane
+// quad complete the word (little-endian bit order as it stands).  The tile
+// count is the popcount of the stored words, a warp shuffle sum, one
+// shared atomicAdd per warp and one global atomicAdd per block: exact in
+// any order, and equal to the popcount of the packed mask by construction.
+//
+// Shapes: any rb that is a multiple of 32 (block tiles past rb % 128 are
+// masked: a warp's 32 columns lie wholly inside or outside the tile), any
+// bits that is a power of two of at least 64 (a short last stage is zero),
+// batches up to 65,535.  Offsets into the masks are 64-bit: a panel of 512
+// tiles at rb = 8192 is 4.3 GB.
 //
 // Plain C interface, loaded with ctypes; launches on the given stream and
 // returns the cudaError_t of the launch.
@@ -37,15 +72,132 @@
 
 namespace {
 
-constexpr int TILE = 32;          // rows and columns of a block's sub-tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = TILE / WARPS;
-constexpr int KW = 32;            // signature words staged per step
+constexpr int BM = 128;                  // rows of a block tile
+constexpr int BN = 128;                  // columns of a block tile
+constexpr int WARPS_M = 2;
+constexpr int WARPS_N = 4;
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int WM = BM / WARPS_M;         // 64 rows of a warp tile
+constexpr int WN = BN / WARPS_N;         // 32 columns of a warp tile
+constexpr int MT = WM / 16;              // m16 fragments of a warp tile
+constexpr int NT = WN / 8;               // n8 fragments of a warp tile
+constexpr int CHUNK64 = 16;              // signature words per genome a stage
+constexpr int CHUNK32 = 2 * CHUNK64;     // the same in 32-bit words
+constexpr int KSTEPS = CHUNK32 / 8;      // 256-bit k-steps a stage
+constexpr int STAGES = 3;
+constexpr int STAGE32 = (BM + BN) * CHUNK32;
+constexpr int SMEM_BYTES = STAGES * STAGE32 * 4;
+static_assert(WN == 32, "a warp tile's columns are one 32-bit mask word");
+static_assert(KSTEPS == 4, "the swizzle spreads 4 genomes over 4 groups");
+constexpr unsigned FULL = 0xffffffffu;
 
 enum Bound { kMst = 0, kGreedy = 1, kMinhash = 2 };
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async8(uint32_t* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += popc(a (16 x 256 bits, row) & b (256 x 8 bits, col)), s32
+__device__ __forceinline__ void mma_b1(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// shared-memory word of word w of genome g's stage chunk: the 8-word k-step
+// groups XOR-swizzled by (g & 3)
+__device__ __forceinline__ int swz(int g, int w) {
+  return w ^ ((g & 3) << 3);
+}
+
+// Stage chunk `chunk` (64-bit words [16 chunk, +16)) of the block's rows
+// (genomes row0 + [0, rows_left)) and columns into `stage`, laid out
+// [genome 0..255][32 x uint32]: rows first, then columns.  Words past the
+// signature are zero; genomes past the tile are left as they are (their
+// counts are never stored).
+__device__ __forceinline__ void load_chunk(uint32_t* stage,
+                                           const uint64_t* __restrict__ sig,
+                                           int words, int chunk, int64_t row0,
+                                           int64_t col0, int rows_left,
+                                           int cols_left) {
+  const int w0 = chunk * CHUNK64;
+  // 16-byte granules of two words; 64-bit signatures (words == 1) are not
+  // 16-byte aligned and take 8-byte ones
+  const int per = (words & 1) ? CHUNK64 : CHUNK64 / 2;
+  const int gw = (words & 1) ? 1 : 2;  // 64-bit words a granule
+  for (int e = threadIdx.x; e < (BM + BN) * per; e += THREADS) {
+    const int g = e / per;
+    const int w = (e % per) * gw;  // 64-bit word of the chunk
+    uint32_t* dst = stage + g * CHUNK32 + swz(g, 2 * w);
+    const bool is_row = g < BM;
+    const int local = is_row ? g : g - BM;
+    if (w0 + w >= words) {
+      if (gw == 2)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+    } else if (local < (is_row ? rows_left : cols_left)) {
+      const uint64_t* src =
+          sig + ((is_row ? row0 : col0) + local) * words + w0 + w;
+      if (gw == 2)
+        cp_async16(dst, src);
+      else
+        cp_async8(dst, src);
+    }
+  }
+}
+
+// _tile_mask's bound, ratio gate and triangle for pair (i, j) with
+// shared-bit count `shared`
+__device__ __forceinline__ bool pair_ok(int shared, int i, int j, int si,
+                                        int sj, int ci, int cj,
+                                        float jmin_num, float jmin_den,
+                                        float c_min, int radio_i,
+                                        float radio_f, int containment,
+                                        int bound) {
+  const float fi = (float)si;
+  const float fj = (float)sj;
+  const float mn_f = fminf(fi, fj);
+  int common_min;
+  if (containment) {
+    common_min = (int)floorf(__fmul_rn(c_min, mn_f)) - 1;
+  } else {
+    common_min = (int)floorf(__fdiv_rn(
+        __fmul_rn(jmin_num, __fadd_rn(fi, fj)), jmin_den)) - 1;
+  }
+  const int thresh = common_min - min(ci, cj);
+  const int mni = min(si, sj);
+  bool ok = mni > 0;  // padded rows and columns die here
+  if (bound == kGreedy && !containment) {
+    ok = ok && fmaxf(fi, fj) <= __fadd_rn(__fmul_rn(radio_f, mn_f), 1.0f);
+  } else if (bound == kMst) {
+    // int32 product, wrapping as in XLA
+    ok = ok && max(si, sj) <= (int)((unsigned)radio_i * (unsigned)mni);
+  }
+  return ok && shared >= thresh && j < i;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 filter_mask_kernel(const uint64_t* __restrict__ sig, int words,
                    const int* __restrict__ coll,
                    const int* __restrict__ size_row,
@@ -55,88 +207,158 @@ filter_mask_kernel(const uint64_t* __restrict__ sig, int words,
                    float jmin_den, float c_min, int radio_i, float radio_f,
                    int containment, int bound, int* __restrict__ counts,
                    uint32_t* __restrict__ packs) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int block_count;
   const int t = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tile_row = blockIdx.y * TILE;
-  const int tile_col = blockIdx.x * TILE;
+  const int tile_row = blockIdx.y * BM;
+  const int tile_col = blockIdx.x * BN;
   const int64_t row_words = rb / 32;  // uint32 words of one packed row
-  // this block's 32 columns of row 0 of the tile; 64-bit offsets: a panel
-  // of 512 tiles at rb = 8192 is 4.3 GB of masks
-  uint32_t* out = packs + (int64_t)t * rb * row_words + tile_col / 32;
+  uint32_t* out = packs + (int64_t)t * rb * row_words;
   if (!valid[t]) {  // a padding slot: zeros, count 0
-    if (threadIdx.x < TILE) out[(tile_row + threadIdx.x) * row_words] = 0u;
+    const int nrow = min(BM, rb - tile_row);
+    const int nw = min(BN, rb - tile_col) / 32;
+    for (int e = threadIdx.x; e < nrow * nw; e += THREADS)
+      out[(int64_t)(tile_row + e / nw) * row_words + tile_col / 32 + e % nw] =
+          0u;
     return;
   }
-  const int r0 = r0s[t] + tile_row;  // global id of the sub-tile's row 0
-  const int c0 = c0s[t] + tile_col;
-
-  // [word][genome], one column of padding against store bank conflicts
-  __shared__ uint64_t sa[KW][TILE + 1];
-  __shared__ uint64_t sb[KW][TILE + 1];
-  __shared__ int block_count;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const int g = lane / 4;  // fragment row / column group
+  const int q = lane % 4;  // lane quad: k words 2q and 2q + 1 of a k-step
+  const int r0 = r0s[t];
+  const int c0 = c0s[t];
+  const int rows_left = rb - tile_row;
+  const int cols_left = rb - tile_col;
+  const int64_t row0 = (int64_t)r0 + tile_row;
+  const int64_t col0 = (int64_t)c0 + tile_col;
   if (threadIdx.x == 0) block_count = 0;
 
-  int acc[ROWS_PER_WARP];
+  int acc[MT][NT][4];
 #pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) acc[q] = 0;
-  for (int w0 = 0; w0 < words; w0 += KW) {
-    const int kw = min(KW, words - w0);
-    for (int e = threadIdx.x; e < TILE * kw; e += THREADS) {
-      const int w = e % kw;
-      const int g = e / kw;
-      sa[w][g] = sig[(int64_t)(r0 + g) * words + w0 + w];
-      sb[w][g] = sig[(int64_t)(c0 + g) * words + w0 + w];
-    }
-    __syncthreads();
-    for (int w = 0; w < kw; ++w) {
-      const uint64_t b = sb[w][lane];
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int q = 0; q < ROWS_PER_WARP; ++q)
-        acc[q] += __popcll(sa[w][warp + q * WARPS] & b);
-    }
-    __syncthreads();
-  }
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
 
-  // epilogue: _tile_mask's bound, ratio gate and triangle, then the pack
-  const int j = c0 + lane;
-  const int sj = size_col[j];
-  const int cj = coll[j];
-  const float fj = (float)sj;
-  int mine = 0;
+  const int chunks = (words + CHUNK64 - 1) / CHUNK64;
 #pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
-    const int local = warp + q * WARPS;
-    const int i = r0 + local;
-    const int si = size_row[i];
-    const float fi = (float)si;
-    const float mn_f = fminf(fi, fj);
-    int common_min;
-    if (containment) {
-      common_min = (int)floorf(__fmul_rn(c_min, mn_f)) - 1;
-    } else {
-      common_min = (int)floorf(__fdiv_rn(
-          __fmul_rn(jmin_num, __fadd_rn(fi, fj)), jmin_den)) - 1;
-    }
-    const int thresh = common_min - min(coll[i], cj);
-    const int mni = min(si, sj);
-    bool ok = mni > 0;  // padded rows and columns die here
-    if (bound == kGreedy && !containment) {
-      ok = ok && fmaxf(fi, fj) <= __fadd_rn(__fmul_rn(radio_f, mn_f), 1.0f);
-    } else if (bound == kMst) {
-      // int32 product, wrapping as in XLA
-      ok = ok && max(si, sj) <= (int)((unsigned)radio_i * (unsigned)mni);
-    }
-    const bool m = ok && acc[q] >= thresh && j < i;
-    const unsigned bits = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) {
-      out[(int64_t)(tile_row + local) * row_words] = bits;
-      mine += __popc(bits);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks)
+      load_chunk(smem + s * STAGE32, sig, words, s, row0, col0, rows_left,
+                 cols_left);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed; stage (c - 1) % STAGES is free
+    const int next = c + STAGES - 1;
+    if (next < chunks)
+      load_chunk(smem + (next % STAGES) * STAGE32, sig, words, next, row0,
+                 col0, rows_left, cols_left);
+    cp_async_commit();
+    const uint32_t* stage = smem + (c % STAGES) * STAGE32;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint2 a[MT][2];
+      uint2 b[NT];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gr = wm * WM + mi * 16 + h * 8 + g;  // row g (+ 8)
+          a[mi][h] = *reinterpret_cast<const uint2*>(
+              stage + gr * CHUNK32 + swz(gr, 8 * ks + 2 * q));
+        }
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int gc = BM + wn * WN + ni * 8 + g;  // column g
+        b[ni] = *reinterpret_cast<const uint2*>(
+            stage + gc * CHUNK32 + swz(gc, 8 * ks + 2 * q));
+      }
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          mma_b1(acc[mi][ni], a[mi][0].x, a[mi][1].x, a[mi][0].y, a[mi][1].y,
+                 b[ni].x, b[ni].y);
     }
   }
+  cp_async_wait<0>();
+
+  // epilogue: accumulator (mi, ni, 2h + e) is row wm*64 + mi*16 + h*8 + g,
+  // column wn*32 + ni*8 + 2q + e of the block tile
+  const int col_w = tile_col + wn * WN;  // the warp's mask word, local
+  int mine = 0;
+  if (col_w < rb) {  // warp-uniform: rb % 32 == 0
+    int jc[NT][2], sj[NT][2], cj[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = c0 + col_w + ni * 8 + 2 * q + e;
+        jc[ni][e] = j;
+        sj[ni][e] = size_col[j];
+        cj[ni][e] = coll[j];
+      }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int local = tile_row + wm * WM + mi * 16 + h * 8 + g;
+        const bool row_in = local < rb;
+        const int i = r0 + local;
+        const int si = row_in ? size_row[i] : 0;
+        const int ci = row_in ? coll[i] : 0;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (pair_ok(acc[mi][ni][2 * h + e], i, jc[ni][e], si, sj[ni][e],
+                        ci, cj[ni][e], jmin_num, jmin_den, c_min, radio_i,
+                        radio_f, containment, bound))
+              word |= 1u << (ni * 8 + 2 * q + e);
+        word |= __shfl_xor_sync(FULL, word, 1);
+        word |= __shfl_xor_sync(FULL, word, 2);
+        if (row_in && ((mi * 2 + h) & 3) == q) {
+          out[(int64_t)local * row_words + col_w / 32] = word;
+          mine += __popc(word);
+        }
+      }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) mine += __shfl_xor_sync(FULL, mine, o);
   if (lane == 0 && mine) atomicAdd(&block_count, mine);
   __syncthreads();
   if (threadIdx.x == 0 && block_count) atomicAdd(&counts[t], block_count);
+}
+
+// The rate of mma_b1 alone, for K1's bound: each thread runs CHAINS
+// independent accumulator chains of `iters` instructions on registers,
+// with no memory traffic but the one sum it stores.
+template <int CHAINS>
+__global__ void mma_b1_peak_kernel(int iters, int* __restrict__ out) {
+  const int id = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t x = (uint32_t)id * 0x9e3779b9u;
+  int acc[CHAINS][4];
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[c][r] = 0;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c)
+      mma_b1(acc[c], x, x ^ 0x55555555u, ~x, x * 3u, x + c, x ^ 0x0f0f0f0fu);
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s += acc[c][r];
+  out[id] = s;
 }
 
 }  // namespace
@@ -154,14 +376,48 @@ int rtc_filter_mask(const void* sig, int words, const void* coll,
                     float c_min, int radio_i, float radio_f, int containment,
                     int bound, void* counts, void* packs, void* stream) {
   if (batch == 0) return 0;
-  if (rb <= 0 || rb % TILE != 0 || words <= 0 || batch > 65535)
+  if (rb <= 0 || rb % 32 != 0 || words <= 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(rb / TILE, rb / TILE, batch);
-  filter_mask_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  // past 48 KB of dynamic shared memory: raise the kernel's limit once per
+  // device, before its first launch there
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(filter_mask_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const dim3 grid((rb + BN - 1) / BN, (rb + BM - 1) / BM, batch);
+  filter_mask_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const uint64_t*)sig, words, (const int*)coll, (const int*)size_row,
       (const int*)size_col, (const int*)r0s, (const int*)c0s,
       (const int*)valid, rb, jmin_num, jmin_den, c_min, radio_i, radio_f,
       containment, bound, (int*)counts, (uint32_t*)packs);
+  return (int)cudaGetLastError();
+}
+
+// The rate probe: blocks x threads threads (threads a multiple of 32), each
+// warp issuing iters * chains m16n8k256 instructions in `chains` (4, 8 or
+// 16) independent chains; out: (blocks * threads,) int32.
+int rtc_mma_b1_peak(int chains, int blocks, int threads, int iters,
+                    void* out, void* stream) {
+  if (blocks <= 0 || threads <= 0 || threads > 1024 || threads % 32 != 0 ||
+      iters <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (chains == 4)
+    mma_b1_peak_kernel<4><<<blocks, threads, 0, s>>>(iters, (int*)out);
+  else if (chains == 8)
+    mma_b1_peak_kernel<8><<<blocks, threads, 0, s>>>(iters, (int*)out);
+  else if (chains == 16)
+    mma_b1_peak_kernel<16><<<blocks, threads, 0, s>>>(iters, (int*)out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -110,6 +110,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_filter_mask.restype = ci
     lib.rtc_filter_mask.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,
                                     cf, cf, cf, ci, cf, ci, ci, vp, vp, vp]
+    lib.rtc_mma_b1_peak.restype = ci
+    lib.rtc_mma_b1_peak.argtypes = [ci, ci, ci, ci, vp, vp]
     lib.rtc_lp_round.restype = ci
     lib.rtc_lp_round.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp,
                                  vp]

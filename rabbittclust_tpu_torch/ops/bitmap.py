@@ -2,7 +2,7 @@
 ``rabbittclust_tpu/ops/bitmap.py``).
 
 Each genome has a ``bits``-bit signature (a bit per mixed hash, packed by
-the shared native ``pack_bitmaps_packed``).  For a pair the shared-bit
+the native ``pack_bitmaps_packed``).  For a pair the shared-bit
 count popcount(x_i & x_j) bounds the exact common count from below
 (``shared >= common - min(coll_i, coll_j)``), so the mask of this module
 never drops a pair that can reach the threshold.
@@ -25,19 +25,16 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..host import (
-    _decode_packed_mask,
-    min_jaccard_for_threshold,
-    pack_bitmaps_packed,
-    size_ratio_limit,
-)
+from ..distance.mash import min_jaccard_for_threshold, size_ratio_limit
+from ..utils import native as native_mod
 from .intersect import _launch, _upload
 from .pack import _to_device
 from .transfer import _host_async, _host_wait
@@ -63,6 +60,82 @@ def reset_pull_stats() -> None:
 def account_pull(n_bytes: int) -> None:
     PULL_STATS["bytes"] += int(n_bytes)
     PULL_STATS["pulls"] += 1
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::pack_bitmaps_packed
+def pack_bitmaps_packed(hashes: List[np.ndarray], bits: int = 8192,
+                        pad_n_to: int = 128
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Bit-packed signatures: (uint8 (N_pad, bits//8), collisions int32),
+    packed by the native library; bit b of genome i is set when a hash h of
+    it has (h * 0x9E3779B97F4A7C15 mod 2^64) >> (64 - log2 bits) == b, in
+    np.packbits(bitorder='little') order."""
+    n = len(hashes)
+    n_pad = max(((n + pad_n_to - 1) // pad_n_to) * pad_n_to, pad_n_to)
+    out = np.zeros((n_pad, bits // 8), dtype=np.uint8)
+    coll = np.zeros(n_pad, dtype=np.int32)
+    if n == 0:
+        return out, coll
+    lib = native_mod.load_native()
+    use64 = hashes[0].dtype == np.uint64
+    flat, offs = native_mod.flatten_csr(hashes, use64)
+    fn = lib.rtc_pack_bitmaps_u64 if use64 else lib.rtc_pack_bitmaps_u32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int]
+    fn(flat.ctypes.data, offs.ctypes.data, n, bits, out.ctypes.data,
+       coll.ctypes.data, os.cpu_count() or 1)
+    return out, coll
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::_decode_packed_mask
+def _decode_packed_mask(packed: np.ndarray, rb: int, r0: int, c0: int,
+                        n: int, expect: int):
+    """Global (ii, jj) int64 pairs from one pulled packed-mask tile, by the
+    native popcount/ctz bit-scan (~GB/s); rows at or past ``n`` (padding)
+    are skipped."""
+    lib = native_mod.load_native()
+    if not hasattr(lib, "_rtc_mask_pairs_sig"):
+        lib.rtc_mask_pairs.restype = ctypes.c_int64
+        lib.rtc_mask_pairs.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib._rtc_mask_pairs_sig = True
+    ii = np.empty(expect, dtype=np.int64)
+    jj = np.empty(expect, dtype=np.int64)
+    got = lib.rtc_mask_pairs(
+        packed.ctypes.data, rb, packed.shape[1], r0, c0, n,
+        ii.ctypes.data, jj.ctypes.data, os.cpu_count() or 1)
+    assert got == expect, (got, expect)  # device count is exact
+    return ii, jj
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::CsrSketches
+class CsrSketches:
+    """Flattened CSR view of a sketch list, built once and reused across
+    exact-verification calls."""
+
+    def __init__(self, hashes: List[np.ndarray]):
+        self.n = len(hashes)
+        self.use64 = self.n > 0 and hashes[0].dtype == np.uint64
+        # parallel native gather (rtc_flatten)
+        self.flat, self.offs = native_mod.flatten_csr(hashes, self.use64)
+
+    def count_common(self, ii: np.ndarray, jj: np.ndarray,
+                     threads: int = 0) -> np.ndarray:
+        out = np.zeros(len(ii), dtype=np.int32)
+        if len(ii) == 0:
+            return out
+        lib = native_mod.load_native()
+        fn = (lib.rtc_count_common_u64 if self.use64
+              else lib.rtc_count_common_u32)
+        ii32 = np.ascontiguousarray(ii, dtype=np.int32)
+        jj32 = np.ascontiguousarray(jj, dtype=np.int32)
+        fn(self.flat.ctypes.data, self.offs.ctypes.data, ii32.ctypes.data,
+           jj32.ctypes.data, len(ii), out.ctypes.data,
+           threads or (os.cpu_count() or 1))
+        return out
 
 
 def pack_mask_u8(mask: torch.Tensor) -> torch.Tensor:
@@ -240,7 +313,7 @@ def stage_signatures(hashes: List[np.ndarray], bits: int, rb: int,
                      device: torch.device, bound: str = "mst",
                      row_sizes=None, col_sizes=None,
                      stats: Optional[dict] = None) -> Signatures:
-    """One native pack (shared ``pack_bitmaps_packed``) and one
+    """One native pack (``pack_bitmaps_packed``) and one
     host-to-device copy per array.  ``stats`` receives the seconds of the
     pack (``pack_s``) and of the copies, waited for (``stage_s``)."""
     clock = time.perf_counter

@@ -1,6 +1,6 @@
 """Exact threshold clustering without an MST (counterpart of
 ``rabbittclust_tpu/ops/cluster_fast.py``): the bitmap filter on the GPU
-plus the shared union-find-gated exact verify on the host.
+plus the union-find-gated exact verify on the host.
 
 ``threshold_clusters_device`` picks the engine by size, as the JAX package
 does: the stream engine (``ops/bitmap.py::candidate_pair_blocks``, K1, host
@@ -10,24 +10,19 @@ label-propagation engine (``ops/labelprop.py``, K1 + K2) above.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..host import (
-    CsrSketches,
-    UnionFind,
-    _gated_verify_block,
-    clusters_from_forest,
-    cut_forest,
-    kruskal,
-    labels_from_clusters,
-    native_intra_mst,
-    native_mst,
-)
-from .bitmap import candidate_pair_blocks
+from ..cluster.mst import clusters_from_forest, cut_forest, kruskal
+from ..cluster.union_find import UnionFind
+from ..distance.mash import aaf_distance, mash_distance
+from ..utils import native as native_mod
+from ..utils.native import native_intra_mst, native_mst
+from .bitmap import CsrSketches, candidate_pair_blocks
 
 ENGINES = ("auto", "stream", "lp")
 
@@ -115,15 +110,10 @@ def threshold_clusters_device_exact_order(
     res = native_intra_mst(hashes, labels_from_clusters(clusters, n),
                            threshold, kmer_size, is_containment,
                            abort_on_cross=True)
-    if res is None:  # no native library: keep the fast BFS order
-        return clusters, False
     edges, has_cross = res
     if has_cross:
-        full = native_mst(hashes, threshold, kmer_size, is_containment, 0,
-                          False, 1)
-        if full is None:
-            return clusters, False
-        edges = full[0]
+        edges = native_mst(hashes, threshold, kmer_size, is_containment, 0,
+                           False, 1)[0]
     ordered = clusters_from_forest(cut_forest(edges, threshold), n)
     # the (label_a, label_b) relation must be a bijection
     la = labels_from_clusters(clusters, n).astype(np.int64)
@@ -134,3 +124,109 @@ def threshold_clusters_device_exact_order(
             "the serial-order finish changed the partition "
             f"({len(ordered)} vs {len(clusters)} clusters)")
     return ordered, not has_cross
+
+
+# Source: rabbittclust_tpu/ops/cluster_fast.py::labels_from_clusters
+def labels_from_clusters(clusters: List[List[int]], n: int) -> np.ndarray:
+    labels = np.empty(n, dtype=np.int32)
+    for ci, members in enumerate(clusters):
+        labels[members] = ci
+    return labels
+
+
+# Source: rabbittclust_tpu/ops/cluster_fast.py::gated_verify_merge
+def gated_verify_merge(uf, csr, sizes, ii, jj, threshold, kmer_size,
+                       is_containment):
+    """Exact-verify the (ii, jj) pairs and merge passes into ``uf`` in one
+    native pass (count_common + float64 libm distance + union-find, see
+    rtc_verify_merge_* in native/rtc_native.cpp).  Returns
+    (kept_i, kept_j, kept_d, ok): the kept edges — pairs that verified at
+    d <= threshold AND connected two previously separate components — in
+    input order, plus the per-pair verified-pass mask (False = verified
+    FAIL, the caller's clear-list).  libm log keeps distances bit-identical
+    to the native MST engine."""
+    m = len(ii)
+    if m == 0:
+        e = np.empty(0, dtype=np.int64)
+        return e, e.copy(), np.empty(0, dtype=np.float64), \
+            np.empty(0, dtype=bool)
+    lib = native_mod.load_native()
+    fn = lib.rtc_verify_merge_u64 if csr.use64 else lib.rtc_verify_merge_u32
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int]
+    ii64 = np.ascontiguousarray(ii, dtype=np.int64)
+    jj64 = np.ascontiguousarray(jj, dtype=np.int64)
+    sizes64 = np.ascontiguousarray(sizes, dtype=np.int64)
+    assert uf.parent.dtype == np.int64 and uf.rank.dtype == np.int8
+    out_i = np.empty(m, dtype=np.int64)
+    out_j = np.empty(m, dtype=np.int64)
+    out_d = np.empty(m, dtype=np.float64)
+    ok = np.empty(m, dtype=np.uint8)
+    kept = fn(csr.flat.ctypes.data, csr.offs.ctypes.data, ii64.ctypes.data,
+              jj64.ctypes.data, m, sizes64.ctypes.data,
+              ctypes.c_double(threshold), kmer_size, int(is_containment),
+              uf.parent.ctypes.data, uf.rank.ctypes.data, out_i.ctypes.data,
+              out_j.ctypes.data, out_d.ctypes.data, ok.ctypes.data,
+              os.cpu_count() or 1)
+    return out_i[:kept], out_j[:kept], out_d[:kept], ok.astype(bool)
+
+
+# Source: rabbittclust_tpu/ops/cluster_fast.py::_gated_verify_block
+def _gated_verify_block(uf, csr, sizes, ii, jj, threshold, kmer_size,
+                        is_containment, kept_i, kept_j, kept_d,
+                        verify_chunk=65536, max_rounds=48):
+    """Round-structured exact verification of one candidate block.
+
+    A pair whose endpoints are already connected cannot change the
+    single-linkage partition, so the pairs are verified in Boruvka-like
+    rounds: ONE candidate per live (root_i, root_j) component pair (round 1:
+    one per row) is verified exactly, the passes are merged, and the rest
+    are gated again.  Verifications drop from O(#candidates) to roughly
+    O(N + #failed candidates) while the partition stays exactly the
+    single-linkage one.  After ``max_rounds`` the remainder falls back to
+    bulk chunked verification, bounding the worst case."""
+    pi, pj = ii, jj
+    rounds = 0
+    while len(pi):
+        roots = uf.roots_array()
+        ri = roots[pi]
+        rj = roots[pj]
+        alive = ri != rj
+        pi, pj, ri, rj = pi[alive], pj[alive], ri[alive], rj[alive]
+        if len(pi) == 0:
+            break
+        rounds += 1
+        if rounds == 1:
+            # bootstrap: one candidate per row connects most rows to their
+            # component in a single batch
+            _, sel = np.unique(pi, return_index=True)
+        elif rounds <= max_rounds:
+            # first occurrence per unordered live root pair
+            lo = np.minimum(ri, rj)
+            hi = np.maximum(ri, rj)
+            key = lo * np.int64(len(uf.parent) + 1) + hi
+            _, sel = np.unique(key, return_index=True)
+        else:  # fallback: bulk-verify a chunk (degenerate candidate sets)
+            sel = np.arange(min(len(pi), verify_chunk))
+        ci, cj = pi[sel], pj[sel]
+        common = csr.count_common(ci, cj)
+        if is_containment:
+            d = aaf_distance(common, sizes[ci], sizes[cj], kmer_size)
+        else:
+            d = mash_distance(common, sizes[ci], sizes[cj], kmer_size)
+        ok = (common > 0) & (d <= threshold)
+        for a, b, dd in zip(ci[ok].tolist(), cj[ok].tolist(),
+                            d[ok].tolist()):
+            if not uf.connected(a, b):
+                uf.merge(a, b)
+                kept_i.append(a)
+                kept_j.append(b)
+                kept_d.append(dd)
+        keep = np.ones(len(pi), dtype=bool)
+        keep[sel] = False  # verified pairs (pass or fail) leave the pool
+        pi, pj = pi[keep], pj[keep]

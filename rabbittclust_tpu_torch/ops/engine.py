@@ -19,21 +19,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..host import (
-    DENSE_SPAN,
-    Edges,
-    MstResult,
-    _decode_packed_mask,
-    aaf_distance,
-    concat_edges,
-    kruskal,
-    mash_distance,
-    pack_sketches,
-    size_ratio_limit,
-)
-from .bitmap import pack_mask_u8
+from ..cluster.mst import DENSE_SPAN, Edges, MstResult, concat_edges, kruskal
+from ..distance.mash import aaf_distance, mash_distance, size_ratio_limit
+from .bitmap import _decode_packed_mask, pack_mask_u8
 from .intersect import _upload, pair_common, pair_counts_tiles
-from .pack import DevicePlanes, planes_to_device
+from .pack import DevicePlanes, pack_sketches, planes_to_device
 from .transfer import _host_async, _host_wait
 
 
@@ -68,9 +58,8 @@ def _pair_common(planes: DevicePlanes, ii: np.ndarray,
     return pair_common(planes.plane0, planes.plane1, ii, jj).cpu().numpy()
 
 
-# Source: rabbittclust_tpu/ops/engine.py::_edges_from_pairs (numpy only),
-# copied because importing that module imports jax; a test holds the two
-# equal.
+# Source: rabbittclust_tpu/ops/engine.py::_edges_from_pairs (numpy only); a
+# test holds the two equal.
 def _edges_from_pairs(ii, jj, common, sizes, threshold, kmer_size,
                       is_containment, with_dense, dense, ani, radii):
     s0 = sizes[ii]

@@ -7,7 +7,7 @@ kernel K2 (``csrc/labelprop_round.cu``, wrappers ``lp_round`` and
 ``lp_round_compact``) clears the bits the host verified as failing and
 proposes, under the current union-find labels, each row's and each
 column's minimum cross-label candidate partner; the host pulls O(N)
-proposals, verifies them exactly (shared native ``gated_verify_merge``),
+proposals, verifies them exactly (native ``gated_verify_merge``),
 merges the passes and pushes the new labels.  A panel is done when no
 cross-label candidate is left in it; the labels carry into the next panel.
 Panels, rounds, the compact pull after panel 0's round 1, the clear-list
@@ -24,22 +24,15 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..host import (
-    SENT,
-    CsrSketches,
-    UnionFind,
-    _encode_clear,
-    _lp_fallback,
-    clusters_from_forest,
-    gated_verify_merge,
-    sort_edges,
-)
+from ..cluster.mst import clusters_from_forest, sort_edges
+from ..cluster.union_find import UnionFind
 from .bitmap import (
+    CsrSketches,
     account_pull,
     batched_mask,
     filter_scalars,
@@ -47,10 +40,12 @@ from .bitmap import (
     triangle_tiles,
     unpack_bits,
 )
+from .cluster_fast import _gated_verify_block, gated_verify_merge
 from .intersect import _launch, _upload
 from .transfer import _host_async, _host_wait
 
-SENT = int(SENT)
+# Source: rabbittclust_tpu/ops/labelprop.py::SENT
+SENT = 1 << 30  # "no partner" in the proposals
 LAUNCHES = {"labelprop_round": 0}
 
 # the last run's phases (host seconds), counts and the device milliseconds
@@ -419,3 +414,64 @@ def threshold_clusters_device_lp(
                                    for a, z in round_events)
     LP_STATS["total_s"] = clock() - t_all
     return clusters
+
+
+# Source: rabbittclust_tpu/ops/labelprop.py::_clear_quantum
+def _clear_quantum(count: int) -> int:
+    """Ladder for the clear-list length."""
+    k = 1024
+    while k < count:
+        k *= 4
+    return k
+
+
+# Source: rabbittclust_tpu/ops/labelprop.py::_encode_clear
+def _encode_clear(fi: np.ndarray, fj: np.ndarray, rb: int,
+                  t_off: int = 0) -> Tuple[np.ndarray, ...]:
+    """(t, row, byte, bit-value) clear-list arrays (ladder-padded) for
+    failed pairs (i > j) in the triangular tile order of the build sweep.
+    ``t_off`` rebases the global triangular tile index onto the current
+    panel's local pack index (proposals only ever come from panel tiles)."""
+    cap = _clear_quantum(len(fi))
+    t = np.zeros(cap, dtype=np.int32)
+    r = np.zeros(cap, dtype=np.int32)
+    b = np.zeros(cap, dtype=np.int32)
+    sub = np.zeros(cap, dtype=np.uint8)
+    if len(fi):
+        rblk = fi // rb
+        cblk = fj // rb
+        t[:len(fi)] = (rblk * (rblk + 1) // 2 + cblk - t_off).astype(
+            np.int32)
+        if t[:len(fi)].min() < 0:
+            # a negative tile index would clear a bit of another panel's
+            # mask: fail loudly (and survive ``python -O``)
+            raise RuntimeError(
+                "labelprop clear target outside current panel "
+                f"(min rebased tile {int(t[:len(fi)].min())}, t_off={t_off})")
+        r[:len(fi)] = (fi % rb).astype(np.int32)
+        jl = fj % rb
+        b[:len(fi)] = (jl // 8).astype(np.int32)
+        sub[:len(fi)] = (1 << (jl % 8)).astype(np.uint8)
+    return t, r, b, sub
+
+
+# Source: rabbittclust_tpu/ops/labelprop.py::_lp_fallback (the caller
+# pulls and accounts the masks)
+def _lp_fallback(packs_np, tiles, rb, n, uf, csr, sizes64, threshold,
+                 kmer_size, is_containment, kept_i, kept_j, kept_d):
+    """Exact termination for pathological inputs that exhaust max_rounds:
+    finish from the pulled resident masks with the union-find-gated host
+    verifier (ops.cluster_fast semantics)."""
+    roots = uf.roots_array()
+    for t, (r0, c0) in enumerate(tiles):
+        bits2d = np.unpackbits(packs_np[t], axis=1, bitorder="little")
+        il, jl = np.nonzero(bits2d)
+        ii = il.astype(np.int64) + r0
+        jj = jl.astype(np.int64) + c0
+        inb = (ii < n) & (jj < n)
+        ii, jj = ii[inb], jj[inb]
+        keep = roots[ii] != roots[jj]
+        _gated_verify_block(uf, csr, sizes64, ii[keep], jj[keep], threshold,
+                            kmer_size, is_containment, kept_i, kept_j,
+                            kept_d)
+        roots = uf.roots_array()

@@ -11,17 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from rabbittclust_tpu_torch.host import (
+from rabbittclust_tpu_torch.cluster.mst import (
     clusters_from_forest,
     compute_mst,
     cut_forest,
-    pack_sketches,
 )
 from rabbittclust_tpu_torch.ops import bitmap as bm
 from rabbittclust_tpu_torch.ops import cluster_fast, engine
 from rabbittclust_tpu_torch.ops import intersect as ix
 from rabbittclust_tpu_torch.ops import labelprop as lp
-from rabbittclust_tpu_torch.ops.pack import planes_to_device
+from rabbittclust_tpu_torch.ops.pack import pack_sketches, planes_to_device
 from torch_port_data import clear_list, clustered_sketches, \
     containment_sketches
 
@@ -166,6 +165,48 @@ def test_k1_matches_plain_slice_shape(gpu):
                                  *map(np.asarray, tiles), *sc, False, 4096)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(want[0][0]) > 0
+
+
+@pytest.mark.parametrize("bound", ["mst", "greedy", "minhash"])
+@pytest.mark.parametrize("containment", [False, True], ids=["mash", "aaf"])
+@pytest.mark.parametrize("rb,bits", [(96, 64), (160, 128), (96, 8192),
+                                     (160, 1024)])
+def test_k1_matches_plain_ragged_rb_small_bits(gpu, rb, bits, bound,
+                                               containment):
+    """rb not a multiple of the 128-pair block tile, and signatures shorter
+    than one 256-bit stage: 300 genomes padded to whole row blocks, a
+    diagonal tile with padded rows, an off-diagonal one, an invalid slot."""
+    hashes = containment_sketches(300) if containment else \
+        clustered_sketches(n=300)
+    sig = _signatures(hashes, bits, rb, gpu, bound)
+    last = sig.n_pad - rb
+    tiles = ([0, last, last, 0], [0, 0, last, 0], [1, 1, 1, 0])
+    sc = bm.filter_scalars(0.05, 21, bound)
+    got = bm.batched_mask(sig.xd, sig.cd, sig.sd, *tiles, *sc, containment,
+                          rb, bound)
+    want = bm.batched_mask_plain(sig.xd, sig.cd, sig.sd,
+                                 *map(np.asarray, tiles), *sc, containment,
+                                 rb, bound)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert int(want[0].sum()) > 0
+
+
+def test_k1_matches_plain_rb8192(gpu):
+    """rb = 8192, 8192 bits: an off-diagonal tile, a diagonal tile with
+    padded rows and an invalid slot."""
+    hashes = clustered_sketches(n=12000, s=1000, n_clusters=64, seed=7)
+    sig = _signatures(hashes, 8192, 8192, gpu)
+    sc = bm.filter_scalars(0.05, 22)
+    tiles = ([8192, 8192, 0], [0, 8192, 0], [1, 1, 0])
+    got = bm.batched_mask(sig.xd, sig.cd, sig.sd, *tiles, *sc, False, 8192)
+    for t in range(3):
+        want = bm.batched_mask_plain(sig.xd, sig.cd, sig.sd,
+                                     *(np.asarray(x[t:t + 1]) for x in tiles),
+                                     *sc, False, 8192)
+        assert torch.equal(got[0][t:t + 1], want[0]), t
+        assert torch.equal(got[1][t:t + 1], want[1]), t
+        assert t == 2 or int(want[0][0]) > 0
 
 
 def _resident_masks(gpu, n=600, rb=128):

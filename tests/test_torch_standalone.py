@@ -1,0 +1,140 @@
+"""The port stands alone: no module of ``rabbittclust_tpu_torch`` and not
+``chip_smoke.py`` imports the JAX package ``rabbittclust_tpu`` (not even a
+module of it that does not import JAX) or ``jax``; the port keeps its own
+copies of the host code it needs.
+
+(a) reads every source with ``ast``; (b) runs each of the port's clust-mst
+arms on the CPU in a fresh process and lists what that process loaded;
+(c) the port copies none of the JAX package's NumPy fallbacks: its loader
+of the shared native library raises when the library cannot be had.
+"""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("rabbittclust_tpu", "jax", "jaxlib")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    files = sorted(glob.glob(os.path.join(REPO, "rabbittclust_tpu_torch",
+                                          "**", "*.py"), recursive=True))
+    return files + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imports(path):
+    """(line, module) of every absolute import in ``path``, also those
+    inside functions and strings that are compiled code (``ast`` sees only
+    real import statements, so names in strings and comments are not
+    imports)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_no_source_imports_the_jax_package():
+    files = _sources()
+    assert len(files) > 30, files
+    bad = [f"{os.path.relpath(path, REPO)}:{line}: {mod}"
+           for path in files for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_the_static_check_sees_imports(tmp_path):
+    """The check above finds an import of the JAX package at any depth and
+    passes the port's own and relative imports."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import rabbittclust_tpu_torch.ops\n"
+        "from . import workflows\n"
+        "S = 'rabbittclust_tpu/ops/bitmap.py:345'\n"
+        "def f():\n"
+        "    from rabbittclust_tpu.state import sketch_io\n"
+        "    import jax.numpy\n")
+    assert [m for _, m in _imports(src) if _forbidden(m)] == [
+        "rabbittclust_tpu.state", "jax.numpy"]
+
+
+# Each arm: a list of argv runs in one process (the prep run of the saved
+# arms saves the run folder they read); "{list}" is the genome list file,
+# "{run}" the run folder the first run saved.
+_FRESH = ["--fast", "--device", "-l", "-i", "{list}", "-d", "0.05",
+          "--drlevel", "2", "-m", "1000"]
+ARMS = {
+    "default_save": [_FRESH],
+    "e": [_FRESH + ["-e", "-t", "2"]],
+    "newick_tree": [_FRESH + ["-e", "--newick-tree", "--nexus-tree",
+                              "--phylip-tree", "--linkage-matrix"]],
+    "auto_threshold": [_FRESH + ["-e", "--auto-threshold", "--stability"]],
+    "presketched": [_FRESH, ["--fast", "--device", "--presketched", "{run}",
+                             "-d", "0.05"]],
+    "premsted": [_FRESH, ["--fast", "--premsted", "{run}", "-d", "0.03",
+                          "--dedup-dist", "0.01", "--reps-per-cluster",
+                          "2"]],
+}
+
+_RUNNER = r"""
+import os, sys
+import torch
+from rabbittclust_tpu_torch.cli.clust_mst import main
+runs, list_file = eval(sys.argv[1]), sys.argv[2]
+run_dir = None
+for k, argv in enumerate(runs):
+    argv = [a.replace("{list}", list_file).replace("{run}", run_dir or "")
+            for a in argv]
+    rc = main(argv + ["-o", f"out{k}.cluster"], device=torch.device("cpu"))
+    assert rc == 0, (argv, rc)
+    assert os.path.getsize(f"out{k}.cluster") > 0
+    if run_dir is None:
+        dirs = [d for d in os.listdir(".") if os.path.isdir(d)]
+        run_dir = os.path.abspath(dirs[0]) if len(dirs) == 1 else None
+bad = [m for m in sys.modules if m in ("rabbittclust_tpu", "jax", "jaxlib")
+       or m.startswith(("rabbittclust_tpu.", "jax.", "jaxlib."))]
+print("loaded:", bad)
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_cli_arm_loads_no_jax_package(arm, synthetic_genomes, tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "RTC_MST_CLUSTERS_FAST")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUNNER, repr(ARMS[arm]),
+         synthetic_genomes.list_file],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+    if arm in ("newick_tree", "auto_threshold", "premsted"):
+        names = {"newick_tree": "out0.cluster.newick.tree",
+                 "auto_threshold": "out0.cluster.threshold_analysis.txt",
+                 "premsted": "out1.cluster.reps"}
+        assert (tmp_path / names[arm]).exists(), sorted(os.listdir(tmp_path))
+
+
+def test_native_library_is_required(monkeypatch, tmp_path):
+    from rabbittclust_tpu_torch.utils import native
+    monkeypatch.setattr(native, "_LIB_PATH", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(native, "_SRC_PATH", str(tmp_path / "missing.cpp"))
+    native.load_native.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="missing.so"):
+            native.load_native()
+    finally:
+        native.load_native.cache_clear()
