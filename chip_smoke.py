@@ -8,16 +8,20 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K1 / K2 / K4 / K5b from ``rabbittclust_tpu_torch/csrc``
-   with nvcc, one process per source;
+2. build kernels K1 / K2 / K4 (both modes) / K5b from
+   ``rabbittclust_tpu_torch/csrc`` with nvcc, one process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
    events, beside the least time the card could take for the same work
    (its bound: bytes over 3.35 TB/s or operations over the peak of their
    type, computed from this run's inputs; NVIDIA publishes no rate for
    K1's single-bit tensor-core products, so phase 3b measures the card's
-   rate of that instruction first).  K4 / K5b at W = 12, K = 1024,
-   rb = 4096; K1 at rb = 4096 and 8192 bits (diagonal, off-diagonal and
+   rate of that instruction first).  K4 and K5b read the planes' compact
+   form (its build timed on its own line), and their bounds count the
+   bytes of that form.  K4 at W = 12, K = 1024, rb = 4096, 1 and 2 planes:
+   counts and the mask
+   mode (with start_index and a ragged n cutting the tile); K5b over 10^5
+   random pairs; K1 at rb = 4096 and 8192 bits (diagonal, off-diagonal and
    padded tiles, an invalid slot; small cases of its three bounds and both
    distances, ragged rb of 96 and 160 and 64 to 8192 bits; rb = 8192),
    beside the shared-bit product alone in float32 and in bfloat16; K2, full and
@@ -27,8 +31,9 @@ Phases, one line or block each; any failure raises (non-zero exit):
 4. ``clust-mst --fast --device --presketched`` end to end at N = 16,384
    genomes of about 1,000 hashes (64 planted clusters, seed 7), held
    against the native host engine: same partition at 0.05, same MST edge
-   count, sorted MST weights equal to 1e-12 relative; K4 and K5b must
-   have been launched by that run;
+   count, sorted MST weights equal to 1e-12 relative; K4's mask mode and
+   K5b must have been launched by that run, K4's counts mode (the only
+   allocation of (batch, rb, rb) counts) never;
 5. a small from-FASTA run (``-l -i list``) against the planted clusters;
 6. the MST-free main path at full width: ``clust-mst --fast --device
    --presketched -e`` at N = 131,072 (bench.py's recipe; the dispatcher
@@ -69,6 +74,8 @@ CORE_OPS = 67e12        # operations/s outside the tensor cores (float32;
 KERNELS = {
     "pair_counts_tiles": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
                           "rabbittclust_tpu/ops/intersect.py:110"),
+    "pair_mask_tiles": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
+                        "rabbittclust_tpu/ops/engine.py:52"),
     "pair_common": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
                     "rabbittclust_tpu/ops/engine.py:102"),
     "filter_mask": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
@@ -194,18 +201,14 @@ def check_native():
 def phase_build():
     say("== phase 2: build K1 / K2 / K4 / K5b (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
-    info = _build.build()
+    info = _build.build()  # all nvcc processes at once
     say(f"build seconds: {info['seconds']:.3f} "
         f"({os.path.relpath(info['path'], ROOT)})")
     name = None
     for line in info["log"].splitlines():
-        m = re.search(r"(pair_counts_tiles_kernel|pair_common_kernel)"
-                      r"ILi(\d+)ELb(\d)E", line)
-        k = re.search(r"(filter_mask_kernel|lp_\w+_kernel)", line)
-        if "Compiling entry" in line and m:
-            name = f"{m.group(1)}<W={m.group(2)},two_plane={m.group(3)}>"
-        elif "Compiling entry" in line and k:
-            name = k.group(1)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
         elif name and ("spill" in line or "registers" in line):
             say(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     _build.load_kernels()
@@ -239,76 +242,152 @@ def _k4_plain_tile(pl, r0, c0, rb, rows=512):
     return out
 
 
+def block_compares(occ, r0, c0, rb, mask_args=None):
+    """The compares K4 needs on tile (r0, c0): for every block of GROUP x
+    GROUP pairs, its rows' real entries of each bucket against its
+    columns' (sum_k R_k C_k); in the mask mode only over the blocks it
+    computes (some pair j < i, some row in [start_index, n))."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP
+    k = occ.shape[1]
+    rows = occ[r0:r0 + rb].view(-1, GROUP, k).sum(1).double()
+    cols = occ[c0:c0 + rb].view(-1, GROUP, k).sum(1).double()
+    need = rows @ cols.T  # exact: sums below 2^53
+    if mask_args is not None:
+        start_index, n = mask_args
+        i0 = r0 + GROUP * torch.arange(need.shape[0], device=occ.device)
+        j0 = c0 + GROUP * torch.arange(need.shape[1], device=occ.device)
+        live = (j0[None, :] < i0[:, None] + GROUP - 1) & \
+            (i0[:, None] + GROUP > start_index) & (i0[:, None] < n)
+        need = need * live
+    return int(need.sum())
+
+
+def compact_bytes(cf, g0, g1, planes):
+    """Bytes of the compact form K4 reads for genomes [g0, g1): their
+    grouped entries (values and ids) and their groups' bucket offsets."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP
+    entries = int(cf.start[g1] - cf.start[g0])
+    return entries * (4 * planes + 1) + (g1 - g0) // GROUP * \
+        cf.goff.shape[1] * 4
+
+
 def phase_kernels(hashes, dev):
     say("== phase 3: kernels against their plain versions on the card")
+    from rabbittclust_tpu_torch.distance.mash import size_ratio_limit
     from rabbittclust_tpu_torch.ops.pack import pack_sketches
     from rabbittclust_tpu_torch.ops import intersect as ix
     from rabbittclust_tpu_torch.ops.pack import planes_to_device
-    rec = {"pair_counts_tiles": {"err": 0, "ms": [], "plain_ms": [],
-                                 "bound": []},
-           "pair_common": {"err": 0, "ms": [], "plain_ms": [], "bound": []}}
+    rec = {}
+    radio = size_ratio_limit(THRESHOLD, kssd_params().kmer_size - 1)
 
-    def check(name, got, want, what):
-        if got.shape != want.shape:
-            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} "
-                                 f"!= {tuple(want.shape)}")
-        err = int((got.long() - want.long()).abs().max()) if got.numel() \
-            else 0
-        rec[name]["err"] = max(rec[name]["err"], err)
-        if err:
-            raise AssertionError(f"{name} {what}: max |kernel - plain| = "
-                                 f"{err} (must be 0)")
+    def note(name, ms, plain_ms, bnd):
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound", bnd)):
+            rec[name][key].append(val)
 
     rb = 4096
-    cases = [("1plane", hashes, 4096, 0),
+    # (label, corpus, tile, mask cases: (start_index, n) of the timed
+    # full tile, then one with start_index and a ragged n cutting it)
+    cases = [("1plane", hashes, 4096, 0, [(0, len(hashes)), (5000, 7001)]),
              ("2plane", make_corpus(rb, SKETCH, N_CLUSTERS, SEED + 1,
-                                    np.uint64), 0, 0)]
-    for label, hs, r0, c0 in cases:
+                                    np.uint64), 0, 0, [(0, rb), (999, 3333)])]
+    for label, hs, r0, c0, mask_cases in cases:
         use64 = hs[0].dtype == np.uint64
+        planes = 1 + int(use64)
         pk = pack_sketches(hs, use64, pad_n_to=rb)
         pl = planes_to_device(pk, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cf = pl.compact()
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        build_peak = torch.cuda.max_memory_allocated() - held
+        form = sum(t.numel() * t.element_size() for t in (
+            cf.v0, cf.v1, cf.g0, cf.g1, cf.gid, cf.occ, cf.start, cf.goff,
+            cf.padsq) if t is not None)
+        say(f"compact form {label}: N={pk.n} W={pk.width} K={pk.k}, "
+            f"{cf.entries} real entries of {pk.n * pk.width * pk.k} slots, "
+            f"{form} B (planes {pk.n * pk.width * pk.k * 4 * planes} B), "
+            f"built on the card in {build_ms:.3f} ms (peak {build_peak} B "
+            f"above the planes)")
         got, ms = cuda_ms(lambda: ix.pair_counts_tiles(
-            pl.plane0, pl.plane1, [r0], [c0], [1], rb), reps=2)
+            pl.plane0, pl.plane1, [r0], [c0], [1], rb), reps=3)
         want, plain_ms = cuda_ms(lambda: _k4_plain_tile(pl, r0, c0, rb),
                                  warmup=False)
-        check("pair_counts_tiles", got[0], want, f"{label} tile")
-        # the compares these inputs need: the real slots of each bucket of
-        # the rows against those of the same bucket of the columns
+        hold_exact(rec, "pair_counts_tiles", got[0], want, f"{label} tile")
         occ = occupancy(pl)
-        need = int((occ[r0:r0 + rb].sum(0) * occ[c0:c0 + rb].sum(0)).sum())
-        planes = 1 + int(use64)
-        k4_bound = bound(2 * rb * pk.width * pk.k * 4 * planes + rb * rb * 4,
-                         need, CORE_OPS)
-        rec["pair_counts_tiles"]["ms"].append(ms)
-        rec["pair_counts_tiles"]["plain_ms"].append(plain_ms)
-        rec["pair_counts_tiles"]["bound"].append(k4_bound)
-        say(f"K4 {label}: N={pk.n} W={pk.width} K={pk.k} rb={rb} tile "
-            f"({r0},{c0}): exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms; pairs with common>0: {int((want > 0).sum())}; compares "
-            f"needed {need} of the W^2 K rb^2 = "
-            f"{pk.width ** 2 * pk.k * rb * rb} made; bound {k4_bound[0]:.4f}"
-            f" ms ({k4_bound[1]}), kernel at {k4_bound[0] / ms:.4f} of it")
+        need = block_compares(occ, r0, c0, rb)
+        read = compact_bytes(cf, r0, r0 + rb, planes) + (
+            0 if r0 == c0 else compact_bytes(cf, c0, c0 + rb, planes))
+        k4_bound = bound(read + rb * rb * 4, need, CORE_OPS)
+        note("pair_counts_tiles", ms, plain_ms, k4_bound)
+        say(f"K4 {label}: tile ({r0},{c0}) of rb={rb}: exact; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms; pairs with common>0: "
+            f"{int((want > 0).sum())}; compares needed {need} (the plain "
+            f"form makes W^2 K rb^2 = {pk.width ** 2 * pk.k * rb * rb}); "
+            f"bytes of the compact form read {read}; bound "
+            f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), kernel at "
+            f"{k4_bound[0] / ms:.4f} of it")
+        del got
+        # the mask mode at the same tile: the timed full tile, then
+        # start_index and a ragged n cutting through it; each beside an
+        # invalid slot, against the plain epilogue over the plain counts
+        counts = torch.stack([want, torch.zeros_like(want)])
+        for m, (start, n) in enumerate(mask_cases):
+            args = (pl.plane0, pl.plane1, pl.sizes, [r0, 0], [c0, 0], [1, 0],
+                    radio, start, n, rb)
+            (cnt, packs), ms_m = cuda_ms(lambda: ix.pair_mask_tiles(*args),
+                                         reps=3)
+            (want_c, want_p), epi_ms = cuda_ms(lambda: ix.mask_epilogue(
+                counts, pl.sizes, [r0, 0], [c0, 0], [1, 0], radio, start, n,
+                rb), warmup=False)
+            what = f"{label} start_index={start} n={n}"
+            hold_exact(rec, "pair_mask_tiles", cnt, want_c, f"{what} counts")
+            hold_exact(rec, "pair_mask_tiles", packs, want_p, f"{what} masks")
+            ones = int(np.unpackbits(packs.cpu().numpy()).sum())
+            if ones != int(cnt.sum()):
+                raise AssertionError(f"{what}: count {cnt.tolist()} is not "
+                                     f"the popcount {ones} of the mask")
+            need_m = block_compares(occ, r0, c0, rb, (start, n))
+            bound_m = bound(read + 2 * rb * 4 + rb * rb // 8 + 8, need_m,
+                            CORE_OPS)
+            if m == 0:
+                note("pair_mask_tiles", ms_m, plain_ms + epi_ms, bound_m)
+            say(f"K4 mask {what}: counts {cnt.tolist()}: exact, popcount of "
+                f"the mask; kernel {ms_m:.3f} ms, plain counts + epilogue "
+                f"{plain_ms + epi_ms:.3f} ms; compares needed {need_m}; bound "
+                f"{bound_m[0]:.4f} ms ({bound_m[1]}), kernel at "
+                f"{bound_m[0] / ms_m:.4f} of it")
+        del counts, want
         rng = np.random.default_rng(1)
         ii = rng.integers(0, len(hs), size=100_000)
         jj = rng.integers(0, len(hs), size=100_000)
-        got, ms = cuda_ms(lambda: ix.pair_common(pl.plane0, pl.plane1, ii,
-                                                 jj), reps=3)
+        # the kernel alone on pairs already on the card, and the wrapper's
+        # call from host arrays (the engine's), which uploads them
+        pairs = torch.from_numpy(np.stack([ii, jj]).astype(np.int32)).to(dev)
+        got, ms = cuda_ms(lambda: ix.pair_common_launch(
+            pl.plane0, pl.plane1, pairs), reps=10)
+        got_w, call_ms = cuda_ms(lambda: ix.pair_common(
+            pl.plane0, pl.plane1, ii, jj), reps=3)
+        hold_exact(rec, "pair_common", got_w, got, f"{label} wrapper")
         it, jt = torch.from_numpy(ii).to(dev), torch.from_numpy(jj).to(dev)
         want, plain_ms = cuda_ms(lambda: ix.pair_common_plain(
             pl.plane0, pl.plane1, it, jt))
-        check("pair_common", got, want, label)
+        hold_exact(rec, "pair_common", got, want, label)
         need = sum(int((occ[it[s:s + 10_000]] * occ[jt[s:s + 10_000]]).sum())
                    for s in range(0, len(ii), 10_000))
-        touched = len(np.union1d(ii, jj))
-        k5_bound = bound(touched * pk.width * pk.k * 4 * planes
-                         + 12 * len(ii), need, CORE_OPS)
-        rec["pair_common"]["ms"].append(ms)
-        rec["pair_common"]["plain_ms"].append(plain_ms)
-        rec["pair_common"]["bound"].append(k5_bound)
-        say(f"K5b {label}: 100000 random pairs: exact; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms; compares needed {need}, bound "
-            f"{k5_bound[0]:.4f} ms ({k5_bound[1]})")
-        del pl, got, want
+        touched = torch.from_numpy(np.union1d(ii, jj)).to(dev)
+        sizes = cf.start[1:len(hs) + 1] - cf.start[:len(hs)]
+        read = int(sizes[touched].sum()) * 4 * planes + len(touched) * pk.k
+        k5_bound = bound(read + 12 * len(ii), need, CORE_OPS)
+        note("pair_common", ms, plain_ms, k5_bound)
+        say(f"K5b {label}: 100000 random pairs: exact; kernel {ms:.3f} ms "
+            f"(the wrapper's call from host arrays {call_ms:.3f} ms), plain "
+            f"{plain_ms:.3f} ms; compares needed {need}; bytes of the "
+            f"compact form read {read}; bound {k5_bound[0]:.4f} ms "
+            f"({k5_bound[1]}), kernel at {k5_bound[0] / ms:.4f} of it")
+        del pl, cf, got, got_w, want, pairs
         torch.cuda.empty_cache()
 
     # small ragged cases: padded tail, an invalid slot, wide buckets
@@ -323,17 +402,30 @@ def phase_kernels(hashes, dev):
                 [1, 1, 1, 1, 0]
             got = ix.pair_counts_tiles(pl.plane0, pl.plane1, r0s, c0s, val,
                                        128)
+            want = torch.zeros_like(got)
             for t in range(4):
-                check("pair_counts_tiles", got[t],
-                      _k4_plain_tile(pl, r0s[t], c0s[t], 128, rows=128),
-                      f"small W={pk.width} tile {t}")
+                want[t] = _k4_plain_tile(pl, r0s[t], c0s[t], 128, rows=128)
+                hold_exact(rec, "pair_counts_tiles", got[t], want[t],
+                           f"small W={pk.width} tile {t}")
+            for start, n in ((0, 300), (150, 290)):
+                args = (r0s, c0s, val, radio, start, n, 128)
+                cnt, packs = ix.pair_mask_tiles(pl.plane0, pl.plane1,
+                                                pl.sizes, *args)
+                want_c, want_p = ix.mask_epilogue(want, pl.sizes, *args)
+                what = f"small W={pk.width} start_index={start} n={n}"
+                hold_exact(rec, "pair_mask_tiles", cnt, want_c,
+                           f"{what} counts")
+                hold_exact(rec, "pair_mask_tiles", packs, want_p,
+                           f"{what} masks")
             ii = np.random.default_rng(2).integers(0, 300, size=(2, 5000))
-            check("pair_common", ix.pair_common(pl.plane0, pl.plane1, *ii),
-                  ix.pair_common_plain(pl.plane0, pl.plane1,
-                                       *torch.from_numpy(ii).to(dev)),
-                  f"small W={pk.width}")
+            hold_exact(rec, "pair_common",
+                       ix.pair_common(pl.plane0, pl.plane1, *ii),
+                       ix.pair_common_plain(pl.plane0, pl.plane1,
+                                            *torch.from_numpy(ii).to(dev)),
+                       f"small W={pk.width}")
             say(f"small ragged {'2plane' if use64 else '1plane'} "
-                f"W={pk.width} K={pk.k} N=300->{pk.n}: exact")
+                f"W={pk.width} K={pk.k} N=300->{pk.n}: counts, masks and "
+                "pair counts exact")
     if min(ix.LAUNCHES.values()) <= 0:
         raise AssertionError(f"launch counters did not move: {ix.LAUNCHES}")
     return rec
@@ -388,6 +480,7 @@ def phase_end_to_end(hashes, dev, tmp):
 
     ix.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # before the run, in the peak
     stats = {}
     t0 = time.perf_counter()
     rc = main(["--fast", "--device", "--presketched", folder, "-o", out,
@@ -398,9 +491,12 @@ def phase_end_to_end(hashes, dev, tmp):
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"clust-mst returned {rc}")
-    if min(launches.values()) <= 0:
+    if min(launches["pair_mask_tiles"], launches["pair_common"]) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{launches}")
+    if launches["pair_counts_tiles"]:
+        raise AssertionError("the dense engine wrote (batch, rb, rb) counts "
+                             f"to device memory: {launches}")
 
     t0 = time.perf_counter()
     ref = compute_mst(hashes, THRESHOLD, p.kmer_size)
@@ -432,16 +528,17 @@ def phase_end_to_end(hashes, dev, tmp):
     busy = (stats["sweep_ms"] + stats["pair_common_ms"]) / 1e3
     say("phases (s): " + ", ".join(
         f"{k}={stats[k]:.3f}" for k in (
-            "pack_s", "h2d_s", "dispatch_s", "sweep_wait_s", "decode_s",
-            "pair_common_s", "edges_s", "kruskal_s", "mst_s",
+            "pack_s", "h2d_s", "compact_s", "dispatch_s", "sweep_wait_s",
+            "decode_s", "pair_common_s", "edges_s", "kruskal_s", "mst_s",
             "outputs_s")))
     say(f"device (CUDA events): tile sweep {stats['sweep_ms']:.3f} ms, "
         f"pair-common {stats['pair_common_ms']:.3f} ms; busy share of the "
         f"engine wall ~{busy / stats['mst_s']:.3f}")
     say(f"wall {wall:.3f} s (host engine {host_s:.3f} s); "
-        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB); "
-        f"tiles {stats['tiles']}, batches {stats['batches']}, candidates "
-        f"{stats['candidates']}; launches {launches}")
+        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; "
+        f"{held} B of it held before the run); tiles {stats['tiles']}, "
+        f"batches {stats['batches']}, candidates {stats['candidates']}; "
+        f"launches {launches}")
     return launches, want
 
 
@@ -932,7 +1029,9 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     # each kernel's first timed case, its bound and, for K1, the one
     # PyTorch call that computes its product (no single call computes
-    # K2's, K4's or K5b's function)
+    # K2's, K4's or K5b's function); launches from the run of the path that
+    # uses the kernel (K4's counts mode is on no path: the dense engine
+    # takes its mask mode)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],

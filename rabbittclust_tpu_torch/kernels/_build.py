@@ -101,11 +101,10 @@ def load_kernels() -> ctypes.CDLL:
     """The built library with its entry points' signatures declared."""
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rtc_pair_counts_tiles.restype = ci
-    lib.rtc_pair_counts_tiles.argtypes = [vp, vp, vp, vp, vp, vp,
-                                          ci, ci, ci, ci, ci, vp]
+    lib.rtc_pair_tiles.restype = ci
+    lib.rtc_pair_tiles.argtypes = [vp] * 12 + [ci] * 10 + [vp]
     lib.rtc_pair_common.restype = ci
-    lib.rtc_pair_common.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.rtc_pair_common.argtypes = [vp] * 8 + [ci] * 3 + [vp]
     cf = ctypes.c_float
     lib.rtc_filter_mask.restype = ci
     lib.rtc_filter_mask.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,

@@ -2,9 +2,10 @@
 ``rabbittclust_tpu/ops/engine.py``, compact pull only).
 
 A triangular sweep of (rb x rb) tiles over the resident packed planes, in
-batches of ``batch_k``: kernel K4 counts every pair of a batch, the mask
-epilogue (torch, on the device) keeps the candidate pairs and bit-packs
-them, the host pulls the per-tile counts and the packed masks of nonempty
+batches of ``batch_k``: kernel K4 in its mask mode finds the pairs of a
+batch with a common hash, keeps those that pass the size-ratio gate and
+the triangle and bit-packs them (the counts never reach device memory),
+the host pulls the per-tile counts and the packed masks of nonempty
 tiles, decodes the surviving pairs natively, kernel K5b gathers their exact
 common counts, and the host turns those into float64 distances and runs
 the streaming Kruskal.  Tile order, ``rb``, ``batch_k`` and the budget
@@ -21,35 +22,10 @@ import torch
 
 from ..cluster.mst import DENSE_SPAN, Edges, MstResult, concat_edges, kruskal
 from ..distance.mash import aaf_distance, mash_distance, size_ratio_limit
-from .bitmap import _decode_packed_mask, pack_mask_u8
-from .intersect import _upload, pair_common, pair_counts_tiles
+from .bitmap import _decode_packed_mask
+from .intersect import _upload, pair_common, pair_mask_tiles
 from .pack import DevicePlanes, pack_sketches, planes_to_device
 from .transfer import _host_async, _host_wait
-
-
-def _mst_batch(planes: DevicePlanes, r0s: np.ndarray, c0s: np.ndarray,
-               valid: np.ndarray, radio: int, start_index: int, n: int,
-               rb: int):
-    """Counts (K4), then the mask epilogue of ``_mst_batch_fn``:
-    ``counts > 0``, the int32 size-ratio gate, ``j < i``, ``i < n`` and
-    ``i >= start_index``.  Returns per-tile candidate counts (batch,) int32
-    and bit-packed masks (batch, rb, rb // 8) uint8, on the device."""
-    dev = planes.plane0.device
-    origin = _upload(np.stack([r0s, c0s, valid]), dev)
-    counts = pair_counts_tiles(planes.plane0, planes.plane1, r0s, c0s, valid,
-                               rb)
-    span = torch.arange(rb, dtype=torch.int32, device=dev)
-    rows = origin[0][:, None] + span  # (batch, rb) global row ids
-    cols = origin[1][:, None] + span
-    si = planes.sizes[rows.long()][:, :, None]
-    sj = planes.sizes[cols.long()][:, None, :]
-    mn = torch.minimum(si, sj)
-    mx = torch.maximum(si, sj)
-    m = (counts > 0) & (mn > 0) & (mx <= radio * mn)
-    m &= cols[:, None, :] < rows[:, :, None]
-    m &= ((rows < n) & (rows >= start_index))[:, :, None]
-    m &= (origin[2] > 0)[:, None, None]
-    return m.sum((1, 2), dtype=torch.int32), pack_mask_u8(m)
 
 
 def _pair_common(planes: DevicePlanes, ii: np.ndarray,
@@ -88,10 +64,10 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
     """Exact MST over all pairs with common >= 1 that pass the size-ratio
     filter.  ``device`` is explicit (see ``device.resolve_device``).
     ``stats``, when given, receives phase seconds (``pack_s``, ``h2d_s``,
-    ``dispatch_s``, ``sweep_wait_s``, ``decode_s``, ``pair_common_s``,
-    ``edges_s``, ``kruskal_s``), the device time of the tile sweep and of the pair
-    gathers (``sweep_ms``, ``pair_common_ms``, CUDA only) and counts
-    (``tiles``, ``batches``, ``candidates``)."""
+    ``compact_s``, ``dispatch_s``, ``sweep_wait_s``, ``decode_s``,
+    ``pair_common_s``, ``edges_s``, ``kruskal_s``), the device time of the
+    tile sweep and of the pair gathers (``sweep_ms``, ``pair_common_ms``,
+    CUDA only) and counts (``tiles``, ``batches``, ``candidates``)."""
     from ..device import resolve_device
     device = resolve_device(device)
     n = len(hashes)
@@ -102,8 +78,8 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
                          if with_dense else None,
                          ani=np.zeros(101, np.int64) if with_dense else None)
     st = {} if stats is None else stats
-    for key in ("pack_s", "h2d_s", "dispatch_s", "sweep_wait_s", "decode_s",
-                "pair_common_s", "edges_s", "kruskal_s"):
+    for key in ("pack_s", "h2d_s", "compact_s", "dispatch_s", "sweep_wait_s",
+                "decode_s", "pair_common_s", "edges_s", "kruskal_s"):
         st[key] = 0.0
     cuda = device.type == "cuda"
     clock = time.perf_counter
@@ -125,6 +101,11 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
     if cuda:
         torch.cuda.synchronize(device)
     st["h2d_s"] = clock() - t0
+    t0 = clock()
+    if cuda:  # the kernels' compact form, built on the device
+        planes.compact()
+        torch.cuda.synchronize(device)
+    st["compact_s"] = clock() - t0
 
     dense = np.zeros((DENSE_SPAN, n), dtype=np.int64) if with_dense else None
     ani = np.zeros(101, dtype=np.int64) if with_dense else None
@@ -155,8 +136,11 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
         val = np.zeros(batch_k, dtype=np.int64)
         for t, (r0, c0) in enumerate(batches[b]):
             r0s[t], c0s[t], val[t] = r0, c0, 1
-        cnts, packs = timed(sweep_events, _mst_batch, planes, r0s, c0s, val,
-                            radio, start_index, n, rb)
+        # _mst_batch_fn: K4's mask mode on CUDA (the counts stay on chip),
+        # the plain counts and the torch epilogue on the CPU
+        cnts, packs = timed(sweep_events, pair_mask_tiles, planes.plane0,
+                            planes.plane1, planes.sizes, r0s, c0s, val, radio,
+                            start_index, n, rb)
         out = _host_async(cnts), packs, r0s, c0s, len(batches[b])
         st["dispatch_s"] += clock() - t0
         return out

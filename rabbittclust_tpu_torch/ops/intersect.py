@@ -1,10 +1,16 @@
 """Exact pairwise sketch-intersection counts (counterpart of
 ``rabbittclust_tpu/ops/intersect.py``).
 
-Two kernels, written by hand for Hopper in ``csrc/pair_counts.cu``:
+Kernels written by hand for Hopper in ``csrc/pair_counts.cu``, over the
+planes' compact form (``ops/pack.py::compact_planes``, built once per
+plane set):
 
 * K4 ``pair_counts_tiles`` — counts for a batch of (rb x rb) tiles of the
   resident planes; replaces the Pallas kernel ``pair_counts_row_pallas``.
+* ``pair_mask_tiles`` — the same kernel in its mask mode: the dense
+  engine's per-tile candidate counts and bit-packed masks
+  (``rabbittclust_tpu/ops/engine.py::_mst_batch_fn``), without the counts
+  ever reaching device memory.
 * K5b ``pair_common`` — counts for explicit (ii, jj) pairs; replaces the
   jitted ``_pair_common_fn`` of the JAX engine.
 
@@ -23,7 +29,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-LAUNCHES = {"pair_counts_tiles": 0, "pair_common": 0}
+from .pack import GROUP, WINDOWS, CompactPlanes, compact_of
+
+LAUNCHES = {"pair_counts_tiles": 0, "pair_mask_tiles": 0, "pair_common": 0}
+
+# the tile kernel's modes (csrc/pair_counts.cu::Mode)
+COUNTS, MASK = 0, 1
+# shared memory of the tile kernel's staging ring, both modes: beside a
+# block's counts (64 KB) two blocks an SM, beside its mask bits (2 KB)
+# four; longer windows cost blocks an SM, shorter ones more barriers
+# (the budgets timed on the card are in PERF.md)
+STAGE_BUDGET = 48 * 1024
+# dynamic shared memory a block may ask for (pair_counts.cu::SMEM_MAX)
+_SMEM_MAX = 232448 - 1024
 
 
 def reset_launches() -> None:
@@ -51,17 +69,15 @@ def pair_counts_row(a0: torch.Tensor, b0: torch.Tensor,
                     a1: Optional[torch.Tensor] = None,
                     b1: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One row block against all columns, (GI, N) int32 (the counterpart
-    of the JAX dispatcher ``pair_counts_row``): the plain version on CPU
-    tensors, K4 on CUDA tensors (GI == N, one tile)."""
-    if a0.device.type == "cpu":
-        return pair_counts_plain(a0, b0, a1, b1)
-    if a0.shape[0] != b0.shape[0]:
-        raise ValueError("on CUDA pair_counts_row takes a square block")
-    gi = a0.shape[0]
-    two = a1 is not None
-    p0 = torch.cat([a0, b0])
-    p1 = torch.cat([a1, b1]) if two else None
-    return pair_counts_tiles(p0, p1, [0], [gi], [1], gi)[0]
+    of the JAX dispatcher ``pair_counts_row``), on CPU tensors only.  The
+    blocks carry no genome ids, so a kernel could not tell which pairs of
+    them are a genome against itself (the plain count's diagonal pad
+    term): on the card, K4 runs on the resident planes through
+    ``pair_counts_tiles``."""
+    if a0.device.type != "cpu":
+        raise ValueError("pair_counts_row runs on the CPU; on CUDA use "
+                         "pair_counts_tiles over the resident planes")
+    return pair_counts_plain(a0, b0, a1, b1)
 
 
 def _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb):
@@ -74,6 +90,39 @@ def _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb):
                 None if p1 is None else p1[r0:r0 + rb],
                 None if p1 is None else p1[c0:c0 + rb])
     return out
+
+
+def mask_epilogue(counts: torch.Tensor, sizes: torch.Tensor, r0s, c0s,
+                  valid, radio: int, start_index: int, n: int, rb: int):
+    """The mask of ``_mst_batch_fn`` over (batch, rb, rb) counts, in torch:
+    ``counts > 0``, the int32 size-ratio gate, ``j < i``, ``i < n`` and
+    ``i >= start_index``, valid tiles only.  Returns per-tile candidate
+    counts (batch,) int32 and bit-packed masks (batch, rb, rb // 8)
+    uint8."""
+    from .bitmap import pack_mask_u8
+    dev = counts.device
+    origin = _upload(np.stack([np.asarray(x, dtype=np.int64).reshape(-1)
+                               for x in (r0s, c0s, valid)]), dev)
+    span = torch.arange(rb, dtype=torch.int32, device=dev)
+    rows = origin[0][:, None] + span  # (batch, rb) global row ids
+    cols = origin[1][:, None] + span
+    si = sizes[rows.long()][:, :, None]
+    sj = sizes[cols.long()][:, None, :]
+    mn = torch.minimum(si, sj)
+    mx = torch.maximum(si, sj)
+    m = (counts > 0) & (mn > 0) & (mx <= radio * mn)
+    m &= cols[:, None, :] < rows[:, :, None]
+    m &= ((rows < n) & (rows >= start_index))[:, :, None]
+    m &= (origin[2] > 0)[:, None, None]
+    return m.sum((1, 2), dtype=torch.int32), pack_mask_u8(m)
+
+
+def pair_mask_tiles_plain(p0, p1, sizes, r0s, c0s, valid, radio,
+                          start_index, n, rb):
+    """The plain counts of every valid tile, then ``mask_epilogue``."""
+    counts = _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb)
+    return mask_epilogue(counts, sizes, r0s, c0s, valid, radio, start_index,
+                         n, rb)
 
 
 def _check_planes(p0: torch.Tensor, p1: Optional[torch.Tensor]) -> None:
@@ -106,13 +155,12 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
 
 
-def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
-                      r0s, c0s, valid, rb: int) -> torch.Tensor:
-    """counts[t] = pair counts of rows [r0s[t], +rb) against columns
-    [c0s[t], +rb) of the planes (n_pad, W, K): (batch, rb, rb) int32.
-    ``r0s``, ``c0s`` and ``valid`` are host int sequences of one length;
-    tiles with ``valid[t] == 0`` are not computed (zero on the CPU,
-    unwritten on CUDA)."""
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _tiles(p0, r0s, c0s, valid, rb):
+    """The tile origins as int64 arrays, bounds-checked on live tiles."""
     r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
                        for x in (r0s, c0s, valid))
     if not len(r0s) == len(c0s) == len(valid):
@@ -123,25 +171,97 @@ def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
                        > p0.shape[0]):
         raise ValueError(f"a tile of {rb} rows leaves the {p0.shape[0]} "
                          "packed genomes")
-    if p0.device.type == "cpu":
-        return _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb)
+    return r0s, c0s, valid
+
+
+def tile_config(compact: CompactPlanes, two_plane: bool, mode: int):
+    """(wb, cap, shared bytes) of the tile kernel: the longest bucket
+    window whose staging ring fits ``STAGE_BUDGET``, and the ring's
+    capacity in entries per side (``csrc/pair_counts.cu::stage_layout``
+    computes the same bytes)."""
+    planes = 2 if two_plane else 1
+    acc = GROUP * GROUP * 4 if mode == COUNTS else GROUP * GROUP // 8
+    for wb in WINDOWS:
+        cap = (compact.window_max[wb] + 31) // 16 * 16  # + 15 of shift
+        stage = 2 * cap * (4 * planes + 1) + 2 * ((4 * (wb + 1) + 15)
+                                                  // 16 * 16)
+        if 2 * stage <= STAGE_BUDGET:
+            break
+    smem = 2 * stage + acc
+    if smem > _SMEM_MAX:
+        raise ValueError(f"a bucket of a group holds {compact.window_max[1]}"
+                         " entries: the tile kernel cannot stage it")
+    return wb, cap, smem
+
+
+def _launch_tiles(mode, p0, p1, r0s, c0s, valid, rb, out, sizes=None,
+                  tile_counts=None, radio=0, start_index=0, n=0):
+    """One launch of the tile kernel; ``sizes`` and ``tile_counts`` are
+    read and written in the mask mode only."""
     _check_planes(p0, p1)
-    if rb % 32:
-        raise ValueError(f"rb={rb}: must be a multiple of 32")
+    if rb % GROUP:
+        raise ValueError(f"rb={rb}: must be a multiple of {GROUP}")
+    live = valid != 0
+    if (r0s[live] % GROUP).any() or (c0s[live] % GROUP).any():
+        raise ValueError(f"tile origins must be multiples of {GROUP}")
+    if len(r0s) > 65535:
+        raise ValueError("at most 65,535 tiles a launch")
     from ..kernels._build import load_kernels
     lib = load_kernels()
-    batch = len(r0s)
-    _, w, k = p0.shape
+    cf = compact_of(p0, p1)
+    wb, cap, _ = tile_config(cf, p1 is not None, mode)
     idx = _upload(np.stack([r0s, c0s, live]), p0.device)
-    out = torch.empty((batch, rb, rb), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
-        _launch(lib.rtc_pair_counts_tiles, p0.data_ptr(),
-                (p0 if p1 is None else p1).data_ptr(), idx[0].data_ptr(),
-                idx[1].data_ptr(), idx[2].data_ptr(), out.data_ptr(), batch,
-                rb, w, k, int(p1 is not None), stream)
+        _launch(lib.rtc_pair_tiles, cf.g0.data_ptr(),
+                (cf.g0 if cf.g1 is None else cf.g1).data_ptr(),
+                cf.gid.data_ptr(), cf.goff.data_ptr(), cf.start.data_ptr(),
+                cf.padsq.data_ptr(), _ptr(sizes), idx[0].data_ptr(),
+                idx[1].data_ptr(), idx[2].data_ptr(), out.data_ptr(),
+                _ptr(tile_counts), len(r0s), rb, p0.shape[2], wb, cap,
+                int(p1 is not None), mode, radio, start_index, n, stream)
+
+
+def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
+                      r0s, c0s, valid, rb: int) -> torch.Tensor:
+    """counts[t] = pair counts of rows [r0s[t], +rb) against columns
+    [c0s[t], +rb) of the planes (n_pad, W, K): (batch, rb, rb) int32.
+    ``r0s``, ``c0s`` and ``valid`` are host int sequences of one length;
+    tiles with ``valid[t] == 0`` are not computed (zero on the CPU,
+    unwritten on CUDA).  On CUDA, rb and the origins of valid tiles are
+    multiples of ``GROUP``."""
+    r0s, c0s, valid = _tiles(p0, r0s, c0s, valid, rb)
+    if p0.device.type == "cpu":
+        return _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb)
+    out = torch.empty((len(r0s), rb, rb), dtype=torch.int32,
+                      device=p0.device)
+    _launch_tiles(COUNTS, p0, p1, r0s, c0s, valid, rb, out)
     LAUNCHES["pair_counts_tiles"] += 1
     return out
+
+
+def pair_mask_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
+                    sizes: torch.Tensor, r0s, c0s, valid, radio: int,
+                    start_index: int, n: int, rb: int):
+    """The dense engine's batch (``_mst_batch_fn``): per-tile candidate
+    counts (batch,) int32 and bit-packed masks (batch, rb, rb // 8) uint8
+    of the pairs with a common hash that pass ``mask_epilogue``'s gates.
+    ``sizes`` (n_pad,) int32 on the planes' device."""
+    r0s, c0s, valid = _tiles(p0, r0s, c0s, valid, rb)
+    if p0.device.type == "cpu":
+        return pair_mask_tiles_plain(p0, p1, sizes, r0s, c0s, valid, radio,
+                                     start_index, n, rb)
+    if sizes.dtype != torch.int32 or sizes.device != p0.device or \
+            sizes.shape != (p0.shape[0],) or not sizes.is_contiguous():
+        raise ValueError("sizes must be a contiguous (n_pad,) int32 tensor "
+                         "on the planes' device")
+    cnts = torch.zeros(len(r0s), dtype=torch.int32, device=p0.device)
+    packs = torch.zeros((len(r0s), rb, rb // 8), dtype=torch.uint8,
+                        device=p0.device)
+    _launch_tiles(MASK, p0, p1, r0s, c0s, valid, rb, packs, sizes, cnts,
+                  radio, start_index, n)
+    LAUNCHES["pair_mask_tiles"] += 1
+    return cnts, packs
 
 
 def pair_common_plain(p0: torch.Tensor, p1: Optional[torch.Tensor],
@@ -175,18 +295,33 @@ def pair_common(p0: torch.Tensor, p1: Optional[torch.Tensor],
     if p0.device.type == "cpu":
         return pair_common_plain(p0, p1, torch.from_numpy(ii),
                                  torch.from_numpy(jj))
+    return pair_common_launch(p0, p1, _upload(np.stack([ii, jj]), p0.device))
+
+
+def pair_common_launch(p0: torch.Tensor, p1: Optional[torch.Tensor],
+                       pairs: torch.Tensor) -> torch.Tensor:
+    """``pair_common`` for a (2, q) int32 tensor of pair indices already on
+    the planes' device, each in [0, n_pad) (unchecked: what
+    ``pair_common`` checks and uploads): (q,) int32."""
+    if p0.device.type == "cpu":
+        return pair_common_plain(p0, p1, pairs[0], pairs[1])
     _check_planes(p0, p1)
+    if pairs.dtype != torch.int32 or pairs.dim() != 2 or \
+            pairs.shape[0] != 2 or not pairs.is_contiguous() or \
+            pairs.device != p0.device:
+        raise ValueError("pairs must be a contiguous (2, q) int32 tensor on "
+                         "the planes' device")
     from ..kernels._build import load_kernels
     lib = load_kernels()
-    q = len(ii)
-    _, w, k = p0.shape
-    pairs = _upload(np.stack([ii, jj]), p0.device)
+    cf = compact_of(p0, p1)
+    q = pairs.shape[1]
     out = torch.empty(q, dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
-        _launch(lib.rtc_pair_common, p0.data_ptr(),
-                (p0 if p1 is None else p1).data_ptr(), pairs[0].data_ptr(),
-                pairs[1].data_ptr(), out.data_ptr(), q, w, k,
-                int(p1 is not None), stream)
+        _launch(lib.rtc_pair_common, cf.v0.data_ptr(),
+                (cf.v0 if cf.v1 is None else cf.v1).data_ptr(),
+                cf.occ.data_ptr(), cf.start.data_ptr(), cf.padsq.data_ptr(),
+                pairs[0].data_ptr(), pairs[1].data_ptr(), out.data_ptr(), q,
+                p0.shape[2], int(p1 is not None), stream)
     LAUNCHES["pair_common"] += 1
     return out

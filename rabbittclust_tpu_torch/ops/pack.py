@@ -24,6 +24,12 @@ always a true hash match — no pad correction term is needed.
 
 W is the max bucket occupancy over the dataset (rounded up to a multiple of
 4); b adapts upward if W would exceed ``max_width``.
+
+Slot order: the real entries of a (genome, bucket) fill slots 0..occ-1
+and pads the rest (the stable sort by cell numbers them from 0).
+``compact_planes`` keeps only the real entries, in the two orders the
+device kernels read; it finds them by the pad test, so it does not rely
+on the slot order.
 """
 
 from __future__ import annotations
@@ -142,6 +148,127 @@ class DevicePlanes:
     @property
     def two_plane(self) -> bool:
         return self.plane1 is not None
+
+    def compact(self) -> "CompactPlanes":
+        """The planes' compact form, built at the first call."""
+        return compact_of(self.plane0, self.plane1)
+
+
+# Genomes of a group in the grouped order: the edge of K4's block tile
+# (csrc/pair_counts.cu::GS).
+GROUP = 128
+# bucket window lengths the tile kernel may stage at a time
+WINDOWS = (32, 16, 8, 4, 2, 1)
+# spare elements after every value array: the kernels copy 16-byte
+# granules and may read up to 15 bytes past a segment
+SPARE = 16
+
+
+@dataclass
+class CompactPlanes:
+    """The real entries of the planes (top bit clear in the top plane:
+    plane1 for 64-bit hashes, where a real plane0 value may have its top
+    bit set), in two orders:
+
+    * genome-major, read by K5b: ``v0``/``v1`` hold genome g's entries in
+      (bucket, slot) order from ``start[g]``; ``occ[g, k]`` counts them.
+    * grouped, read by K4: genomes in groups of ``GROUP``; ``g0``/``g1``
+      hold group G's entries in (bucket, genome, slot) order from
+      ``start[GROUP * G]``, ``gid`` the genome within the group of each,
+      and ``goff[G, k]`` is the first entry of bucket k within the group.
+
+    ``padsq[g]`` is the sum over buckets of (W - occ)^2: the matches of
+    genome g's pads with its own pads, which the plain count has on the
+    diagonal.  ``window_max[wb]`` is the most entries any group holds in
+    one window of ``wb`` buckets (windows start at multiples of ``wb``)."""
+    v0: torch.Tensor              # (E + SPARE,) int32
+    v1: Optional[torch.Tensor]    # (E + SPARE,) int32, 64-bit hashes only
+    g0: torch.Tensor              # (E + SPARE,) int32
+    g1: Optional[torch.Tensor]
+    gid: torch.Tensor             # (E + SPARE,) uint8
+    occ: torch.Tensor             # (n_pad, K) uint8
+    start: torch.Tensor           # (n_groups * GROUP + 1,) int64
+    goff: torch.Tensor            # (n_groups, K + 1) int32
+    padsq: torch.Tensor           # (n_pad,) int32 (int32 arithmetic)
+    window_max: dict
+
+    @property
+    def entries(self) -> int:
+        return int(self.start[-1])
+
+
+def compact_planes(p0: torch.Tensor, p1: Optional[torch.Tensor],
+                   chunk_groups: int = 8) -> CompactPlanes:
+    """The compact form of (n_pad, W, K) int32 planes, on their device.
+    Plain torch: it is layout.  Genomes are read ``chunk_groups`` groups at
+    a time, so the temporaries stay small beside the planes."""
+    n, w, k = p0.shape
+    dev = p0.device
+    top = p0 if p1 is None else p1
+    n_groups = max(-(-n // GROUP), 1)
+    n_virt = n_groups * GROUP
+    step = chunk_groups * GROUP
+    occ = torch.zeros((n_virt, k), dtype=torch.int32, device=dev)
+    for lo in range(0, n, step):
+        occ[lo:lo + step] = (top[lo:lo + step] >= 0).sum(1, dtype=torch.int32)
+    start = torch.zeros(n_virt + 1, dtype=torch.int64, device=dev)
+    start[1:] = occ.sum(1, dtype=torch.int64).cumsum(0)
+    goff = torch.zeros((n_groups, k + 1), dtype=torch.int64, device=dev)
+    goff[:, 1:] = occ.view(n_groups, GROUP, k).sum(
+        1, dtype=torch.int64).cumsum(1)
+    if n and int(goff[:, -1].max()) >= 2 ** 31:
+        raise ValueError("a group of genomes holds 2^31 entries or more")
+    edges = {wb: torch.tensor(list(range(0, k, wb)) + [k], device=dev)
+             for wb in WINDOWS}
+    window_max = dict(zip(WINDOWS, torch.stack([
+        (goff[:, e[1:]] - goff[:, e[:-1]]).max() for e in edges.values()
+    ]).tolist()))
+    parts = {"v0": [], "v1": [], "g0": [], "g1": [], "gid": []}
+    ids = torch.arange(GROUP, dtype=torch.uint8, device=dev)
+    for lo in range(0, n_virt, step):
+        hi = min(lo + step, n_virt)
+        real = top[lo:hi] >= 0
+        short = hi - lo - real.shape[0]  # the virtual genomes of the tail
+        real = torch.cat([real, real.new_zeros((short, w, k))])
+        gm = real.transpose(1, 2)  # (genome, bucket, slot)
+        gr = real.view(-1, GROUP, w, k).permute(0, 3, 1, 2)
+        for name, plane in (("0", p0), ("1", p1)):
+            if plane is None:
+                continue
+            vals = plane[lo:hi]
+            vals = torch.cat([vals, vals.new_zeros((short, w, k))])
+            parts["v" + name].append(vals.transpose(1, 2).masked_select(gm))
+            parts["g" + name].append(vals.view(-1, GROUP, w, k).permute(
+                0, 3, 1, 2).masked_select(gr))
+        parts["gid"].append(ids[None, None, :, None].expand(
+            gr.shape).masked_select(gr))
+
+    def flat(name, dtype):
+        if not parts[name]:
+            return None
+        return torch.cat(parts[name] + [torch.zeros(SPARE, dtype=dtype,
+                                                    device=dev)])
+
+    return CompactPlanes(
+        v0=flat("v0", torch.int32), v1=flat("v1", torch.int32),
+        g0=flat("g0", torch.int32), g1=flat("g1", torch.int32),
+        gid=flat("gid", torch.uint8), occ=occ[:n].to(torch.uint8),
+        start=start, goff=goff.to(torch.int32),
+        padsq=((w - occ[:n]) ** 2).sum(1, dtype=torch.int64).to(
+            torch.int32), window_max=window_max)
+
+
+def compact_of(p0: torch.Tensor,
+               p1: Optional[torch.Tensor]) -> CompactPlanes:
+    """``compact_planes(p0, p1)``, kept on ``p0`` and built again only
+    when ``p1`` is another tensor or either was modified in place."""
+    key = (p1, p0._version, None if p1 is None else p1._version)
+    kept = getattr(p0, "_rtc_compact", None)
+    if kept is not None and kept[0][0] is p1 and kept[0][1:] == key[1:]:
+        return kept[1]
+    form = compact_planes(p0, p1)
+    p0._rtc_compact = (key, form)
+    return form
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Kernels K1 / K2 / K4 / K5b and the port's engines on the card, against
-their plain torch versions and the native host engine.  Marked ``cuda``; every test
-skips inside itself when no GPU is visible.  This file imports no JAX, so
-it also runs where JAX is absent:
+"""Kernels K1 / K2 / K4 (counts and mask modes) / K5b and the port's
+engines on the card, against their plain torch versions and the native
+host engine.  Marked ``cuda``; every test skips inside itself when no GPU
+is visible.  This file imports no JAX, so it also runs where JAX is
+absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -98,6 +99,77 @@ def test_wrapper_rejects_bad_planes(gpu):
         ix.pair_counts_tiles(bad, None, [0], [0], [1], 32)
     with pytest.raises(ValueError, match="int32"):
         ix.pair_common(bad.float(), None, [0], [1])
+    _, _, pl = _planes(300, 150, False, gpu)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ix.pair_counts_tiles(pl.plane0, None, [0], [0], [1], 64)
+    with pytest.raises(ValueError, match="origins"):
+        ix.pair_counts_tiles(pl.plane0, None, [64], [0], [1], 128)
+
+
+MASK_CASES = [(0, 300), (150, 290), (37, 211)]
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["1plane", "2plane"])
+@pytest.mark.parametrize("start,n", MASK_CASES,
+                         ids=["whole", "start_and_ragged_n", "ragged_n"])
+def test_k4_mask_matches_plain_epilogue(gpu, use64, start, n):
+    """K4's mask mode against the plain epilogue over the plain counts:
+    masks and per-tile counts byte-equal, diagonal, off-diagonal and
+    padded-tail tiles, an invalid slot, start_index and a ragged n
+    cutting through tiles."""
+    _, pk, pl = _planes(300, 150, use64, gpu)
+    r0s, c0s, val = [0, 128, 256, 256, 128, 0], [0, 0, 128, 256, 128, 0], \
+        [1] * 5 + [0]
+    radio = 44
+    before = ix.LAUNCHES["pair_mask_tiles"]
+    cnt, packs = ix.pair_mask_tiles(pl.plane0, pl.plane1, pl.sizes, r0s, c0s,
+                                    val, radio, start, n, 128)
+    torch.cuda.synchronize()
+    assert ix.LAUNCHES["pair_mask_tiles"] == before + 1
+    counts = ix._pair_counts_tiles_plain(pl.plane0, pl.plane1, r0s, c0s, val,
+                                         128)
+    want_c, want_p = ix.mask_epilogue(counts, pl.sizes, r0s, c0s, val, radio,
+                                      start, n, 128)
+    assert torch.equal(cnt, want_c)
+    assert torch.equal(packs, want_p)
+    assert int(want_c.sum()) > 0
+    assert int(np.unpackbits(packs.cpu().numpy()).sum()) == int(cnt.sum())
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["1plane", "2plane"])
+def test_k4_counts_diagonal_padded_tail(gpu, use64):
+    """A diagonal tile whose last 84 rows are padding: the diagonal holds
+    each genome's pad self-matches (W^2 K on the tail) as the plain form
+    counts them."""
+    _, pk, pl = _planes(300, 150, use64, gpu)
+    got = ix.pair_counts_tiles(pl.plane0, pl.plane1, [256], [256], [1], 128)
+    a = slice(256, 384)
+    want = ix.pair_counts_plain(
+        pl.plane0[a], pl.plane0[a], None if pl.plane1 is None else
+        pl.plane1[a], None if pl.plane1 is None else pl.plane1[a])
+    assert torch.equal(got[0], want)
+    w, k = pk.width, pk.k
+    assert (want.diagonal()[300 - 256:] == w * w * k).all()
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
+@pytest.mark.parametrize("s", [150, 1000], ids=["staged", "in_place"])
+def test_k5b_matches_plain_w_wide(gpu, use64, s):
+    """Wide buckets (bucket_bits=3), a padded tail and pairs of a genome
+    with itself (the pad term); at 1,000 hashes a genome's step of 128
+    buckets holds more entries than K5b stages, so it reads them in
+    place."""
+    _, pk, pl = _planes(300, s, use64, gpu, bucket_bits=3)
+    assert pk.width > 16
+    rng = np.random.default_rng(4)
+    ii = rng.integers(0, pk.n, size=20_000)
+    jj = rng.integers(0, pk.n, size=20_000)
+    jj[:500] = ii[:500]
+    got = ix.pair_common(pl.plane0, pl.plane1, ii, jj)
+    want = ix.pair_common_plain(pl.plane0, pl.plane1,
+                                torch.from_numpy(ii).to(gpu),
+                                torch.from_numpy(jj).to(gpu))
+    assert torch.equal(got, want)
 
 
 def test_engine_on_card_matches_host(gpu):
@@ -106,8 +178,9 @@ def test_engine_on_card_matches_host(gpu):
     stats = {}
     got = engine.compute_mst_device(hashes, 0.05, 21, device=gpu,
                                     with_dense=True, stats=stats)
-    assert ix.LAUNCHES["pair_counts_tiles"] > 0
+    assert ix.LAUNCHES["pair_mask_tiles"] > 0
     assert ix.LAUNCHES["pair_common"] > 0
+    assert ix.LAUNCHES["pair_counts_tiles"] == 0  # no counts in memory
     want = compute_mst(hashes, 0.05, 21, with_dense=True)
     n = len(hashes)
     assert len(got.mst[0]) == len(want.mst[0])

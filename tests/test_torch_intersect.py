@@ -14,9 +14,11 @@ from rabbittclust_tpu.ops.intersect import pair_counts_jnp, pair_counts_row
 from rabbittclust_tpu.ops.pack import pack_sketches
 from rabbittclust_tpu_torch.device import resolve_device
 from rabbittclust_tpu_torch.ops import bitmap as port_bitmap
-from rabbittclust_tpu_torch.ops import engine as port_engine
 from rabbittclust_tpu_torch.ops import intersect as port
-from rabbittclust_tpu_torch.ops.pack import planes_to_device
+from rabbittclust_tpu_torch.ops.pack import (GROUP, compact_of,
+                                             compact_planes,
+                                             pack_sketches as port_pack,
+                                             planes_to_device)
 from torch_port_data import clustered_sketches
 
 CPU = torch.device("cpu")
@@ -66,7 +68,8 @@ def test_plain_counts_match_pallas_interpret(use64):
 
 @pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
 def test_tiles_and_epilogue_match_jax_batch(use64):
-    """pair_counts_tiles + the mask epilogue against the JAX batch program:
+    """pair_mask_tiles (plain counts + the mask epilogue on the CPU) and
+    pair_counts_tiles against the JAX batch program:
     a padded tail (n=200 in n_pad=256), start_index > 0 and an invalid
     batch slot."""
     n, rb, start = 200, 128, 50
@@ -82,8 +85,9 @@ def test_tiles_and_epilogue_match_jax_batch(use64):
         jnp.asarray(val), jnp.int32(radio), jnp.int32(start), jnp.int32(n),
         use64, "jnp", rb)
     planes = planes_to_device(pk, CPU)
-    cnt, packs = port_engine._mst_batch(planes, r0s, c0s, val, radio, start,
-                                        n, rb)
+    cnt, packs = port.pair_mask_tiles(planes.plane0, planes.plane1,
+                                      planes.sizes, r0s, c0s, val, radio,
+                                      start, n, rb)
     assert cnt.dtype == torch.int32 and packs.dtype == torch.uint8
     assert np.array_equal(cnt.numpy(), np.asarray(want_cnt))
     assert np.array_equal(packs.numpy(), np.asarray(want_packs))
@@ -160,3 +164,233 @@ def test_planes_to_device_views_without_copying_values():
     assert np.array_equal(planes.plane0.numpy().view(np.uint32), pk.plane0)
     assert np.array_equal(planes.plane1.numpy().view(np.uint32), pk.plane1)
     assert np.array_equal(planes.sizes.numpy(), pk.sizes)
+
+
+# --- the compact form and a plain model of K4's arithmetic over it --------
+
+W_CASES = [(False, None), (False, 3), (True, None), (True, 3)]
+W_IDS = ["1plane-W_natural", "1plane-W_wide", "2plane-W_natural",
+         "2plane-W_wide"]
+
+
+def _ragged(use64, bucket_bits=None, seed=3):
+    """300 genomes of ~150 hashes (numpy seed ``seed``) in planes padded to
+    384 genomes (a padded tail); W_wide: ``bucket_bits=3`` (the bucket
+    count adapts upward, so W is large and K small)."""
+    dtype = np.uint64 if use64 else np.uint32
+    hashes = clustered_sketches(n=300, s=150, n_clusters=8, seed=seed,
+                                dtype=dtype)
+    pk = port_pack(hashes, use64, bucket_bits=bucket_bits, pad_n_to=128)
+    return hashes, pk, planes_to_device(pk, CPU)
+
+
+def _scatter(g, b, vals, n_pad, w, k):
+    """Planes of only pads, then ``vals`` at (genome g, bucket b) in slots
+    0, 1, ... in the order the entries come."""
+    key = g * k + b
+    _, runs = torch.unique_consecutive(key, return_counts=True)
+    first = torch.repeat_interleave(torch.cumsum(runs, 0) - runs, runs)
+    slot = torch.arange(len(key)) - first
+    pad = torch.from_numpy((np.uint32(0x80000000) | np.arange(
+        n_pad, dtype=np.uint32)).view(np.int32))
+    plane = pad[:, None, None].expand(n_pad, w, k).clone()
+    plane[g, slot, b] = vals
+    return plane
+
+
+def _rebuild(cf, n_pad, w, k):
+    """The planes again, from each of the two orders of ``cf``."""
+    e = cf.entries
+    occ = cf.occ.long()
+    g = torch.repeat_interleave(torch.arange(n_pad), occ.sum(1))
+    b = torch.repeat_interleave(torch.arange(k).repeat(n_pad),
+                                occ.flatten())
+    genome_major = [_scatter(g, b, v[:e], n_pad, w, k)
+                    for v in (cf.v0, cf.v1) if v is not None]
+    gs, bs = [], []
+    for grp in range(cf.goff.shape[0]):
+        lo, hi = cf.start[grp * GROUP], cf.start[(grp + 1) * GROUP]
+        bs.append(torch.repeat_interleave(torch.arange(k),
+                                          cf.goff[grp].diff().long()))
+        gs.append(grp * GROUP + cf.gid[lo:hi].long())
+    g, b = torch.cat(gs), torch.cat(bs)
+    grouped = [_scatter(g, b, v[:e], n_pad, w, k)
+               for v in (cf.g0, cf.g1) if v is not None]
+    return genome_major, grouped
+
+
+@pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
+def test_compact_form_rebuilds_the_planes(use64, bucket_bits):
+    hashes, pk, pl = _ragged(use64, bucket_bits)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    n_pad, w, k = pl.plane0.shape
+    assert cf.entries == sum(len(h) for h in hashes)
+    want = [pl.plane0] + ([pl.plane1] if use64 else [])
+    for form in _rebuild(cf, n_pad, w, k):
+        assert len(form) == len(want)
+        for got, plane in zip(form, want):
+            assert torch.equal(got, plane)
+    top = pl.plane1 if use64 else pl.plane0
+    assert torch.equal(cf.occ.long(), (top >= 0).sum(1))
+    assert torch.equal(cf.padsq.long(), ((w - cf.occ.long()) ** 2).sum(1))
+    assert int(cf.padsq[-1]) == w * w * k  # a padded tail genome
+    # the window maxima bound every window of every group
+    for wb, most in cf.window_max.items():
+        edges = list(range(0, k, wb)) + [k]
+        per = cf.goff[:, edges[1:]] - cf.goff[:, edges[:-1]]
+        assert int(per.max()) == most
+    if bucket_bits == 3:
+        assert pk.width > 16  # the wide case is wide
+
+
+@pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
+def test_pack_fills_real_slots_first(use64, bucket_bits):
+    """Real slots are 0..occ-1 in ``pack_sketches``' planes (64-bit: the
+    test is on plane1, since a real plane0 value may have its top bit
+    set), and the compact form does not rely on that order: planes with
+    the pads first give the same form."""
+    hashes, pk, pl = _ragged(use64, bucket_bits)
+    ref = pack_sketches(hashes, use64, bucket_bits=bucket_bits, pad_n_to=128)
+    assert np.array_equal(ref.plane0, pk.plane0)  # the JAX package's too
+    top = pl.plane1 if use64 else pl.plane0
+    real = top >= 0
+    assert not (real[:, 1:] & ~real[:, :-1]).any()
+    if use64:
+        assert (pl.plane0[real] < 0).any()  # why plane0 is no pad test
+    # pads first, then the real slots (in reverse)
+    flipped = [p.flip(1).contiguous() for p in (pl.plane0, pl.plane1)
+               if p is not None]
+    real_f = (flipped[-1] >= 0)
+    assert (real_f[:, 1:] & ~real_f[:, :-1]).any()  # the order is broken
+    want = compact_planes(pl.plane0, pl.plane1)
+    got = compact_planes(flipped[0], flipped[1] if use64 else None)
+    assert torch.equal(got.occ, want.occ)
+    assert torch.equal(got.padsq, want.padsq)
+    assert torch.equal(got.goff, want.goff)
+
+
+def _join_model(cf, r0, c0, rb, mask=None):
+    """K4's arithmetic in plain torch, for the tests: per block of GROUP x
+    GROUP pairs and per bucket, every real row entry against every real
+    column entry of the bucket (grouped order).  Counts: the matches plus
+    padsq on the diagonal.  ``mask = (sizes, radio, start_index, n)``:
+    the mask mode instead, a pair's bit on its first match, blocks with no
+    pair j < i or no row in [start_index, n) skipped, then the gates;
+    returns (count, packed mask)."""
+    k = cf.goff.shape[1] - 1
+    two = cf.g1 is not None
+    hits = torch.zeros((rb, rb), dtype=torch.int32)
+    for tr in range(0, rb, GROUP):
+        for tc in range(0, rb, GROUP):
+            gr, gc = (r0 + tr) // GROUP, (c0 + tc) // GROUP
+            if mask is not None:
+                start_index, n = mask[2], mask[3]
+                i0, j0 = r0 + tr, c0 + tc
+                if j0 >= i0 + GROUP - 1 or i0 + GROUP <= start_index \
+                        or i0 >= n:
+                    continue
+            for b in range(k):
+                rs = int(cf.start[gr * GROUP] + cf.goff[gr, b])
+                re = int(cf.start[gr * GROUP] + cf.goff[gr, b + 1])
+                cs = int(cf.start[gc * GROUP] + cf.goff[gc, b])
+                ce = int(cf.start[gc * GROUP] + cf.goff[gc, b + 1])
+                eq = cf.g0[rs:re, None] == cf.g0[None, cs:ce]
+                if two:
+                    eq &= cf.g1[rs:re, None] == cf.g1[None, cs:ce]
+                ri, ci = torch.nonzero(eq, as_tuple=True)
+                hits.index_put_((tr + cf.gid[rs:re][ri].long(),
+                                 tc + cf.gid[cs:ce][ci].long()),
+                                torch.ones(len(ri), dtype=torch.int32),
+                                accumulate=True)
+    span = torch.arange(rb)
+    if mask is None:
+        diag = (r0 + span)[:, None] == (c0 + span)[None, :]
+        rows = (r0 + span)[:, None].expand(rb, rb)
+        return hits + torch.where(diag, cf.padsq[rows.clamp(max=len(
+            cf.padsq) - 1)], 0).to(torch.int32)
+    sizes, radio, start_index, n = mask
+    i, j = (r0 + span)[:, None], (c0 + span)[None, :]
+    si, sj = sizes[i], sizes[j]
+    mn, mx = torch.minimum(si, sj), torch.maximum(si, sj)
+    m = (hits > 0) & (j < i) & (i < n) & (i >= start_index) & (mn > 0) & \
+        (mx <= radio * mn)
+    return int(m.sum()), port_bitmap.pack_mask_u8(m)
+
+
+@pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
+def test_join_model_equals_plain_counts(use64, bucket_bits):
+    """Real x real compares per bucket plus the diagonal pad term give
+    ``pair_counts_plain`` exactly: a diagonal tile, an off-diagonal one
+    and the diagonal tile of the padded tail (rows 300..383 all pads)."""
+    _, pk, pl = _ragged(use64, bucket_bits)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    r0s, c0s = [0, 128, 256, 256], [0, 0, 128, 256]
+    want = port.pair_counts_tiles(pl.plane0, pl.plane1, r0s, c0s,
+                                  [1] * 4, 128)
+    for t, (r0, c0) in enumerate(zip(r0s, c0s)):
+        assert torch.equal(_join_model(cf, r0, c0, 128), want[t]), t
+    w, k = pk.width, pk.k
+    assert (want[3].diagonal()[300 - 256:] == w * w * k).all()
+    assert int(want[1].max()) > 0
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
+@pytest.mark.parametrize("start,n", [(0, 300), (150, 300), (50, 237)],
+                         ids=["whole", "start_cuts_a_tile", "ragged_n"])
+def test_join_model_mask_equals_jax_batch(use64, start, n):
+    """The model's mask form against the JAX batch program
+    (``_mst_batch_fn``, jnp backend): counts and packed masks byte-equal,
+    ``start_index`` cutting through a tile and a ragged ``n`` (numpy seed
+    11 corpus of 300 genomes, rb = 128, an invalid slot)."""
+    hashes = clustered_sketches(n=300, s=100, n_clusters=5, seed=11,
+                                dtype=np.uint64 if use64 else np.uint32)
+    pk = pack_sketches(hashes, use64, pad_n_to=128)
+    pk.sizes[n:] = 0  # genomes past n are the tail, as in the engine
+    rb = 128
+    radio = size_ratio_limit(0.05, 21 - 1)
+    r0s = np.array([0, 128, 128, 256, 256, 0], dtype=np.int32)
+    c0s = np.array([0, 0, 128, 128, 256, 0], dtype=np.int32)
+    val = np.array([1, 1, 1, 1, 1, 0], dtype=np.int32)
+    p0 = jnp.asarray(pk.plane0)
+    p1 = jnp.asarray(pk.plane1) if use64 else p0[:1]
+    want_cnt, want_packs = jax_engine._jitted_mst_batch()(
+        p0, p1, jnp.asarray(pk.sizes), jnp.asarray(r0s), jnp.asarray(c0s),
+        jnp.asarray(val), jnp.int32(radio), jnp.int32(start), jnp.int32(n),
+        use64, "jnp", rb)
+    pl = planes_to_device(pk, CPU)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    for t in range(len(r0s)):
+        if not val[t]:
+            assert int(want_cnt[t]) == 0 and not np.asarray(
+                want_packs[t]).any()
+            continue
+        cnt, packs = _join_model(cf, int(r0s[t]), int(c0s[t]), rb,
+                                 mask=(pl.sizes, radio, start, n))
+        assert cnt == int(want_cnt[t]), t
+        assert np.array_equal(packs.numpy(), np.asarray(want_packs[t])), t
+    assert int(np.asarray(want_cnt).sum()) > 0
+
+
+@pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
+@pytest.mark.parametrize("mode", [port.COUNTS, port.MASK],
+                         ids=["counts", "mask"])
+def test_tile_config_fits_shared_memory(use64, bucket_bits, mode):
+    """The staging ring holds the fullest window of any group, with the
+    granule shift, and the kernel's shared memory fits a block."""
+    _, _, pl = _ragged(use64, bucket_bits)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    wb, cap, smem = port.tile_config(cf, use64, mode)
+    assert cap % 16 == 0 and cap >= cf.window_max[wb] + 15
+    assert smem <= 232448
+    acc = GROUP * GROUP * 4 if mode == port.COUNTS else GROUP * GROUP // 8
+    if wb < max(cf.window_max):  # shorter windows only when needed
+        assert smem - acc <= port.STAGE_BUDGET
+
+
+def test_compact_form_is_kept_with_the_planes():
+    _, _, pl = _ragged(False)
+    cf = pl.compact()
+    assert compact_of(pl.plane0, None) is cf
+    assert compact_of(pl.plane0, pl.plane0) is not cf  # another plane1
+    pl.plane0[0, 0, 0] = 5  # an in-place change builds it again
+    assert compact_of(pl.plane0, None) is not cf
