@@ -25,9 +25,12 @@ Phases, one line or block each; any failure raises (non-zero exit):
    padded tiles, an invalid slot; small cases of its three bounds and both
    distances, ragged rb of 96 and 160 and 64 to 8192 bits; rb = 8192),
    beside the shared-bit product alone in float32 and in bfloat16; K2, full and
-   compact, over K1's masks with random labels: panel 0 of the N = 131,072
-   sweep (512 tiles, span n_pad, cap 65,536), and at N = 16,384 with a
-   clear list of repeated targets at rb = 4096 and 8192;
+   compact, over K1's masks: panel 0 of the N = 131,072 sweep (512 tiles,
+   span n_pad, cap 65,536) and the whole sweep at rb = 8192 (136 tiles),
+   each under mixed, all-distinct (round 1) and planted (round 2) labels,
+   panel 1 (16 tiles) under mixed labels, at N = 16,384 with a clear list
+   of repeated targets at rb = 4096 and 8192, and its compaction alone at
+   n_pad 131,072 and 1,048,576;
 4. ``clust-mst --fast --device --presketched`` end to end at N = 16,384
    genomes of about 1,000 hashes (64 planted clusters, seed 7), held
    against the native host engine: same partition at 0.05, same MST edge
@@ -763,13 +766,13 @@ def clear_targets(packs, rng, n_bytes=400):
     return out
 
 
-def build_masks(hashes, rb, dev, n_tiles=None):
-    """K1's masks of the first ``n_tiles`` tiles of the triangular sweep of
-    ``hashes`` at ``rb`` (all when None): (signatures, geometry (3, T)
-    int64, packs, milliseconds of the build)."""
+def build_masks(hashes, rb, dev, part=slice(None)):
+    """K1's masks of the tiles ``part`` of the triangular sweep of
+    ``hashes`` at ``rb``: (signatures, geometry (3, T) int64, packs,
+    milliseconds of the build)."""
     from rabbittclust_tpu_torch.ops import bitmap as bm
     sig = bm.stage_signatures(hashes, BITS, rb, dev)
-    tiles = bm.triangle_tiles(sig.n_pad, rb)[:n_tiles]
+    tiles = bm.triangle_tiles(sig.n_pad, rb)[part]
     geo = np.array([[r for r, _ in tiles], [c for _, c in tiles],
                     [1] * len(tiles)], dtype=np.int64)
     (_, packs), ms = cuda_ms(lambda: bm.batched_mask(
@@ -787,16 +790,26 @@ def mixed_labels(planted, rng):
                     N_CLUSTERS + ids).astype(np.int32)
 
 
-def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
+def label_mixes(planted, rng):
+    """K2's label mixes: mixed first (the kernels line's case, timed the
+    same way since the port's first K2), every genome its own label (round
+    1 of the engine) and the planted clusters' labels (round 2, once round
+    1 has joined them)."""
+    return [("mixed", mixed_labels(planted, rng)),
+            ("distinct", np.arange(len(planted), dtype=np.int32)),
+            ("planted", planted.astype(np.int32))]
+
+
+def round_cases(rec, what, packs, geo, mixes, clr_np, rb, cases, dev,
                 need_repeats=True):
-    """K2 against its plain versions on copies of ``packs``; ``cases`` are
-    (label, None) for the full round and (label, (r_lo, span, cap)) for the
-    compact one.  Kernel and plain outputs and updated masks exactly
-    equal."""
+    """K2 against its plain versions on copies of ``packs``, under each
+    label mix of ``mixes`` ((name, labels)); ``cases`` are (label, None)
+    for the full round and (label, (r_lo, span, cap)) for the compact one.
+    Kernel and plain outputs and updated masks exactly equal.  Returns
+    {(mix, label): kernel ms}."""
     from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import labelprop as lp
     geo_d = torch.from_numpy(geo.astype(np.int32)).to(dev)
-    labels_d = torch.from_numpy(labels).to(dev)
     clr = torch.from_numpy(clr_np).to(dev)
     live = clr_np[3] > 0
     repeats = int(live.sum()) - len({tuple(e) for e in clr_np[:3].T[live]})
@@ -806,40 +819,95 @@ def round_cases(rec, what, packs, geo, labels, clr_np, rb, cases, dev,
     # outputs out; one label compare for each set bit of the masks
     set_bits = sum(int(bm.unpack_bits(t, torch.uint8).sum(dtype=torch.int64))
                    for t in packs)
-    for label, compact in cases:
-        mine, ref = packs.clone(), packs.clone()
-        if compact is None:
-            got, ms = cuda_ms(lambda: lp.lp_round(mine, labels_d, clr,
-                                                  *geo_d, rb), reps=5)
-            want, plain_ms = cuda_ms(lambda: lp.round_plain(
-                ref, labels_d, clr, *geo_d, rb), warmup=False)
-        else:
-            r_lo, span, cap = compact
-            args = (labels_d, clr, *geo_d, r_lo, rb, span, cap)
-            got, ms = cuda_ms(lambda: lp.lp_round_compact(mine, *args),
-                              reps=5)
-            want, plain_ms = cuda_ms(lambda: lp.round_compact_plain(
-                ref, *args), warmup=False)
-        hold_exact(rec, "labelprop_round", got, want, f"{what} {label}")
-        hold_exact(rec, "labelprop_round", mine, ref,
-                   f"{what} {label} masks")
-        if torch.equal(mine, packs):
-            raise AssertionError(f"{what}: the clear list left the masks as "
-                                 "they were")
-        k2_bound = bound(packs.numel() + 4 * labels_d.numel()
-                         + 4 * clr.numel() + 4 * got.numel(), set_bits,
-                         CORE_OPS)
-        rec["labelprop_round"]["ms"].append(ms)
-        rec["labelprop_round"]["plain_ms"].append(plain_ms)
-        rec["labelprop_round"]["bound"].append(k2_bound)
-        extra = f", ncol {int(want[1])}" if compact else ""
-        say(f"K2 {what} {label}: {len(geo[0])} tiles of rb={rb}, clear list "
-            f"{int(live.sum())} bits ({repeats} repeated targets), cross "
-            f"{int(want[0])}{extra}: exact; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}),"
-            f" kernel at {k2_bound[0] / ms:.3f} of it")
-        del mine, ref, got, want
-        torch.cuda.empty_cache()
+    times = {}
+    for mix, labels in mixes:
+        labels_d = torch.from_numpy(labels).to(dev)
+        for label, compact in cases:
+            mine, ref = packs.clone(), packs.clone()
+            if compact is None:
+                got, ms = cuda_ms(lambda: lp.lp_round(mine, labels_d, clr,
+                                                      *geo_d, rb), reps=5)
+                want, plain_ms = cuda_ms(lambda: lp.round_plain(
+                    ref, labels_d, clr, *geo_d, rb), warmup=False)
+            else:
+                r_lo, span, cap = compact
+                args = (labels_d, clr, *geo_d, r_lo, rb, span, cap)
+                got, ms = cuda_ms(lambda: lp.lp_round_compact(mine, *args),
+                                  reps=5)
+                want, plain_ms = cuda_ms(lambda: lp.round_compact_plain(
+                    ref, *args), warmup=False)
+            case = f"{what} {mix} labels, {label}"
+            hold_exact(rec, "labelprop_round", got, want, case)
+            hold_exact(rec, "labelprop_round", mine, ref, f"{case} masks")
+            if torch.equal(mine, packs):
+                raise AssertionError(f"{case}: the clear list left the masks"
+                                     " as they were")
+            k2_bound = bound(packs.numel() + 4 * labels_d.numel()
+                             + 4 * clr.numel() + 4 * got.numel(), set_bits,
+                             CORE_OPS)
+            rec["labelprop_round"]["ms"].append(ms)
+            rec["labelprop_round"]["plain_ms"].append(plain_ms)
+            rec["labelprop_round"]["bound"].append(k2_bound)
+            times[mix, label] = ms
+            extra = f", ncol {int(want[1])}" if compact else ""
+            say(f"K2 {case}: {len(geo[0])} tiles of rb={rb}, clear list "
+                f"{int(live.sum())} bits ({repeats} repeated targets), "
+                f"{set_bits} set bits, cross {int(want[0])}{extra}: exact; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+                f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), kernel at "
+                f"{k2_bound[0] / ms:.3f} of it")
+            del mine, ref, got, want
+            torch.cuda.empty_cache()
+    return times
+
+
+def panel_clear_list(packs, rng):
+    """A clear list over bits of the first tile and of the last 4."""
+    n_t = packs.shape[0]
+    late = clear_targets(packs[-4:].cpu().numpy(), rng)
+    late[0] += n_t - 4
+    return np.concatenate([clear_targets(packs[:1].cpu().numpy(), rng),
+                           late], axis=1)
+
+
+def phase_compaction(dev, rec, round_ms):
+    """K2's compaction alone, over a synthetic round output (half the
+    columns proposing), at n_pad 131,072 (span n_pad) and 1,048,576 (span
+    262,144, a 512-tile panel's rows at rb = 8192), cap 65,536; its share of
+    the compact round over panel 0 (``round_ms``)."""
+    from rabbittclust_tpu_torch.kernels import _build
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(9)
+    cap = 65536
+    for n_pad, span in ((131072, 131072), (1048576, 262144)):
+        fused_np = rng.integers(0, n_pad, 1 + 2 * n_pad).astype(np.int32)
+        fused_np[1 + n_pad:][rng.random(n_pad) < 0.5] = lp.SENT
+        fused = torch.from_numpy(fused_np).to(dev)
+        want = lp.compact_plain(fused, n_pad, 0, span, cap)
+        n_bytes = 4 * (n_pad + span + want.numel())
+        c_bound = bound(n_bytes, 0, CORE_OPS)
+        work = fused.clone()  # the compaction overwrites row_p's head
+        out = torch.empty_like(want)
+
+        def run():
+            rc = lib.rtc_lp_compact(work.data_ptr(), n_pad, 0, span, cap,
+                                    out.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"rtc_lp_compact: CUDA error {rc}")
+            return out
+
+        run()
+        torch.cuda.synchronize()
+        hold_exact(rec, "labelprop_round", out, want,
+                   f"compaction n_pad={n_pad}")
+        _, ms = cuda_ms(run, reps=20, warmup=False)
+        say(f"K2 compaction alone: n_pad={n_pad} span={span} cap={cap}, "
+            f"ncol {int(want[1])}: exact; {ms:.4f} ms, {ms / round_ms:.3f} "
+            f"of panel 0's compact round ({round_ms:.4f} ms); bound "
+            f"{c_bound[0]:.4f} ms (bytes)")
+        del work, out
 
 
 def phase_round_kernel(corpus, dev, rec, card, b1_ops):
@@ -848,24 +916,25 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
     rng = np.random.default_rng(3)
     # (a) the main path's shapes: panel 0 of the N = 131,072 sweep (512
     # tiles, n_pad 131,072) and its compact pull (span n_pad, cap 65,536);
-    # the clear list names bits of the panel's first and last 4 tiles
+    # the clear list names bits of the panel's first and last 4 tiles;
+    # then the whole sweep at rb = 8192 (136 tiles, one panel)
     n = len(corpus)
-    sig, geo, packs, build_ms = build_masks(corpus, RB, dev, n_tiles=512)
-    n_pad, n_t = sig.n_pad, len(geo[0])
-    del sig
-    say(f"K1 panel 0 of N={n}: {n_t} tiles of rb={RB} in {build_ms:.3f} ms "
-        f"({build_ms / n_t:.3f} ms per tile)")
-    late = clear_targets(packs[-4:].cpu().numpy(), rng)
-    late[0] += n_t - 4
-    clr_np = np.concatenate([clear_targets(packs[:1].cpu().numpy(), rng),
-                             late], axis=1)
-    round_cases(rec, f"N={n} panel 0", packs, geo,
-                mixed_labels(np.arange(n_pad) % N_CLUSTERS, rng), clr_np, RB,
-                [("full", None),
-                 ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
-                dev, need_repeats=False)
-    del packs
-    torch.cuda.empty_cache()
+    times = {}
+    for rb, part in ((RB, slice(512)), (2 * RB, slice(None))):
+        sig, geo, packs, build_ms = build_masks(corpus, rb, dev, part)
+        n_pad, n_t = sig.n_pad, len(geo[0])
+        del sig
+        say(f"K1 panel 0 of N={n}: {n_t} tiles of rb={rb} in "
+            f"{build_ms:.3f} ms ({build_ms / n_t:.3f} ms per tile)")
+        clr_np = panel_clear_list(packs, rng)
+        times[rb] = round_cases(
+            rec, f"N={n} panel 0", packs, geo,
+            label_mixes(np.arange(n_pad) % N_CLUSTERS, rng), clr_np, rb,
+            [("full", None),
+             ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
+            dev, need_repeats=False)
+        del packs
+        torch.cuda.empty_cache()
     # (b) cluster members side by side (genome i moves to cluster i % 64's
     # block), so mask bytes hold several set bits and clear targets repeat;
     # at rb = 4096 and at rb = 8192 (K2's shared memory past 48 KB, and K1
@@ -895,10 +964,26 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
             _, mm_ms = bf16_product_ms(bm, sig.xd, rb, 0, rb)
             say_k1(rb, ms / len(geo[0]), mm_ms, card, b1_ops)
         round_cases(rec, f"N={N_GENOMES} grouped", packs, geo,
-                    mixed_labels(planted, rng),
+                    [("mixed", mixed_labels(planted, rng))],
                     clear_targets(packs.cpu().numpy(), rng), rb, cases, dev)
         del sig, packs
         torch.cuda.empty_cache()
+    # (c) panel 1 of the N = 131,072 sweep: the 16 tiles left after panel 0,
+    # a round of few blocks
+    rng = np.random.default_rng(4)
+    sig, geo, packs, _ = build_masks(corpus, RB, dev, slice(512, None))
+    n_pad = sig.n_pad
+    del sig
+    round_cases(rec, f"N={n} panel 1", packs, geo,
+                [("mixed", mixed_labels(np.arange(n_pad) % N_CLUSTERS, rng))],
+                panel_clear_list(packs, rng), RB,
+                [("full", None),
+                 ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
+                dev, need_repeats=False)
+    del packs
+    torch.cuda.empty_cache()
+    phase_compaction(dev, rec, times[RB][
+        "mixed", "compact span=n_pad cap=65536"])
 
 
 def phase_slice(hashes, dev, tmp):

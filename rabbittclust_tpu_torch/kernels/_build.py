@@ -117,4 +117,6 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_lp_round_compact.restype = ci
     lib.rtc_lp_round_compact.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci,
                                          ci, vp, ci, ci, ci, vp, vp]
+    lib.rtc_lp_compact.restype = ci
+    lib.rtc_lp_compact.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     return lib

@@ -136,13 +136,14 @@ def _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb):
     dev = packs.device
     if dev.type != "cuda":
         raise ValueError(f"masks on {dev}: expected cuda or cpu")
-    if rb <= 0 or rb % 32 or rb > 16384:
-        raise ValueError(f"rb={rb}: must be a multiple of 32, <= 16384")
+    if rb <= 0 or rb % 128 or rb > 16384:
+        raise ValueError(f"rb={rb}: K2 reads rows in 16-byte chunks, so rb "
+                         "must be a multiple of 128, <= 16384")
     if (packs.dtype != torch.uint8 or packs.dim() != 3
             or tuple(packs.shape[1:]) != (rb, rb // 8)
-            or not packs.is_contiguous()):
-        raise ValueError("masks must be a contiguous (T, rb, rb // 8) uint8 "
-                         "tensor")
+            or not packs.is_contiguous() or packs.data_ptr() % 16):
+        raise ValueError("masks must be a contiguous, 16-byte aligned "
+                         "(T, rb, rb // 8) uint8 tensor")
     for name, t in (("labels", labels), ("clear list", clr), ("r0s", r0s),
                     ("c0s", c0s), ("valid", valid)):
         if (t.dtype != torch.int32 or t.device != dev
@@ -186,7 +187,8 @@ def lp_round_compact(packs, labels, clr, r0s, c0s, valid, r_lo, rb, span,
                      cap, work: Optional[torch.Tensor] = None,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Compact K2: ``round_compact_plain``'s result, into ``out`` (with
-    ``work`` as the full round's scratch) when given."""
+    ``work`` as the full round's scratch, which the compaction overwrites
+    in part) when given."""
     if packs.device.type == "cpu":
         return round_compact_plain(packs, labels, clr, r0s, c0s, valid,
                                    r_lo, rb, span, cap)
@@ -240,6 +242,9 @@ def threshold_clusters_device_lp(
               "the full labels every round)", file=sys.stderr)
     t_all = clock()
     rb = min(row_block, max(128, 1 << max(n - 1, 1).bit_length()))
+    if cuda and rb % 128:
+        raise ValueError(f"row block {rb}: K2 reads rows in 16-byte chunks, "
+                         "so on the card it must be a multiple of 128")
     sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS)
     n_pad = sig.n_pad
     scalars = filter_scalars(threshold, kmer_size)

@@ -282,35 +282,69 @@ def test_k1_matches_plain_rb8192(gpu):
         assert t == 2 or int(want[0][0]) > 0
 
 
-def _resident_masks(gpu, n=600, rb=128):
-    """K1's masks of every triangular tile, one of them invalid; cluster
-    members sit side by side, so mask bytes hold several set bits."""
-    hashes = clustered_sketches(n=n, n_clusters=12)
-    hashes = [hashes[i] for i in np.argsort(np.arange(n) % 12,
+def _resident_masks(gpu, n, rb, n_clusters):
+    """K1's masks of every triangular tile, the fourth (where there is one)
+    invalid; cluster members sit side by side, so mask bytes hold several
+    set bits."""
+    hashes = clustered_sketches(n=n, n_clusters=n_clusters)
+    hashes = [hashes[i] for i in np.argsort(np.arange(n) % n_clusters,
                                             kind="stable")]
     sig = _signatures(hashes, 1024, rb, gpu)
     tiles = bm.triangle_tiles(sig.n_pad, rb)
     r0s = np.array([r for r, _ in tiles])
     c0s = np.array([c for _, c in tiles])
     val = np.ones(len(tiles), dtype=np.int64)
-    val[3] = 0
+    val[3:4] = 0
     _, packs = bm.batched_mask(sig.xd, sig.cd, sig.sd, r0s, c0s, val,
                                *bm.filter_scalars(0.05, 21), False, rb)
     geo = torch.from_numpy(np.stack([r0s, c0s, val]).astype(np.int32))
     return packs, geo.to(gpu), sig.n_pad
 
 
-@pytest.mark.parametrize("cap", [None, 5, 100000], ids=["full", "cap5",
-                                                          "cap_large"])
-def test_k2_matches_plain(gpu, cap):
-    rb = 128
-    packs, geo, n_pad = _resident_masks(gpu, rb=rb)
+def _last_word_masks(gpu, rb):
+    """The three tiles of 2 rb genomes, all zero but one bit: row 5 of
+    tile (rb, 0), in the row's last column word."""
+    packs = torch.zeros((3, rb, rb // 8), dtype=torch.uint8, device=gpu)
+    packs[1, 5, -1] = 0x80  # column rb - 1
+    geo = torch.tensor([[0, rb, rb], [0, 0, rb], [1, 1, 1]],
+                       dtype=torch.int32, device=gpu)
+    return packs, geo, 2 * rb
+
+
+# rb: (genomes, planted clusters): every tile at rb = 128 (21 tiles), six
+# tiles at rb = 4096, one tile at rb = 8192 (K2's shared memory past 48 KB)
+K2_MASKS = {128: (600, 12), 4096: (9000, 64), 8192: (8000, 64)}
+K2_CASES = [pytest.param("k1", labels, rb, cap,
+                         id=f"rb{rb}-{labels}-cap{cap}")
+            for rb in K2_MASKS for labels in ("distinct", "random", "one")
+            for cap in (None, 0, 5, "large")] + \
+    [pytest.param("last_word", "distinct", rb, cap,
+                  id=f"rb{rb}-last_word-cap{cap}")
+     for rb in K2_MASKS for cap in (None, 5)]
+
+
+@pytest.mark.parametrize("masks,labels_mix,rb,cap", K2_CASES)
+def test_k2_matches_plain(gpu, masks, labels_mix, rb, cap):
+    """K2 (full, or compact with cap 0, 5 or above ncol) against its plain
+    versions: outputs and updated masks exactly equal, under all-distinct
+    labels (round 1 of the engine), random labels from 40 values and one
+    label for all; K1's masks with a clear list of repeated targets, or a
+    single set bit in a row's last column word."""
+    if masks == "k1":
+        packs, geo, n_pad = _resident_masks(gpu, K2_MASKS[rb][0], rb,
+                                            K2_MASKS[rb][1])
+    else:
+        packs, geo, n_pad = _last_word_masks(gpu, rb)
     rng = np.random.default_rng(2)
-    labels = torch.from_numpy(rng.integers(0, 40, n_pad).astype(
-        np.int32)).to(gpu)
-    clr_np = clear_list(packs.cpu().numpy(), rng)
-    assert len({tuple(e) for e in clr_np[:3].T[clr_np[3] > 0]}) < \
-        int((clr_np[3] > 0).sum())  # repeated targets
+    labels_np = {"distinct": np.arange(n_pad),
+                 "random": rng.integers(0, 40, n_pad),
+                 "one": np.zeros(n_pad)}[labels_mix]
+    labels = torch.from_numpy(labels_np.astype(np.int32)).to(gpu)
+    clr_np = np.zeros((4, 256), dtype=np.int32)
+    if masks == "k1":
+        clr_np = clear_list(packs.cpu().numpy(), rng)
+        assert len({tuple(e) for e in clr_np[:3].T[clr_np[3] > 0]}) < \
+            int((clr_np[3] > 0).sum())  # repeated targets
     clr = torch.from_numpy(clr_np).to(gpu)
     mine, ref = packs.clone(), packs.clone()
     before = lp.LAUNCHES["labelprop_round"]
@@ -318,17 +352,25 @@ def test_k2_matches_plain(gpu, cap):
         got = lp.lp_round(mine, labels, clr, *geo, rb)
         want = lp.round_plain(ref, labels, clr, *geo, rb)
     else:
-        span = min(256, n_pad)
-        got = lp.lp_round_compact(mine, labels, clr, *geo, 128, rb, span,
-                                  min(cap, n_pad))
-        want = lp.round_compact_plain(ref, labels, clr, *geo, 128, rb,
-                                      span, min(cap, n_pad))
+        cap = n_pad if cap == "large" else cap
+        r_lo, span = 128, min(256, n_pad - 128)
+        got = lp.lp_round_compact(mine, labels, clr, *geo, r_lo, rb, span,
+                                  cap)
+        want = lp.round_compact_plain(ref, labels, clr, *geo, r_lo, rb,
+                                      span, cap)
+        assert cap != n_pad or int(want[1]) < cap
     torch.cuda.synchronize()
     assert lp.LAUNCHES["labelprop_round"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(mine, ref)
-    assert not torch.equal(mine, packs)  # the clear list took effect
-    assert int(want[0]) > 0
+    if masks == "k1":
+        assert not torch.equal(mine, packs)  # the clear list took effect
+        assert (int(want[0]) == 0) == (labels_mix == "one")
+    else:
+        assert int(want[0]) == 1
+        if cap is None:
+            assert int(want[1 + rb + 5]) == rb - 1
+            assert int(want[1 + n_pad + rb - 1]) == rb + 5
 
 
 @pytest.mark.parametrize("engine_name", ["stream", "lp"])

@@ -55,12 +55,24 @@ def _resident(n=300):
     return np.asarray(packs), geo, xp.shape[0]
 
 
+def _labels(mix, n_pad, rng):
+    """K2's label mixes: every genome its own label (round 1 of the
+    engine), random labels from 30 values, one label for all (no
+    cross-label bit).  The random draw is made for every mix, so the clear
+    list drawn after it is the same."""
+    random = rng.integers(0, 30, n_pad).astype(np.int32)
+    if mix == "distinct":
+        return np.arange(n_pad, dtype=np.int32)
+    return random if mix == "random" else np.zeros(n_pad, dtype=np.int32)
+
+
+@pytest.mark.parametrize("labels_mix", ["distinct", "random", "one"])
 @pytest.mark.parametrize("cap", [None, 3, 4096],
                          ids=["full", "col_cap_overflow", "compact"])
-def test_round_plain_equals_jax(cap):
+def test_round_plain_equals_jax(cap, labels_mix):
     packs, geo, n_pad = _resident()
     rng = np.random.default_rng(4)
-    labels = rng.integers(0, 30, n_pad).astype(np.int32)
+    labels = _labels(labels_mix, n_pad, rng)
     clr = clear_list(packs, rng)
     targets = clr[:3].T[clr[3] > 0]
     assert len({tuple(t) for t in targets}) < len(targets)  # repeats
@@ -79,12 +91,21 @@ def test_round_plain_equals_jax(cap):
                                         span=span, cap=cap)
         got = port_lp.lp_round_compact(mine, *targs, r_lo, RB, span, cap)
         ncol = int(np.asarray(want)[1])
-        assert (ncol > cap) == (cap == 3)
+        assert (ncol > cap) == (cap == 3 and labels_mix != "one")
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert mine.numpy().tobytes() == np.asarray(want_p).tobytes()
     assert mine.numpy().tobytes() != packs.tobytes()
-    assert int(np.asarray(want)[0]) > 0
+    want = np.asarray(want)
+    if labels_mix != "one":
+        assert want[0] > 0
+    elif cap is None:  # no proposal at all
+        assert want[0] == 0 and (want[1:] == port_lp.SENT).all()
+    else:  # ... and the column list is all padding
+        assert want[0] == want[1] == 0
+        rows, idx, val = np.split(want[2:], [span, span + cap])
+        assert (rows == port_lp.SENT).all() and (val == port_lp.SENT).all()
+        assert (idx == 0).all()
 
 
 def host_partition(hashes, threshold, is_containment=False):
@@ -212,3 +233,21 @@ def test_lp_randomized_config_sweep(monkeypatch):
         assert got == want, f"trial={trial}"
         assert canon(got) == canon(host_partition(hashes, 0.05)), \
             f"trial={trial} n={n} nc={nc} s={s} bits={bits} pt={pt}"
+
+
+def test_lp_rejects_row_block_k2_cannot_read(monkeypatch):
+    """On the card K2 reads rows in 16-byte chunks: the engine rejects a
+    row block that is not a multiple of 128 before it stages anything, also
+    when ``RTC_CLUSTER_RB`` sets it through the dispatcher."""
+    from rabbittclust_tpu_torch import device as port_device
+    from rabbittclust_tpu_torch.ops import cluster_fast as port_cf
+    monkeypatch.setattr(port_device, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    hashes = [np.array([i, i + 1], dtype=np.uint32) for i in range(5000)]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        port_lp.threshold_clusters_device_lp(hashes[:300], 0.05, 21,
+                                             row_block=160)
+    monkeypatch.setenv("RTC_CLUSTER_RB", "4128")
+    monkeypatch.setenv("RTC_CLUSTER_ENGINE", "lp")
+    with pytest.raises(ValueError, match="row block 4128"):
+        port_cf.threshold_clusters_device(hashes, 0.05, 21)
