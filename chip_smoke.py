@@ -46,7 +46,27 @@ Phases, one line or block each; any failure raises (non-zero exit):
 7. both MST-free engines forced (stream, then label propagation) at
    N = 16,384 against phase 4's host partition, and the ``-t 1``
    exact-order arm at N = 2,000 against the native serial engine's member
-   order.
+   order;
+8. ``clust-greedy --fast --device --presketched`` at N = 32,768: (a) a
+   sparse corpus (16,384 planted pairs), where the ``auto`` route must pick
+   the device sweep, and (b) the first 32,768 genomes of phase 6's corpus
+   (64 clusters) under ``RTC_GREEDY_DEVICE=force``; K1 launched under its
+   greedy bound, clusters, representatives and the ``.cluster`` file equal
+   to the native greedy's on the same KSSD greedy order; device route
+   (sweep and host replay apart) and native walls, the density probe's
+   degree;
+9. MinHash at N = 16,384 sketches of 1,000 64-bit hashes (64 clusters):
+   (a) ``clust-greedy --device --presketched`` (K1 under its minhash bound)
+   equal to the native parity engine, (b) ``clust-mst --device
+   --presketched`` (K4's mask mode and K5b on two planes) held to the
+   native host MST as phase 4 is;
+10. ``clust-mst --fast --device --presketched --append`` of 1,024 FASTA
+   genomes onto phase 4's folder: K4's mask mode launched with start_index
+   16,384, the new folder's MST held to the native ``compute_mst`` with
+   the same start_index and saved edges, the source folder unchanged.
+
+Each of phases 8-10 prints its K1 / K4 / K5b launch counts on a line of
+its own.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a visible GPU it exits 2 and
@@ -68,6 +88,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GENOMES, SKETCH, N_CLUSTERS, SEED, THRESHOLD = 16384, 1000, 64, 7, 0.05
 N_SLICE, BITS, RB = 131072, 8192, 4096
+N_GREEDY = 32768  # the greedy phases' corpora (8a, 8b)
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BPS = 3.35e12       # device memory, bytes/s
 INT8_TC_OPS = 1979e12   # int8 tensor-core operations/s
@@ -506,21 +527,10 @@ def phase_end_to_end(hashes, dev, tmp):
     host_s = time.perf_counter() - t0
     mst = sketch_io.load_mst(folder)
     n = len(hashes)
-    if len(mst[0]) != len(ref.mst[0]):
-        raise AssertionError(f"MST edges {len(mst[0])} != host "
-                             f"{len(ref.mst[0])}")
-    w, w_ref = np.sort(mst[2]), np.sort(ref.mst[2])
-    rel = float(np.max(np.abs(w - w_ref) / np.maximum(np.abs(w_ref),
-                                                      1e-300))) \
-        if len(w) else 0.0
-    if rel > 1e-12:
-        raise AssertionError(f"sorted MST weights differ: max rel {rel}")
+    rel = hold_mst(mst, ref.mst, n, "dense engine")
     got = partition(clusters_from_forest(cut_forest(mst, THRESHOLD), n))
     want = partition(clusters_from_forest(cut_forest(ref.mst, THRESHOLD),
                                           n))
-    if got != want:
-        raise AssertionError("partition at the threshold differs from the "
-                             "host engine's")
     planted = partition([list(range(c, n, N_CLUSTERS))
                          for c in range(N_CLUSTERS)])
     if not os.path.getsize(out):
@@ -1083,6 +1093,339 @@ def phase_engines(hashes, want, dev):
         f"{secs:.3f} s")
 
 
+class Spy:
+    """Records the arguments of every call of ``module.name`` (the caller
+    looks the name up in that module at each call) and calls through; the
+    wrapper's own launch count is untouched.  ``with`` restores it."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.real(*args, **kwargs)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def k1_bounds(spy):
+    """The bound of each K1 call a Spy of ``bitmap.batched_mask`` saw."""
+    return [a[12] if len(a) > 12 else kw.get("bound", "mst")
+            for a, kw in spy.calls]
+
+
+def folder_digest(folder):
+    import hashlib
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def same_file(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def run_cli(main, argv, stats):
+    """(wall seconds, launches of K1 / K4 mask mode / K5b, K1 spy, K4
+    mask-mode spy, K5b spy) of one CLI run from launch counts set to 0."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import engine
+    from rabbittclust_tpu_torch.ops import intersect as ix
+    bm.reset_launches()
+    ix.reset_launches()
+    with Spy(bm, "batched_mask") as k1, \
+            Spy(engine, "pair_mask_tiles") as k4, \
+            Spy(engine, "pair_common") as k5b:
+        t0 = time.perf_counter()
+        rc = main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{argv[:3]}... returned {rc}")
+    launches = {"filter_mask": bm.LAUNCHES["filter_mask"],
+                "pair_mask_tiles": ix.LAUNCHES["pair_mask_tiles"],
+                "pair_common": ix.LAUNCHES["pair_common"]}
+    return wall, launches, k1, k4, k5b
+
+
+def say_launches(what, launches, k1=None, k4=None, k5b=None):
+    parts = [f"{k}={v}" for k, v in launches.items()]
+    if k1 is not None and k1.calls:
+        parts.append(f"K1 bounds {sorted(set(k1_bounds(k1)))}")
+    if k4 is not None and k4.calls:
+        parts.append("K4 mask mode planes "
+                     f"{sorted({1 + (a[1] is not None) for a, _ in k4.calls})}"
+                     f" start_index {sorted({a[7] for a, _ in k4.calls})}")
+    if k5b is not None and k5b.calls:
+        parts.append("K5b planes "
+                     f"{sorted({1 + (a[1] is not None) for a, _ in k5b.calls})}")
+    say(f"launches ({what}): " + ", ".join(parts))
+
+
+def phase_greedy(hashes, tmp, tag, mode):
+    """clust-greedy --fast --device --presketched under RTC_GREEDY_DEVICE
+    ``mode`` (None: unset, the auto route), held to the native greedy on
+    the same KSSD greedy order."""
+    say(f"== phase {tag}: clust-greedy --fast --device --presketched, "
+        f"N={len(hashes)}, RTC_GREEDY_DEVICE={mode or '(unset: auto)'}")
+    from rabbittclust_tpu_torch.cli.clust_greedy import main
+    from rabbittclust_tpu_torch.cluster.greedy import greedy_cluster
+    from rabbittclust_tpu_torch.state import sketch_io
+    from rabbittclust_tpu_torch.state.cluster_io import write_cluster_file
+    from rabbittclust_tpu_torch.workflows import _greedy_corpus_is_dense
+    folder = os.path.join(tmp, f"greedy_{tag}")
+    p = save_presketched(hashes, folder)
+    out = os.path.join(tmp, f"greedy_{tag}.cluster")
+    stats = {}
+    if mode:
+        os.environ["RTC_GREEDY_DEVICE"] = mode
+    try:
+        wall, launches, k1, _, _ = run_cli(
+            main, ["--fast", "--device", "--presketched", folder, "-o", out,
+                   "-d", str(THRESHOLD)], stats)
+    finally:
+        os.environ.pop("RTC_GREEDY_DEVICE", None)
+    if stats["greedy_route"] != "device":
+        raise AssertionError(f"the {mode or 'auto'} route took "
+                             f"{stats['greedy_route']}, not the device sweep")
+    bounds = set(k1_bounds(k1))
+    if launches["filter_mask"] <= 0 or bounds != {"greedy"}:
+        raise AssertionError(f"K1 launches {launches['filter_mask']}, "
+                             f"bounds {bounds}: expected the greedy bound")
+    ss, _ = sketch_io.load_kssd_sketches(folder)
+    ss2 = ss.reorder(ss.kssd_greedy_order())
+    t0 = time.perf_counter()
+    ref = greedy_cluster(ss2.hashes, THRESHOLD, p.kmer_size, presorted=True)
+    native_s = time.perf_counter() - t0
+    got = read_cluster_file(out)
+    if got != ref.clusters or [c[0] for c in got] != ref.representatives:
+        raise AssertionError("device greedy clusters differ from the native "
+                             "engine's")
+    ref_out = os.path.join(tmp, f"greedy_{tag}_native.cluster")
+    write_cluster_file(ref_out, ref.clusters, ss2)
+    if not same_file(out, ref_out):
+        raise AssertionError("the .cluster file differs from the one "
+                             "written from the native result")
+    probe = dict(stats)
+    if "probe_degree" not in probe:  # the forced route skips the probe
+        _greedy_corpus_is_dense(ss2.hashes, THRESHOLD, p.kmer_size,
+                                stats=probe)
+    degree = probe.get("probe_degree")  # none below 16,384 genomes
+    say(f"greedy {tag}: {len(ref.clusters)} clusters, "
+        f"{len(ref.representatives)} reps = the native engine's; "
+        f".cluster byte-equal")
+    say(f"greedy {tag} walls (s): CLI {wall:.3f}, device route "
+        f"{stats['greedy_s']:.3f} (sweep {stats['sweep_s']:.3f}, host "
+        f"replay {stats['replay_s']:.3f}), native engine {native_s:.3f}; "
+        f"density probe degree {degree} (cut 10)")
+    say_launches(f"greedy {tag}", launches, k1)
+    return launches
+
+
+def save_minhash_presketched(hashes, folder, kmer_size):
+    """A MinHash --presketched folder (by file, sketch size 1000); genome
+    lengths vary so that the presketched length sort permutes them."""
+    from rabbittclust_tpu_torch.sketch.base import SketchSet
+    from rabbittclust_tpu_torch.state import sketch_io
+    ss = SketchSet("minhash", None, True, True)
+    for i, h in enumerate(hashes):
+        length = 3_000_000 + (i * 7919) % 4001
+        ss.append_genome(file_name=f"genome_{i}.fna", name=f"genome_{i}",
+                         comment=f"cluster{i % N_CLUSTERS}", seq0_len=length,
+                         total_len=length, num_seqs=1, hashes=h,
+                         param_size=SKETCH)
+    sketch_io.save_minhash_sketches(ss, folder, kmer_size, False, 0, SKETCH)
+
+
+def phase_minhash(hashes, tmp):
+    """9a: MinHash clust-greedy --device --presketched against the native
+    parity engine; 9b: MinHash clust-mst --device --presketched against the
+    native host MST."""
+    say(f"== phase 9a: MinHash clust-greedy --device --presketched, "
+        f"N={len(hashes)}")
+    from rabbittclust_tpu_torch.cli.clust_greedy import main as greedy_main
+    from rabbittclust_tpu_torch.cli.clust_mst import main as mst_main
+    from rabbittclust_tpu_torch.cluster.greedy import minhash_greedy_parity
+    from rabbittclust_tpu_torch.cluster.mst import compute_mst
+    from rabbittclust_tpu_torch.state import sketch_io
+    from rabbittclust_tpu_torch.state.cluster_io import write_cluster_file
+    k = 21
+    folder = os.path.join(tmp, "minhash")
+    save_minhash_presketched(hashes, folder, k)
+    out = os.path.join(tmp, "minhash_greedy.cluster")
+    stats = {}
+    os.environ.pop("RTC_GREEDY_DEVICE", None)
+    wall, launches, k1, _, _ = run_cli(
+        greedy_main, ["--device", "--presketched", folder, "-o", out, "-d",
+                      str(THRESHOLD)], stats)
+    bounds = set(k1_bounds(k1))
+    if launches["filter_mask"] <= 0 or bounds != {"minhash"}:
+        raise AssertionError(f"K1 launches {launches['filter_mask']}, "
+                             f"bounds {bounds}: expected the minhash bound")
+    ss, _ = sketch_io.load_minhash_sketches(folder)
+    ss2 = ss.reorder(ss.minhash_presketched_order())
+    t0 = time.perf_counter()
+    ref = minhash_greedy_parity(ss2.hashes, ss2.param_sizes, THRESHOLD, k,
+                                False)
+    native_s = time.perf_counter() - t0
+    ref_out = os.path.join(tmp, "minhash_greedy_native.cluster")
+    write_cluster_file(ref_out, ref.clusters, ss2)
+    if read_cluster_file(out) != ref.clusters or not same_file(out, ref_out):
+        raise AssertionError("MinHash device greedy differs from the native "
+                             "parity engine")
+    say(f"MinHash greedy: {len(ref.clusters)} clusters = the native parity "
+        f"engine's; .cluster byte-equal")
+    say(f"MinHash greedy walls (s): CLI {wall:.3f}, device route "
+        f"{stats['greedy_s']:.3f} (sweep {stats['sweep_s']:.3f}, host "
+        f"replay {stats['replay_s']:.3f}), native parity engine "
+        f"{native_s:.3f}")
+    say_launches("MinHash greedy", launches, k1)
+
+    say(f"== phase 9b: MinHash clust-mst --device --presketched, "
+        f"N={len(hashes)} (dense engine, two planes)")
+    out = os.path.join(tmp, "minhash_mst.cluster")
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches9b, _, k4, k5b = run_cli(
+        mst_main, ["--device", "--presketched", folder, "-o", out, "-d",
+                   str(THRESHOLD)], stats)
+    peak = torch.cuda.max_memory_allocated()
+    planes = {1 + (a[1] is not None) for a, _ in k4.calls + k5b.calls}
+    if min(launches9b["pair_mask_tiles"], launches9b["pair_common"]) <= 0 \
+            or planes != {2}:
+        raise AssertionError(f"launches {launches9b}, planes {planes}: "
+                             "expected K4's mask mode and K5b on 2 planes")
+    t0 = time.perf_counter()
+    ref = compute_mst(hashes, THRESHOLD, k)
+    host_s = time.perf_counter() - t0
+    mst = sketch_io.load_mst(folder)
+    rel = hold_mst(mst, ref.mst, len(hashes), "MinHash dense engine")
+    say(f"MinHash MST: {len(mst[0])} edges, max rel weight diff {rel:.3e}, "
+        f"partition at {THRESHOLD} = the host engine's")
+    say("MinHash dense engine phases (s): " + ", ".join(
+        f"{key}={stats[key]:.3f}" for key in (
+            "pack_s", "h2d_s", "compact_s", "dispatch_s", "sweep_wait_s",
+            "decode_s", "pair_common_s", "edges_s", "kruskal_s")))
+    say(f"MinHash dense engine device (CUDA events): tile sweep "
+        f"{stats['sweep_ms']:.3f} ms, pair-common "
+        f"{stats['pair_common_ms']:.3f} ms; CLI wall {wall:.3f} s (host "
+        f"engine {host_s:.3f} s); max_memory_allocated {peak} B")
+    say_launches("MinHash mst", launches9b, k4=k4, k5b=k5b)
+    return launches, launches9b
+
+
+def hold_mst(mst, ref, n, what):
+    """Phase 4's gate: same edge count, sorted weights equal to 1e-12
+    relative, same partition at the threshold; returns the largest
+    relative weight difference."""
+    from rabbittclust_tpu_torch.cluster.mst import (
+        clusters_from_forest, cut_forest)
+    if len(mst[0]) != len(ref[0]):
+        raise AssertionError(f"{what}: MST edges {len(mst[0])} != host "
+                             f"{len(ref[0])}")
+    w, w_ref = np.sort(mst[2]), np.sort(ref[2])
+    rel = float(np.max(np.abs(w - w_ref) / np.maximum(np.abs(w_ref),
+                                                      1e-300))) \
+        if len(w) else 0.0
+    if rel > 1e-12:
+        raise AssertionError(f"{what}: sorted MST weights differ: max rel "
+                             f"{rel}")
+    if partition(clusters_from_forest(cut_forest(mst, THRESHOLD), n)) != \
+            partition(clusters_from_forest(cut_forest(ref, THRESHOLD), n)):
+        raise AssertionError(f"{what}: partition at the threshold differs "
+                             "from the host engine's")
+    return rel
+
+
+def write_fasta_genomes(work, n_bases, per_base, length, seed):
+    """``n_bases`` x ``per_base`` genomes of ``length`` bp (1 % point
+    mutations of a random base sequence) as one FASTA file each; returns
+    the list file."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    os.makedirs(work)
+    files = []
+    for c in range(n_bases):
+        base = rng.integers(0, 4, length)
+        for m in range(per_base):
+            seq = base.copy()
+            hit = rng.random(length) < 0.01
+            seq[hit] = rng.integers(0, 4, int(hit.sum()))
+            files.append(os.path.join(work, f"a{c}_{m}.fna"))
+            with open(files[-1], "wb") as f:
+                f.write(f">appended_{c}_{m} base{c}\n".encode())
+                f.write(acgt[seq].tobytes() + b"\n")
+    lst = os.path.join(work, "append.list")
+    with open(lst, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return lst
+
+
+def phase_append(tmp, n_old):
+    """10: clust-mst --fast --device --append over phase 4's folder."""
+    say(f"== phase 10: clust-mst --fast --device --presketched --append, "
+        f"N={n_old} + 1024")
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.cluster.mst import compute_mst
+    from rabbittclust_tpu_torch.io.fasta import read_file_list
+    from rabbittclust_tpu_torch.sketch.kssd import sketch_files_kssd
+    from rabbittclust_tpu_torch.state import sketch_io
+    src = os.path.join(tmp, "sketches")  # phase 4's folder, with edge.mst
+    work = os.path.join(tmp, "append")
+    lst = write_fasta_genomes(work, 32, 32, 100_000, SEED + 4)
+    before = folder_digest(src)
+    cwd = os.getcwd()
+    os.chdir(work)  # the merged run folder is created here
+    stats = {}
+    try:
+        wall, launches, _, k4, k5b = run_cli(
+            main, ["--fast", "--device", "--presketched", src, "--append",
+                   lst, "-l", "-o", os.path.join(work, "append.cluster"),
+                   "-d", str(THRESHOLD)], stats)
+    finally:
+        os.chdir(cwd)
+    if folder_digest(src) != before:
+        raise AssertionError("--append changed its source folder")
+    starts = {a[7] for a, _ in k4.calls}
+    if launches["pair_mask_tiles"] <= 0 or starts != {n_old}:
+        raise AssertionError(f"K4 mask-mode launches "
+                             f"{launches['pair_mask_tiles']}, start_index "
+                             f"{starts}: expected {n_old}")
+    runs = [d for d in os.listdir(work)
+            if os.path.exists(os.path.join(work, d, "edge.mst"))]
+    if len(runs) != 1:
+        raise AssertionError(f"expected one new run folder, found {runs}")
+    ss, p = sketch_io.load_kssd_sketches(src)
+    new_ss, _ = sketch_files_kssd(read_file_list(lst), 10000, p.kmer_size,
+                                  p.drlevel, os.cpu_count() or 1)
+    ss.extend(new_ss)
+    t0 = time.perf_counter()
+    ref = compute_mst(ss.hashes, THRESHOLD, p.kmer_size, start_index=n_old,
+                      pre_edges=sketch_io.load_mst(src))
+    host_s = time.perf_counter() - t0
+    mst = sketch_io.load_mst(os.path.join(work, runs[0]))
+    hold_mst(mst, ref.mst, len(ss), "append")
+    say(f"append: {len(ss)} genomes ({len(new_ss)} new, ~"
+        f"{int(np.mean([len(h) for h in new_ss.hashes]))} hashes each), "
+        f"{len(mst[0])} MST edges = the native compute_mst(start_index="
+        f"{n_old}, pre_edges); source folder unchanged")
+    say(f"append walls (s): CLI {wall:.3f} (engine: pack {stats['pack_s']:.3f}"
+        f", sweep waited {stats['sweep_wait_s']:.3f}, kruskal "
+        f"{stats['kruskal_s']:.3f}; tiles {stats['tiles']}; device: sweep "
+        f"{stats['sweep_ms']:.3f} ms, pair-common "
+        f"{stats['pair_common_ms']:.3f} ms), host engine {host_s:.3f}")
+    say_launches("append", launches, k4=k4, k5b=k5b)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -1107,7 +1450,17 @@ def main() -> int:
         launches, want = phase_end_to_end(hashes, dev, tmp)
         phase_from_fasta(tmp)
         launches.update(phase_slice(corpus, dev, tmp))
-    phase_engines(hashes, want, dev)
+        phase_engines(hashes, want, dev)
+        t0 = time.perf_counter()
+        sparse = make_corpus(N_GREEDY, SKETCH, N_GREEDY // 2, SEED + 3)
+        say(f"sparse corpus of {N_GREEDY} genomes (pairs) made in "
+            f"{time.perf_counter() - t0:.3f} s")
+        phase_greedy(sparse, tmp, "8a", None)
+        del sparse
+        phase_greedy(corpus[:N_GREEDY], tmp, "8b", "force")
+        phase_minhash(make_corpus(N_GENOMES, SKETCH, N_CLUSTERS, SEED + 5,
+                                  dtype=np.uint64), tmp)
+        phase_append(tmp, N_GENOMES)
     loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
               or m.startswith(("jax.", "rabbittclust_tpu."))]
     if loaded:

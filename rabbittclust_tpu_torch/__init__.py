@@ -17,14 +17,18 @@ Layout mirrors the JAX package:
                         engine's generator, mask bit-packing
     ops/labelprop.py    resident-mask label-propagation engine: kernel K2
     ops/cluster_fast.py MST-free dispatcher (stream / LP, -t 1 order)
+    ops/greedy_device.py greedy over one K1 sweep and a host replay
     ops/transfer.py     device-to-host pulls on events
-    workflows.py        clust-mst --fast --device workflows and their
-                        output tail
-    cli/clust_mst.py    entry point; cli/common.py its flags
+    workflows.py        clust-mst / clust-greedy --device workflows and
+                        their output tail
+    cli/clust_mst.py, cli/clust_greedy.py
+                        entry points; cli/common.py their flags and the
+                        table of arms not ported yet
     sketch/ io/ state/ distance/ cluster/ post/ utils/
-                        host code: KSSD sketching, FASTA input,
-                        persistence, distances, Kruskal and forest cuts,
-                        trees / auto-threshold / dedup, the native loader
+                        host code: KSSD and MinHash sketching, FASTA
+                        input, persistence, distances, Kruskal and forest
+                        cuts, the native greedy engines, trees /
+                        auto-threshold / dedup, the native loader
     kernels/_build.py   nvcc build of csrc/*.cu at first use
     device.py           explicit device selection (no CPU fallback)
 """

@@ -1,0 +1,106 @@
+"""clust-greedy entry point of the port: the ``--device`` arms on an explicit
+torch device (reference src/main.cpp:291-390 dispatch).
+
+    python -m rabbittclust_tpu_torch.cli.clust_greedy --fast --device \\
+        -l -i genomes.list -o out.cluster -d 0.05
+
+KSSD (``--fast``) and MinHash, from genomes or ``--presketched``, run on
+the device sweep of ``ops/greedy_device.py`` (KSSD under
+``RTC_GREEDY_DEVICE``: ``auto`` probes the corpus density and may take the
+native engine, ``native`` always does, ``force`` never).  The arms of
+``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
+will port them.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
+from .. import workflows as wf
+from .common import (
+    base_parser,
+    make_output_options,
+    refuse_unported,
+    validate_common,
+)
+
+
+# Source: rabbittclust_tpu/cli/clust_greedy.py::main
+def main(argv=None, device: Optional[torch.device] = None,
+         stats: Optional[dict] = None) -> int:
+    """``device=None`` requires CUDA; ``torch.device("cpu")`` runs the plain
+    torch versions of the kernels.  ``stats``, when given, receives the
+    greedy phase's seconds and route (``workflows._greedy_clusters``,
+    ``compute_minhash_clusters``)."""
+    args = base_parser("greedy").parse_args(argv)
+    validate_common(args)
+    opts = make_output_options(args)
+    is_containment = args.contain_compress is not None
+    module = "greedy"
+
+    if args.sketch_func in ("WMH", "HLL", "OMH"):
+        # reference greedy explicitly rejects these (greedy.cpp:313-317)
+        print("can only support MinHash and KSSD with greedy incremental "
+              "clust", file=sys.stderr)
+        return 1
+    if refuse_unported(args, module):
+        return 1
+    if not args.use_device:
+        print("ERROR: rabbittclust_tpu_torch runs the device engine only: "
+              "pass --device (the host engine is rabbittclust_tpu's "
+              "clust-greedy)", file=sys.stderr)
+        return 1
+    device = resolve_device(device)
+    if args.presketched:
+        if args.is_fast:
+            wf.clust_from_sketch_fast(args.presketched, args.output,
+                                      args.threshold, args.threads,
+                                      is_containment, opts, device, stats,
+                                      module)
+        else:
+            wf.clust_from_sketches(args.presketched, args.output,
+                                   args.threshold, args.threads, opts,
+                                   device, stats, module)
+        return 0
+    if not args.input:
+        print("ERROR: -i/--input or --presketched needed", file=sys.stderr)
+        return 1
+    if args.is_fast:
+        tuned = wf.tune_kssd_parameters(
+            args.sketch_by_file, args.kmer_size is not None, args.input,
+            args.threads, args.min_len, is_containment,
+            args.kmer_size or 19, args.threshold, args.drlevel)
+        wf.clust_from_genome_fast(
+            args.input, args.output, None, args.sketch_by_file,
+            is_containment, tuned.kmer_size, args.threshold, args.drlevel,
+            args.min_len, args.threads, opts, device, stats, module)
+        return 0
+    tuned = wf.tune_parameters(
+        args.sketch_by_file, args.kmer_size is not None, args.input,
+        args.threads, args.min_len, is_containment,
+        args.sketch_size is not None, args.kmer_size or 21, args.threshold,
+        args.contain_compress or 1000, args.sketch_size or 1000,
+        greedy_default_containment=True)
+    wf.clust_from_genomes(
+        args.input, args.output, None, args.sketch_by_file, tuned.kmer_size,
+        args.sketch_size or 1000, args.threshold, tuned.is_containment,
+        tuned.contain_compress, args.min_len, args.threads, opts, device,
+        stats, module)
+    return 0
+
+
+def cli() -> int:
+    """Console entry with clean error reporting for bad inputs."""
+    try:
+        return main()
+    except (FileNotFoundError, ValueError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

@@ -30,6 +30,37 @@ def flatten_sketches(hashes: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
     return hv, gid
 
 
+# Source: rabbittclust_tpu/cluster/mst.py::native_pair_counts
+def native_pair_counts(hashes: List[np.ndarray], j_min: float = 0.0,
+                       ratio2: int = 0, start_index: int = 0,
+                       threads: int = 0):
+    """Native (i, j, common) over all pairs sharing >= 1 hash (i < j), with
+    optional integer prefilters: common >= ceil(j_min*(sA+sB)/(1+j_min)) and
+    max_size <= ratio2 * min_size (rtc_pairs_*)."""
+    lib = native_mod.load_native()
+    n = len(hashes)
+    if n < 2:
+        e = np.empty(0, dtype=np.int64)
+        return e, e.copy(), e.copy()
+    use64 = hashes[0].dtype == np.uint64
+    flat, offs = native_mod.flatten_csr(hashes, use64)
+    fn = lib.rtc_pairs_u64 if use64 else lib.rtc_pairs_u32
+    h = fn(flat.ctypes.data, offs.ctypes.data, n, j_min, ratio2,
+           start_index, threads or (os.cpu_count() or 1))
+    try:
+        m = int(lib.rtc_pairs_count(h))
+        pi = np.empty(m, dtype=np.int32)
+        pj = np.empty(m, dtype=np.int32)
+        common = np.empty(m, dtype=np.int32)
+        if m:
+            lib.rtc_pairs_data(h, pi.ctypes.data, pj.ctypes.data,
+                               common.ctypes.data)
+    finally:
+        lib.rtc_pairs_free(h)
+    return (pi.astype(np.int64), pj.astype(np.int64),
+            common.astype(np.int64))
+
+
 # ---------------------------------------------------------------------------
 # Edge construction + streaming Kruskal
 # ---------------------------------------------------------------------------

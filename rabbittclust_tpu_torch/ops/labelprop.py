@@ -47,6 +47,10 @@ from .transfer import _host_async, _host_wait
 # Source: rabbittclust_tpu/ops/labelprop.py::SENT
 SENT = 1 << 30  # "no partner" in the proposals
 LAUNCHES = {"labelprop_round": 0}
+# K2's limits (csrc/labelprop_round.cu): the row block (two int32 per
+# column in shared memory) and the tiles of one launch (grid y)
+MAX_RB = 16384
+MAX_LAUNCH_TILES = 65535
 
 # the last run's phases (host seconds), counts and the device milliseconds
 # of the builds and rounds (CUDA events); pulled bytes are in
@@ -136,7 +140,7 @@ def _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb):
     dev = packs.device
     if dev.type != "cuda":
         raise ValueError(f"masks on {dev}: expected cuda or cpu")
-    if rb <= 0 or rb % 128 or rb > 16384:
+    if rb <= 0 or rb % 128 or rb > MAX_RB:
         raise ValueError(f"rb={rb}: K2 reads rows in 16-byte chunks, so rb "
                          "must be a multiple of 128, <= 16384")
     if (packs.dtype != torch.uint8 or packs.dim() != 3
@@ -154,6 +158,9 @@ def _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb):
         raise ValueError("the clear list must be (4, C)")
     if not r0s.shape == c0s.shape == valid.shape == (packs.shape[0],):
         raise ValueError("r0s, c0s and valid must have one entry per tile")
+    if packs.shape[0] > MAX_LAUNCH_TILES:
+        raise ValueError(f"{packs.shape[0]} tiles: K2 takes at most "
+                         f"{MAX_LAUNCH_TILES} per launch")
 
 
 def _stream(dev):
@@ -242,19 +249,28 @@ def threshold_clusters_device_lp(
               "the full labels every round)", file=sys.stderr)
     t_all = clock()
     rb = min(row_block, max(128, 1 << max(n - 1, 1).bit_length()))
-    if cuda and rb % 128:
-        raise ValueError(f"row block {rb}: K2 reads rows in 16-byte chunks, "
-                         "so on the card it must be a multiple of 128")
-    sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS)
-    n_pad = sig.n_pad
-    scalars = filter_scalars(threshold, kmer_size)
-
+    n_pad = max(-(-n // rb) * rb, rb)  # pack_bitmaps_packed's padding
     tiles = triangle_tiles(n_pad, rb)
     if panel_tiles <= 0:
         panel_tiles = int(os.environ.get("RTC_LP_PANEL_TILES", "512"))
     t_cap = 1
     while t_cap < min(len(tiles), panel_tiles):
         t_cap *= 2
+    # K2's limits on the card, checked before anything is staged
+    if cuda and (rb % 128 or rb > MAX_RB):
+        raise ValueError(f"row block {rb}: K2 reads rows in 16-byte chunks "
+                         f"and keeps two int32 per column in shared memory, "
+                         f"so on the card it must be a multiple of 128, "
+                         f"<= {MAX_RB}")
+    if cuda and min(t_cap, len(tiles)) > MAX_LAUNCH_TILES:
+        raise ValueError(f"a panel of {min(t_cap, len(tiles))} tiles "
+                         f"(panel_tiles or RTC_LP_PANEL_TILES "
+                         f"{panel_tiles}): K2 takes at most "
+                         f"{MAX_LAUNCH_TILES} tiles per launch")
+    sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS)
+    assert sig.n_pad == n_pad
+    scalars = filter_scalars(threshold, kmer_size)
+
     panels = [tiles[p:p + t_cap] for p in range(0, len(tiles), t_cap)]
     panel_geo = [(min(r0 for r0, _ in panel),
                   max(r0 for r0, _ in panel) + rb) for panel in panels]

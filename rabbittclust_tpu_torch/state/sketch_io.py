@@ -1,23 +1,28 @@
-"""KSSD sketch / MST / index persistence — binary-compatible with the
+"""Sketch / MST / index persistence — binary-compatible with the
 reference.
 
 Formats (little-endian raw structs, reference src/Sketch_IO.cpp,
 src/MST_IO.cpp, src/SketchInfo.cpp:1254-1467):
 
-  kssd.info.sketch (+ the ".mst" twin):
+  kssd.info.sketch / info.sketch (+ ".mst" twins):
       bool sketchByFile; size_t N;
       by-file rows:  int file_name_len, seq0_name_len, seq0_comment_len,
-                     strand; uint64 totalSeqLength; the three strings;
-                     bool use64
-      by-seq rows:   int name_len, comment_len, strand, length; strings;
-                     bool use64
+                     strand; uint64 totalSeqLength; the three strings
+                     (+ bool use64, kssd only)
+      by-seq rows:   int name_len, comment_len, strand, length; strings
+                     (+ bool use64, kssd only)
   kssd.hash.sketch: KssdParameters{int id, half_k, half_subk, drlevel,
                      genomeNumber}; per genome size_t count + u32/u64 hashes
+  hash.sketch:      int sketch_func_id (0=MinHash); int k,
+                     bool isContainment, int containCompress|sketchSize;
+                     per genome size_t count + u64 hashes
   kssd.sketch.index: size_t hash_number; u32/u64 hash_arr; u32 posting sizes
   kssd.sketch.dict:  concatenated u32 genome-id posting lists
   edge.mst:          size_t count; (int,int,double) triples
   mst.dense:         int genome_number, int denseSpan, denseSpan x N ints
   mst.ani:           101 x uint64
+  minhash.sketch.index: "MHIDX001"; size_t keys; per key u64 hash, u32
+                     posting size, u32 genome ids
 
 One timestamped run folder per invocation: YYYY_MM_DD_HH-MM-SS
 (reference common.hpp:36-44).
@@ -36,6 +41,7 @@ import numpy as np
 
 from ..sketch.base import SketchSet
 from ..sketch.kssd import KssdParams
+from ..sketch.minhash import MinHashParams
 from ..utils import native as native_mod
 
 
@@ -155,6 +161,82 @@ def load_kssd_sketches(folder: str) -> Tuple[SketchSet, KssdParams]:
             comment=info["comments"][i], seq0_len=info["seq0_lens"][i],
             total_len=info["total_lens"][i], num_seqs=1, hashes=h)
     return ss, p
+
+
+# Source: rabbittclust_tpu/state/sketch_io.py::save_minhash_sketches
+def save_minhash_sketches(ss: SketchSet, folder: str, kmer_size: int,
+                          is_containment: bool, contain_compress: int,
+                          sketch_size: int) -> None:
+    ensure_folder(folder)
+    save_genome_info(ss, folder, "sketch", kssd=False)
+    with open(os.path.join(folder, "hash.sketch"), "wb") as f:
+        f.write(struct.pack("<i", 0))
+        f.write(struct.pack("<i", kmer_size))
+        f.write(struct.pack("<?", is_containment))
+        f.write(struct.pack("<i", contain_compress if is_containment
+                            else sketch_size))
+        for h in ss.hashes:
+            f.write(struct.pack("<Q", len(h)))
+            f.write(np.ascontiguousarray(h, dtype=np.uint64).tobytes())
+    print(f"-----save the sketches into: {folder}", file=sys.stderr)
+
+
+# Source: rabbittclust_tpu/state/sketch_io.py::load_minhash_sketches
+def load_minhash_sketches(folder: str) -> Tuple[SketchSet, MinHashParams]:
+    path = os.path.join(folder, "hash.sketch")
+    with open(path, "rb") as f:
+        data = f.read()
+    off = 0
+    (func_id,) = struct.unpack_from("<i", data, off); off += 4
+    if func_id != 0:
+        raise ValueError(f"hash.sketch has sketch_func_id={func_id}, not MinHash")
+    (kmer_size,) = struct.unpack_from("<i", data, off); off += 4
+    (is_containment,) = struct.unpack_from("<?", data, off); off += 1
+    (param,) = struct.unpack_from("<i", data, off); off += 4
+    by_file, info = load_genome_info(folder, "sketch", kssd=False)
+    mp = MinHashParams(
+        kmer_size=kmer_size, sketch_size=0 if is_containment else param,
+        is_containment=bool(is_containment),
+        contain_compress=param if is_containment else 0)
+    ss = SketchSet("minhash", mp, by_file, True)
+    n = len(info["names"])
+    for i in range(n):
+        (cnt,) = struct.unpack_from("<Q", data, off); off += 8
+        h = np.frombuffer(data, dtype=np.uint64, count=cnt, offset=off).copy()
+        off += cnt * 8
+        # Reference load quirk (Sketch_IO.cpp:333-339): loaded containment
+        # sketches are reconstructed as MinHash(kmer, contain_compress) —
+        # getSketchSize() then returns the contain_compress CONSTANT, not
+        # the original per-genome cap.  The presketched greedy path feeds
+        # that degenerate size into its bounds/distances; replicate it.
+        ss.append_genome(
+            file_name=info["file_names"][i], name=info["names"][i],
+            comment=info["comments"][i], seq0_len=info["seq0_lens"][i],
+            total_len=info["total_lens"][i], num_seqs=1, hashes=h,
+            param_size=param)
+    return ss, mp
+
+
+# Source: rabbittclust_tpu/state/sketch_io.py::save_minhash_index
+def save_minhash_index(hashes: List[np.ndarray], folder: str) -> None:
+    ensure_folder(folder)
+    from ..cluster.mst import flatten_sketches
+    hv, gid = flatten_sketches(hashes)
+    hv_s, gid_s = _sorted_postings(hv, gid, hv.dtype == np.uint64)
+    path = os.path.join(folder, "minhash.sketch.index")
+    with open(path, "wb") as f:
+        f.write(b"MHIDX001")
+        if len(hv_s):
+            starts = np.flatnonzero(np.r_[True, hv_s[1:] != hv_s[:-1]])
+            sizes = np.diff(np.r_[starts, len(hv_s)])
+            f.write(struct.pack("<Q", len(starts)))
+            for st, sz in zip(starts.tolist(), sizes.tolist()):
+                f.write(struct.pack("<Q", int(hv_s[st])))
+                f.write(struct.pack("<I", sz))
+                f.write(gid_s[st:st + sz].astype("<u4").tobytes())
+        else:
+            f.write(struct.pack("<Q", 0))
+    print(f"-----MinHash inverted index saved: {path}", file=sys.stderr)
 
 
 # Source: rabbittclust_tpu/state/sketch_io.py::_sorted_postings

@@ -2,9 +2,9 @@
 (built from ``native/rtc_native.cpp`` at the repository root, beside both
 packages).
 
-The port uses its KSSD sketcher, its MST engines, the CSR flatten and
-exact-count kernels, the signature pack, the mask decoder and the verify
-merge.  If the library is missing, or older than its source, it is built
+The port uses its KSSD and MinHash sketchers, its MST and greedy engines,
+its size sort and pair counts, the CSR flatten and exact-count kernels,
+the signature pack, the mask decoder and the verify merge.  If the library is missing, or older than its source, it is built
 with g++ here; if it can be neither built nor loaded, ``load_native``
 raises: the port has no NumPy fallbacks.
 """
@@ -74,6 +74,11 @@ def load_native():
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _c_i32p, ctypes.c_int,
     ]
+    lib.rtc_sketch_files_minhash_contain.restype = ctypes.c_void_p
+    lib.rtc_sketch_files_minhash_contain.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
     lib.rtc_result_count.restype = ctypes.c_int64
     lib.rtc_result_count.argtypes = [ctypes.c_void_p]
     lib.rtc_result_free.argtypes = [ctypes.c_void_p]
@@ -85,6 +90,27 @@ def load_native():
     lib.rtc_result_strings.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_void_p]
     lib.rtc_result_hashes_all.argtypes = [ctypes.c_void_p, _c_u64p]
+    lib.rtc_stdsort_size_desc.argtypes = [_c_i64p, ctypes.c_int64, _c_i32p]
+    # Source: rabbittclust_tpu/cluster/greedy.py::_greedy_native (argtypes)
+    for fn in ("rtc_greedy_u32", "rtc_greedy_u64"):
+        getattr(lib, fn).argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p]
+    lib.rtc_greedy_minhash.argtypes = [
+        _c_u64p, _c_i64p, ctypes.c_int64, _c_i64p, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, _c_i32p]
+    # Source: rabbittclust_tpu/cluster/mst.py::native_pair_counts (argtypes)
+    for fn in ("rtc_pairs_u32", "rtc_pairs_u64"):
+        getattr(lib, fn).restype = ctypes.c_void_p
+        getattr(lib, fn).argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    lib.rtc_pairs_count.restype = ctypes.c_int64
+    lib.rtc_pairs_count.argtypes = [ctypes.c_void_p]
+    lib.rtc_pairs_data.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.rtc_pairs_free.argtypes = [ctypes.c_void_p]
     for fn in ("rtc_mst_u32", "rtc_mst_u64"):
         getattr(lib, fn).restype = ctypes.c_void_p
         getattr(lib, fn).argtypes = [

@@ -1,11 +1,15 @@
-"""clust-mst --fast --device workflows on the GPU (counterpart of the MST
-branch of ``rabbittclust_tpu/workflows.py``).
+"""clust-mst and clust-greedy ``--device`` workflows on the GPU
+(counterpart of ``rabbittclust_tpu/workflows.py``: KSSD ``--fast`` and
+MinHash, fresh genomes, ``--presketched``, ``--premsted`` and the classic
+``--fast --append``).
 
 Sketching, persistence and the output tail (trees, auto-threshold, cluster
 files, noise removal, dedup/reps) are the port's copies of the JAX
 package's host code; only the engines differ, on an explicit torch device:
 the MST-free cluster engines of ``ops/cluster_fast.py`` for ``-e`` with no
-MST consumer, the dense exact-MST engine of ``ops/engine.py`` otherwise.
+MST consumer, the dense exact-MST engine of ``ops/engine.py`` otherwise,
+and the greedy sweeps of ``ops/greedy_device.py`` beside the native greedy
+engines of ``cluster/greedy.py``.
 """
 
 from __future__ import annotations
@@ -19,14 +23,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .cluster.greedy import greedy_cluster
 from .cluster.mst import (
     MstResult,
     clusters_from_forest,
     cut_forest,
     get_noise_nodes,
     modify_forest,
+    native_pair_counts,
 )
-from .distance.mash import max_distance_for_sketch
+from .distance.mash import max_distance_for_sketch, min_jaccard_for_threshold
 from .io.fasta import read_file_list
 from .io.prescan import cal_size
 from .ops.cluster_fast import (
@@ -34,8 +40,14 @@ from .ops.cluster_fast import (
     threshold_clusters_device_exact_order,
 )
 from .ops.engine import compute_mst_device
+from .ops.greedy_device import greedy_cluster_device, minhash_greedy_device
 from .sketch.base import SketchSet
 from .sketch.kssd import KssdParams, sketch_files_kssd, sketch_sequences_kssd
+from .sketch.minhash import (
+    MinHashParams,
+    sketch_files_minhash,
+    sketch_sequences_minhash,
+)
 from .state import sketch_io
 from .state.cluster_io import write_cluster_file
 from .utils.timers import Timer
@@ -81,6 +93,47 @@ def tune_kssd_parameters(sketch_by_file: bool, is_set_kmer: bool,
             f"valid distance range estimated by Mash distance or AAF distance")
     return TunedParams(kmer_size=kmer_size, threshold=threshold,
                        is_containment=is_containment, contain_compress=0,
+                       sketch_size=sketch_size, max_dist=max_dist)
+
+
+# Source: rabbittclust_tpu/workflows.py::tune_parameters
+def tune_parameters(sketch_by_file: bool, is_set_kmer: bool, input_file: str,
+                    threads: int, min_len: int, is_containment: bool,
+                    is_jaccard: bool, kmer_size: int, threshold: float,
+                    contain_compress: int, sketch_size: int,
+                    greedy_default_containment: bool = False) -> TunedParams:
+    """MinHash parameter auto-tuning (reference sub_command.cpp:2317-2467);
+    clust-greedy defaults to containment (``greedy_default_containment``,
+    sub_command.cpp:2392-2407)."""
+    max_size, min_size, avg_size = cal_size(sketch_by_file, input_file,
+                                            threads, min_len)
+    if is_containment and is_jaccard:
+        raise ValueError("conflicting Mash (fixed-size) and AAF "
+                         "(variable-size) distance measurements")
+    if greedy_default_containment:
+        if not is_containment and not is_jaccard:
+            contain_compress = max(avg_size // 1000, 1)
+            is_containment = True
+        elif is_containment and avg_size // max(contain_compress, 1) < 10:
+            log(f"the containCompress {contain_compress} is too large and "
+                f"the sketch size is too small")
+            contain_compress = max(avg_size // 1000, 1)
+            log(f"set the containCompress to: {contain_compress}")
+    kmer_size = _tune_kmer(is_set_kmer, kmer_size, max_size)
+    if not is_containment:
+        min_jaccard = 1.0 / sketch_size
+    else:
+        denom = min_size // max(contain_compress, 1)
+        min_jaccard = 1.0 / denom if denom else 1.0
+    max_dist = max_distance_for_sketch(min_jaccard, kmer_size)
+    log(f"-----the max recommand distance threshold is: {max_dist}")
+    if threshold > max_dist:
+        raise ValueError(
+            f"tune_parameters(): the threshold {threshold} is out of the "
+            f"valid distance range estimated by Mash distance or AAF distance")
+    return TunedParams(kmer_size=kmer_size, threshold=threshold,
+                       is_containment=is_containment,
+                       contain_compress=contain_compress,
                        sketch_size=sketch_size, max_dist=max_dist)
 
 
@@ -214,7 +267,8 @@ def _mst_consumers(opts: OutputOptions) -> bool:
 def _compute_mst_engine(ss: SketchSet, threshold: float, kmer_size: int,
                         is_containment: bool, opts: OutputOptions,
                         device: torch.device,
-                        stats: Optional[dict] = None):
+                        stats: Optional[dict] = None, start_index: int = 0,
+                        pre_edges=None):
     """The single-device branch of the JAX ``_compute_mst_engine``."""
     if device.type == "cuda":
         if torch.cuda.device_count() > 1:
@@ -226,7 +280,19 @@ def _compute_mst_engine(ss: SketchSet, threshold: float, kmer_size: int,
         log(f"-----using the dense MST engine on {device} (plain torch)")
     return compute_mst_device(
         ss.hashes, threshold, kmer_size, is_containment=is_containment,
-        with_dense=opts.dense, device=device, stats=stats)
+        with_dense=opts.dense, start_index=start_index, pre_edges=pre_edges,
+        device=device, stats=stats)
+
+
+def _save_mst_run(ss: SketchSet, res, folder: str, kssd: bool) -> None:
+    """The MST run's files: genome info, edge.mst and, with --dense, the
+    density and ANI files."""
+    sketch_io.ensure_folder(folder)
+    sketch_io.save_genome_info(ss, folder, "mst", kssd=kssd)
+    sketch_io.save_mst(res.mst, folder)
+    if res.dense is not None:
+        sketch_io.save_dense(folder, res.dense)
+        sketch_io.save_ani(folder, res.ani)
 
 
 def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
@@ -264,14 +330,82 @@ def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
     return clusters, ss
 
 
+# Source: rabbittclust_tpu/workflows.py::_greedy_corpus_is_dense
+def _greedy_corpus_is_dense(hashes, threshold: float, kmer_size: int,
+                            probe_n: int = 1024,
+                            degree_cut: float = 10.0,
+                            stats: Optional[dict] = None) -> bool:
+    """Candidate-density probe for the --device greedy crossover: exact
+    candidate pairs (greedy accept bound) among the ``probe_n`` largest
+    genomes via the native pair engine; dense iff the average per-genome
+    candidate degree exceeds ``degree_cut``.  Small corpora (< 16384)
+    always count as dense — fixed device costs dominate there regardless
+    of density.  Both constants come from the JAX package's TPU A/B; the
+    two routes give the same clusters, so they move only time.  ``stats``
+    receives the probe's degree (``probe_degree``)."""
+    n = len(hashes)
+    if n < 16384:
+        return True
+    m = min(probe_n, n)
+    sub = hashes[:m]  # size-sorted corpus: the sweep's own first tile
+    j_min = min_jaccard_for_threshold(threshold, kmer_size)
+    pairs = len(native_pair_counts(sub, j_min=j_min * (1.0 - 1e-9),
+                                   ratio2=2)[0])
+    degree = 2.0 * pairs / m
+    if stats is not None:
+        stats["probe_degree"] = degree
+    return degree >= degree_cut
+
+
+def _greedy_clusters(ss: SketchSet, p: KssdParams, threshold: float,
+                     output_file: str, device: torch.device,
+                     stats: Optional[dict]):
+    """The greedy module of the JAX ``compute_kssd_clusters``: the KSSD
+    greedy order, then the native engine or the device sweep by
+    ``RTC_GREEDY_DEVICE`` (``auto``: the density probe; ``native``;
+    ``force``).  ``stats`` receives ``greedy_route`` ("native" or
+    "device"), ``greedy_s`` and, on the device route, ``sweep_s`` and
+    ``replay_s``."""
+    st = {} if stats is None else stats
+    order = ss.kssd_greedy_order()
+    ss2 = ss.reorder(order)
+    mode = os.environ.get("RTC_GREEDY_DEVICE", "auto")
+    timer = Timer()
+    with timer.phase("greedy"):
+        if mode != "native" and not (
+                mode == "auto" and _greedy_corpus_is_dense(
+                    ss2.hashes, threshold, p.kmer_size, stats=st)):
+            st["greedy_route"] = "device"
+            gres = greedy_cluster_device(
+                ss2.hashes, threshold, p.kmer_size, presorted=True,
+                is_containment=False, device=device, stats=st)
+        else:
+            if mode == "auto":
+                log("-----device greedy: dense corpus — routing to the "
+                    "native engine (RTC_GREEDY_DEVICE=force overrides)")
+            st["greedy_route"] = "native"
+            gres = greedy_cluster(ss2.hashes, threshold, p.kmer_size,
+                                  presorted=True, is_containment=False)
+    st["greedy_s"] = timer.phases["greedy"]
+    # greedy main output has no threshold header (sub_command.cpp:1969)
+    write_cluster_file(output_file, gres.clusters, ss2)
+    log(f"-----write the cluster result into: {output_file}")
+    log(f"-----the number of clusters is: {len(gres.clusters)}")
+    return gres.clusters, ss2
+
+
 def compute_kssd_clusters(ss: SketchSet, p: KssdParams, threshold: float,
                           output_file: str,
                           is_containment: bool, opts: OutputOptions,
                           folder: Optional[str], device: torch.device,
-                          stats: Optional[dict] = None, threads: int = 1):
-    """The MST module of the JAX ``compute_kssd_clusters``.  ``-e`` with no
-    MST consumer takes the MST-free engines, under the JAX package's
-    condition (``RTC_MST_CLUSTERS_FAST=0`` restores the dense engine)."""
+                          stats: Optional[dict] = None, threads: int = 1,
+                          module: str = "mst"):
+    """The JAX ``compute_kssd_clusters``: the greedy module, or the MST
+    module.  There ``-e`` with no MST consumer takes the MST-free engines,
+    under the JAX package's condition (``RTC_MST_CLUSTERS_FAST=0``
+    restores the dense engine)."""
+    if module == "greedy":
+        return _greedy_clusters(ss, p, threshold, output_file, device, stats)
     if (os.environ.get("RTC_MST_CLUSTERS_FAST", "1") != "0"
             and opts.use_device and not _mst_consumers(opts)):
         return _mst_free_clusters(ss, p, threshold, output_file,
@@ -282,12 +416,7 @@ def compute_kssd_clusters(ss: SketchSet, p: KssdParams, threshold: float,
                                   opts, device, stats)
     with timer.phase("outputs"):
         if not opts.no_save and folder:
-            sketch_io.ensure_folder(folder)
-            sketch_io.save_genome_info(ss, folder, "mst", kssd=True)
-            sketch_io.save_mst(res.mst, folder)
-            if opts.dense and res.dense is not None:
-                sketch_io.save_dense(folder, res.dense)
-                sketch_io.save_ani(folder, res.ani)
+            _save_mst_run(ss, res, folder, kssd=True)
         clusters, _ = _mst_outputs(ss, res, threshold, output_file, opts,
                                    folder)
     if stats is not None:
@@ -302,9 +431,10 @@ def clust_from_genome_fast(input_file: str, output_file: str,
                            threshold: float, drlevel: int, min_len: int,
                            threads: int, opts: OutputOptions,
                            device: torch.device,
-                           stats: Optional[dict] = None):
-    """clust-mst --fast --device from genomes (native KSSD sketching on the
-    host, then the device MST engine)."""
+                           stats: Optional[dict] = None,
+                           module: str = "mst"):
+    """clust-mst / clust-greedy --fast --device from genomes (native KSSD
+    sketching on the host, then the device engine)."""
     timer = Timer()
     with timer.phase("computing sketch (with index)"):
         if sketch_by_file:
@@ -323,20 +453,21 @@ def clust_from_genome_fast(input_file: str, output_file: str,
         stats["sketch_s"] = timer.phases["computing sketch (with index)"]
     return compute_kssd_clusters(ss, p, threshold, output_file,
                                  is_containment, opts, folder, device, stats,
-                                 threads)
+                                 threads, module)
 
 
 def clust_from_sketch_fast(folder_path: str, output_file: str,
                            threshold: float, threads: int,
                            is_containment: bool, opts: OutputOptions,
                            device: torch.device,
-                           stats: Optional[dict] = None):
+                           stats: Optional[dict] = None,
+                           module: str = "mst"):
     """--presketched path."""
     ss, p = sketch_io.load_kssd_sketches(folder_path)
     log(f"-----load {len(ss)} kssd sketches from: {folder_path}")
     return compute_kssd_clusters(ss, p, threshold, output_file,
                                  is_containment, opts, folder_path, device,
-                                 stats, threads)
+                                 stats, threads, module)
 
 
 # Source: rabbittclust_tpu/workflows.py::clust_from_mst_fast
@@ -368,3 +499,141 @@ def clust_from_mst_fast(folder_path: str, output_file: str, threshold: float,
             opts.dense = False
     return _mst_outputs(ss, res, threshold, output_file, opts, folder_path,
                         kssd=kssd)
+
+
+# Source: rabbittclust_tpu/workflows.py::append_clust_mst_fast (the classic
+# pre-MST merge; the mst_cluster_state.bin branch is not ported)
+def append_clust_mst_fast(folder_path: str, input_file: str,
+                          output_file: str, sketch_by_file: bool,
+                          is_containment: bool, min_len: int,
+                          threshold: float, threads: int,
+                          opts: OutputOptions, device: torch.device,
+                          stats: Optional[dict] = None):
+    """--append with --presketched/--premsted (reference
+    sub_command.cpp:1286-1528), classic mode: the new genomes are sketched
+    with the stored parameters, and the dense engine runs only the tiles
+    that hold a new genome (``start_index``), merged with the saved MST."""
+    ss, p = sketch_io.load_kssd_sketches(folder_path)
+    pre_n = len(ss)
+    log(f"-----load {pre_n} pre-generated sketches from: {folder_path}")
+    if sketch_by_file:
+        files = read_file_list(input_file)
+        new_ss, p2 = sketch_files_kssd(files, min_len, p.kmer_size,
+                                       p.drlevel, threads)
+    else:
+        new_ss, p2 = sketch_sequences_kssd(input_file, min_len, p.kmer_size,
+                                           p.drlevel, threads)
+    if p2 != p:
+        raise ValueError(f"append parameter mismatch: {p2} vs stored {p}")
+    if new_ss.use64 != ss.use64:
+        raise ValueError("append use64 mismatch with stored sketches")
+    ss.extend(new_ss)
+    pre_mst = None
+    try:
+        pre_mst = sketch_io.load_mst(folder_path)
+    except FileNotFoundError:
+        pre_n = 0  # no MST: recompute everything
+    res = _compute_mst_engine(ss, threshold, p.kmer_size, is_containment,
+                              opts, device, stats,
+                              start_index=pre_n if pre_mst else 0,
+                              pre_edges=pre_mst)
+    # the merged artifacts go into a NEW run folder — the source folder is
+    # never mutated (reference append_clust_mst_fast writes
+    # new_folder_path, sub_command.cpp:1450-1470)
+    out_folder = folder_path
+    if not opts.no_save:
+        out_folder = sketch_io.default_folder_path()
+        sketch_io.ensure_folder(out_folder)
+        sketch_io.save_kssd_sketches(ss, p, out_folder)
+        sketch_io.save_kssd_index(ss.hashes, ss.use64, out_folder)
+        sketch_io.save_genome_info(ss, out_folder, "mst", kssd=True)
+        sketch_io.save_mst(res.mst, out_folder)
+    return _mst_outputs(ss, res, threshold, output_file, opts, out_folder)
+
+
+# Source: rabbittclust_tpu/workflows.py::clust_from_genomes
+def clust_from_genomes(input_file: str, output_file: str,
+                       folder_path: Optional[str], sketch_by_file: bool,
+                       kmer_size: int, sketch_size: int, threshold: float,
+                       is_containment: bool, contain_compress: int,
+                       min_len: int, threads: int, opts: OutputOptions,
+                       device: torch.device, stats: Optional[dict] = None,
+                       module: str = "mst"):
+    """The MinHash arm (no --fast) from genomes."""
+    p = MinHashParams(kmer_size=kmer_size, sketch_size=sketch_size,
+                      is_containment=is_containment,
+                      contain_compress=contain_compress)
+    if sketch_by_file:
+        files = read_file_list(input_file)
+        ss = sketch_files_minhash(files, min_len, p, threads)
+    else:
+        ss = sketch_sequences_minhash(input_file, min_len, p, threads)
+    log(f"-----the size of sketches (genomes) is: {len(ss)}")
+    folder = folder_path or sketch_io.default_folder_path()
+    if not opts.no_save:
+        sketch_io.ensure_folder(folder)
+        sketch_io.save_minhash_sketches(ss, folder, kmer_size,
+                                        is_containment, contain_compress,
+                                        sketch_size)
+        sketch_io.save_minhash_index(ss.hashes, folder)
+    return compute_minhash_clusters(ss, p, threshold, threads, output_file,
+                                    opts, folder, module, device, stats)
+
+
+# Source: rabbittclust_tpu/workflows.py::compute_minhash_clusters
+def compute_minhash_clusters(ss: SketchSet, p: MinHashParams,
+                             threshold: float, threads: int,
+                             output_file: str, opts: OutputOptions,
+                             folder: Optional[str], module: str,
+                             device: torch.device,
+                             stats: Optional[dict] = None,
+                             presketched: bool = False):
+    """The MinHash greedy module (``minhash_greedy_device``, K1 under its
+    ``minhash`` bound) or MST module (the dense engine).  ``stats``
+    receives ``greedy_s``, ``sweep_s`` and ``replay_s`` (greedy) or the
+    dense engine's phases (MST)."""
+    if module == "greedy":
+        # Reference ordering quirk: the FRESH-genome path runs greedy in
+        # input order (compute_clusters never sorts,
+        # sub_command.cpp:2891-2914); only the PRESKETCHED path sorts, by
+        # genome length desc (sub_command.cpp:2658-2660).
+        if presketched:
+            order = ss.minhash_presketched_order()
+        else:
+            order = np.arange(len(ss), dtype=np.int64)
+        ss2 = ss.reorder(order)
+        timer = Timer()
+        with timer.phase("greedy"):
+            # device sweep with the reference's MinHash-parity semantics
+            # (param-size asymmetry, first-touch ties) — bit-exact vs the
+            # native engine cluster.greedy.minhash_greedy_parity
+            gres = minhash_greedy_device(ss2.hashes, ss2.param_sizes,
+                                         threshold, p.kmer_size,
+                                         p.is_containment, device=device,
+                                         stats=stats)
+        if stats is not None:
+            stats["greedy_s"] = timer.phases["greedy"]
+        write_cluster_file(output_file, gres.clusters, ss2)
+        log(f"-----the number of clusters is: {len(gres.clusters)}")
+        return gres.clusters, ss2
+    res = _compute_mst_engine(ss, threshold, p.kmer_size, p.is_containment,
+                              opts, device, stats)
+    if not opts.no_save and folder:
+        _save_mst_run(ss, res, folder, kssd=False)
+    # MinHash fresh/presketched MST output includes the threshold header
+    # (reference printResult calls at sub_command.cpp:2809,3051)
+    return _mst_outputs(ss, res, threshold, output_file, opts, folder,
+                        kssd=True)
+
+
+# Source: rabbittclust_tpu/workflows.py::clust_from_sketches
+def clust_from_sketches(folder_path: str, output_file: str, threshold: float,
+                        threads: int, opts: OutputOptions,
+                        device: torch.device, stats: Optional[dict] = None,
+                        module: str = "mst"):
+    """The MinHash arm's --presketched path."""
+    ss, p = sketch_io.load_minhash_sketches(folder_path)
+    log(f"-----load {len(ss)} minhash sketches from: {folder_path}")
+    return compute_minhash_clusters(ss, p, threshold, threads, output_file,
+                                    opts, folder_path, module, device, stats,
+                                    presketched=True)

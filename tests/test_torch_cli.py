@@ -1,5 +1,6 @@
-"""The port's clust-mst CLI on the CPU (``main(argv, device=cpu)``) against
-the JAX package's CLI: cluster files, trees and edge.mst byte-equal.
+"""The port's clust-mst and clust-greedy CLIs on the CPU
+(``main(argv, device=cpu)``) against the JAX package's CLIs: cluster files,
+trees, sketch folders and edge.mst byte-equal.
 
 The JAX side runs with RTC_MESH=0 (the conftest's 8 virtual CPU devices
 would otherwise select the mesh ring).  The dense-engine tests set
@@ -16,7 +17,9 @@ import sys
 import pytest
 import torch
 
+from rabbittclust_tpu.cli.clust_greedy import main as jax_greedy_main
 from rabbittclust_tpu.cli.clust_mst import main as jax_main
+from rabbittclust_tpu_torch.cli.clust_greedy import main as port_greedy_main
 from rabbittclust_tpu_torch.cli.clust_mst import main as port_main
 
 CPU = torch.device("cpu")
@@ -24,9 +27,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_both(tmp_path, monkeypatch, argv, presketched=None,
-              mst_free=False):
-    """Run argv through both CLIs, each in its own working directory (run
-    folders are named by the clock); returns {side: (out_dir, folder)}."""
+              mst_free=False, greedy=False):
+    """Run argv through both CLIs (clust-greedy's with ``greedy``), each in
+    its own working directory (run folders are named by the clock);
+    returns {side: (out_dir, folder)}."""
     monkeypatch.setenv("RTC_MESH", "0")
     if mst_free:
         monkeypatch.delenv("RTC_MST_CLUSTERS_FAST", raising=False)
@@ -34,7 +38,9 @@ def _run_both(tmp_path, monkeypatch, argv, presketched=None,
     else:
         monkeypatch.setenv("RTC_MST_CLUSTERS_FAST", "0")
     res = {}
-    for side, fn in (("jax", jax_main), ("port", port_main)):
+    mains = ((("jax", jax_greedy_main), ("port", port_greedy_main)) if greedy
+             else (("jax", jax_main), ("port", port_main)))
+    for side, fn in mains:
         wd = tmp_path / side
         wd.mkdir(parents=True)
         monkeypatch.chdir(wd)
@@ -131,30 +137,210 @@ def test_cli_presketched_and_premsted_byte_equal(synthetic_genomes,
     assert _same_bytes(jw / "re.cluster", pw / "re.cluster")
 
 
+def _same_folders(a, b, names=None):
+    """The two run folders hold the same files (or ``names``), byte-equal."""
+    got = sorted(p.name for p in a.iterdir())
+    assert got == sorted(p.name for p in b.iterdir())
+    for name in names or got:
+        assert _same_bytes(a / name, b / name), name
+
+
+@pytest.mark.parametrize("mode", ["force", "auto"])
+def test_cli_greedy_fast_byte_equal(synthetic_genomes, tmp_path, monkeypatch,
+                                    capsys, mode):
+    """clust-greedy --fast --device from genomes, then --presketched from
+    the saved folder: ``force`` takes the device sweep (K1 under its greedy
+    bound) on both sides, ``auto`` the native engine (below 16,384 genomes
+    the density probe always routes there)."""
+    monkeypatch.setenv("RTC_GREEDY_DEVICE", mode)
+    fresh = _run_both(tmp_path / "fresh", monkeypatch,
+                      _fresh_args(synthetic_genomes), greedy=True)
+    (jw, jf), (pw, pf) = fresh["jax"], fresh["port"]
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    _same_folders(jf, pf)
+    pre = _run_both(tmp_path / "pre", monkeypatch,
+                    ["--fast", "--device", "-d", "0.05"], presketched=jf,
+                    greedy=True)
+    assert _same_bytes(pre["jax"][0] / "out.cluster",
+                       pre["port"][0] / "out.cluster")
+    with open(pw / "out.cluster") as f:
+        assert f.read().count("the cluster") == 4
+    routed = capsys.readouterr().err.count("dense corpus — routing")
+    assert routed == (4 if mode == "auto" else 0)
+
+
+def test_cli_greedy_minhash_byte_equal(synthetic_genomes, tmp_path,
+                                       monkeypatch):
+    """MinHash clust-greedy --device (containment by default) from genomes,
+    then --presketched (length-sorted, the contain_compress param size)."""
+    fresh = _run_both(tmp_path / "fresh", monkeypatch,
+                      ["--device", "-l", "-i", synthetic_genomes.list_file,
+                       "-d", "0.05", "-m", "1000"], greedy=True)
+    (jw, jf), (pw, pf) = fresh["jax"], fresh["port"]
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    _same_folders(jf, pf)
+    assert "minhash.sketch.index" in {p.name for p in pf.iterdir()}
+    pre = _run_both(tmp_path / "pre", monkeypatch, ["--device", "-d", "0.05"],
+                    presketched=jf, greedy=True)
+    assert _same_bytes(pre["jax"][0] / "out.cluster",
+                       pre["port"][0] / "out.cluster")
+
+
+def test_cli_greedy_minhash_jaccard_byte_equal(synthetic_genomes, tmp_path,
+                                               monkeypatch):
+    """MinHash clust-greedy --device with a fixed sketch size (-s: the
+    fast path, winner = max common)."""
+    res = _run_both(tmp_path, monkeypatch,
+                    ["--device", "-l", "-i", synthetic_genomes.list_file,
+                     "-d", "0.05", "-k", "21", "-s", "300", "-m", "1000",
+                     "-e"], greedy=True)
+    assert _same_bytes(res["jax"][0] / "out.cluster",
+                       res["port"][0] / "out.cluster")
+
+
+def test_cli_minhash_mst_byte_equal(synthetic_genomes, tmp_path,
+                                    monkeypatch):
+    """MinHash clust-mst --device (the dense engine over two planes of
+    64-bit hashes) from genomes, --presketched, and --premsted (which
+    writes no threshold header)."""
+    fresh = _run_both(tmp_path / "fresh", monkeypatch,
+                      ["--device", "-l", "-i", synthetic_genomes.list_file,
+                       "-d", "0.05", "-s", "300", "-m", "1000"])
+    (jw, jf), (pw, pf) = fresh["jax"], fresh["port"]
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    _same_folders(jf, pf)
+    assert {"edge.mst", "info.mst", "hash.sketch"} <= {
+        p.name for p in pf.iterdir()}
+    pre = _run_both(tmp_path / "pre", monkeypatch, ["--device", "-d", "0.05"],
+                    presketched=jf)
+    (jw2, _), (pw2, _) = pre["jax"], pre["port"]
+    assert _same_bytes(jw2 / "out.cluster", pw2 / "out.cluster")
+    _same_folders(jw2 / "sketches", pw2 / "sketches")
+    for side, fn in (("jax", jax_main), ("port", port_main)):
+        wd = pre[side][0]
+        assert fn(["--premsted", str(wd / "sketches"), "-d", "0.03", "-o",
+                   str(wd / "re.cluster")]) == 0
+    assert _same_bytes(jw2 / "re.cluster", pw2 / "re.cluster")
+    with open(pw2 / "re.cluster") as f:
+        assert not f.readline().startswith("the threshold")
+
+
+def _append_lists(genomes, tmp_path):
+    init, app = tmp_path / "init.list", tmp_path / "app.list"
+    init.write_text("\n".join(genomes.files[:8]) + "\n")
+    app.write_text("\n".join(genomes.files[8:]) + "\n")
+    return str(init), str(app)
+
+
+def test_cli_append_byte_equal(synthetic_genomes, tmp_path, monkeypatch):
+    """clust-mst --fast --device --append (classic mode): the dense engine
+    over the tiles of the new genomes (start_index = 8), merged with the
+    saved MST; .cluster and the new run folder byte-equal."""
+    init, app = _append_lists(synthetic_genomes, tmp_path)
+    first = _run_both(tmp_path / "init", monkeypatch,
+                      ["--fast", "--device", "-l", "-i", init, "-d", "0.05",
+                       "--drlevel", "2", "-m", "1000"])
+    res = _run_both(tmp_path / "app", monkeypatch,
+                    ["--fast", "--device", "--append", app, "-l", "-d",
+                     "0.05", "-m", "1000"], presketched=first["jax"][1])
+    folders = {}
+    for side in ("jax", "port"):
+        wd = res[side][0]
+        new = [p for p in wd.iterdir() if p.is_dir() and p.name != "sketches"]
+        assert len(new) == 1
+        folders[side] = new[0]
+    assert _same_bytes(res["jax"][0] / "out.cluster",
+                       res["port"][0] / "out.cluster")
+    _same_folders(folders["jax"], folders["port"])
+    assert {"edge.mst", "kssd.hash.sketch", "kssd.sketch.index"} <= {
+        p.name for p in folders["port"].iterdir()}
+
+
+def test_classic_append_preserves_source_folder(synthetic_genomes, tmp_path,
+                                                monkeypatch):
+    """Classic append writes the merged files to a NEW timestamped run
+    folder; the presketched source folder is never changed (reference
+    append_clust_mst_fast, sub_command.cpp:1450-1470)."""
+    import hashlib
+    import time
+
+    def folder_digest(d):
+        return {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+                for f in sorted(d.iterdir())}
+
+    init, app = _append_lists(synthetic_genomes, tmp_path)
+    monkeypatch.setenv("RTC_MST_CLUSTERS_FAST", "0")
+    monkeypatch.chdir(tmp_path)
+    assert port_main(["--fast", "--device", "-l", "-i", init, "-o",
+                      str(tmp_path / "a.cluster"), "-d", "0.05"],
+                     device=CPU) == 0
+    runs = [p for p in tmp_path.iterdir() if p.name.startswith("20")]
+    assert len(runs) == 1
+    src = runs[0]
+    before = folder_digest(src)
+    time.sleep(1.1)  # distinct timestamp for the append's new folder
+    assert port_main(["--fast", "--device", "--presketched", str(src),
+                      "--append", app, "-l", "-o",
+                      str(tmp_path / "b.cluster"), "-d", "0.05"],
+                     device=CPU) == 0
+    assert folder_digest(src) == before
+    assert len([p for p in tmp_path.iterdir()
+                if p.name.startswith("20")]) == 2
+
+
 @pytest.mark.parametrize("extra", [
     ["--append", "x.list", "--presketched", "dir"],
-    ["--save-rep"],
-    ["--buildDB", "db"],
-    ["--db", "rep.db"],
-    ["--sketch-func", "HLL"],
-    ["--multihost", "localhost:1,1,0"],
+    ["--fast", "--save-rep"],
+    ["--fast", "--buildDB", "db"],
+    ["--fast", "--db", "rep.db"],
+    ["--fast", "--sketch-func", "HLL"],
+    ["--fast", "--multihost", "localhost:1,1,0"],
 ], ids=["append", "save-rep", "buildDB", "db", "sketch-func", "multihost"])
 def test_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
-    argv = ["--fast", "--device", "-o", str(tmp_path / "o.cluster")] + extra
+    """Arms not ported yet exit 1 naming their ROADMAP item; ``append`` is
+    the MinHash --append (no --fast)."""
+    argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
     assert port_main(argv, device=CPU) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP Queue 1 item" in err
     assert not (tmp_path / "o.cluster").exists()
 
 
+@pytest.mark.parametrize("extra", [
+    ["--fast", "--append", "x.list", "--presketched", "dir"],
+    ["--append", "x.list", "--presketched", "dir"],
+    ["--fast", "--save-rep"],
+    ["--fast", "--db", "rep.db"],
+    ["--fast", "--multihost", "localhost:1,1,0"],
+], ids=["append", "minhash-append", "save-rep", "db", "multihost"])
+def test_greedy_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
+    argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
+    assert port_greedy_main(argv, device=CPU) == 1
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP Queue 1 item 1" in err
+    assert not (tmp_path / "o.cluster").exists()
+
+
+def test_cli_mst_state_append_exits_1(tmp_path, capsys):
+    """An --append over a folder with a saved mst_cluster_state.bin (only
+    --save-rep writes one) takes the state machine, which is not ported."""
+    (tmp_path / "mst_cluster_state.bin").write_bytes(b"")
+    assert port_main(["--fast", "--device", "--presketched", str(tmp_path),
+                      "--append", "x.list", "-o",
+                      str(tmp_path / "o.cluster")], device=CPU) == 1
+    assert "item 10" in capsys.readouterr().err
+
+
 def test_cli_minhash_arm_and_missing_device_exit_1(tmp_path, capsys):
+    """Both CLIs run the device engines only: without --device they exit
+    1, clust-mst (KSSD and MinHash arms) and clust-greedy alike."""
     out = str(tmp_path / "o.cluster")
-    assert port_main(["--device", "-l", "-i", "x", "-o", out],
-                     device=CPU) == 1
-    assert "MinHash arm" in capsys.readouterr().err
-    assert port_main(["--fast", "-l", "-i", "x", "-o", out],
-                     device=CPU) == 1
-    assert "pass --device" in capsys.readouterr().err
+    for fn, argv in ((port_main, ["--fast", "-l", "-i", "x"]),
+                     (port_main, ["-l", "-i", "x"]),
+                     (port_greedy_main, ["--fast", "-l", "-i", "x"]),
+                     (port_greedy_main, ["-l", "-i", "x"])):
+        assert fn(argv + ["-o", out], device=CPU) == 1
+        assert "pass --device" in capsys.readouterr().err
 
 
 def test_cli_device_none_requires_cuda(synthetic_genomes, tmp_path,

@@ -389,3 +389,128 @@ def test_cluster_engines_on_card_match_host(gpu, engine_name):
     want = clusters_from_forest(cut_forest(compute_mst(hashes, 0.05,
                                                        21).mst, 0.05), 1500)
     assert sorted(map(sorted, got)) == sorted(map(sorted, want))
+
+
+class _Spy:
+    """Records the arguments of each call of ``module.name`` and calls
+    through (the wrapper's launch count is untouched)."""
+
+    def __init__(self, monkeypatch, module, name):
+        real = getattr(module, name)
+        self.calls = []
+
+        def wrapper(*args, **kwargs):
+            self.calls.append(args)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapper)
+
+
+def _kssd_folder(tmp_path, hashes, name="sketches"):
+    from rabbittclust_tpu_torch.sketch.base import SketchSet
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams
+    from rabbittclust_tpu_torch.state import sketch_io
+    p = KssdParams.from_kmer_size(21, 3)
+    ss = SketchSet("kssd", p, True, p.use64)
+    for i, h in enumerate(hashes):
+        ss.append_genome(file_name=f"g{i}.fna", name=f"g{i}", comment="c",
+                         seq0_len=10 ** 6, total_len=10 ** 6, num_seqs=1,
+                         hashes=h)
+    folder = str(tmp_path / name)
+    sketch_io.save_kssd_sketches(ss, p, folder)
+    return folder, p
+
+
+def _cluster_ids(path):
+    clusters = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("the cluster"):
+                clusters.append([])
+            elif line.startswith("\t"):
+                clusters[-1].append(int(line.split("\t")[2]))
+    return clusters
+
+
+@pytest.mark.parametrize("n_clusters", [1500, 25], ids=["sparse", "dense"])
+def test_greedy_cli_on_card_matches_native(gpu, tmp_path, monkeypatch,
+                                           n_clusters):
+    """Phase 8 at N = 3,000: clust-greedy --fast --device --presketched on
+    the device sweep (K1 under its greedy bound) = the native greedy."""
+    from rabbittclust_tpu_torch.cli.clust_greedy import main
+    from rabbittclust_tpu_torch.cluster.greedy import greedy_cluster
+    from rabbittclust_tpu_torch.state import sketch_io
+    hashes = clustered_sketches(n=3000, s=400, n_clusters=n_clusters, seed=8)
+    folder, p = _kssd_folder(tmp_path, hashes)
+    monkeypatch.setenv("RTC_GREEDY_DEVICE", "force")
+    k1 = _Spy(monkeypatch, bm, "batched_mask")
+    bm.reset_launches()
+    stats = {}
+    out = str(tmp_path / "o.cluster")
+    assert main(["--fast", "--device", "--presketched", folder, "-o", out],
+                device=gpu, stats=stats) == 0
+    assert stats["greedy_route"] == "device"
+    assert bm.LAUNCHES["filter_mask"] > 0
+    assert {a[12] for a in k1.calls} == {"greedy"}
+    ss, _ = sketch_io.load_kssd_sketches(folder)
+    ss2 = ss.reorder(ss.kssd_greedy_order())
+    ref = greedy_cluster(ss2.hashes, 0.05, p.kmer_size, presorted=True)
+    assert _cluster_ids(out) == ref.clusters
+
+
+@pytest.mark.parametrize("psizes", ["fast", "slow"])
+def test_minhash_greedy_on_card_matches_parity(gpu, monkeypatch, psizes):
+    """Phase 9a's engine at N = 2,000 (64-bit hashes): K1 under its minhash
+    bound with constant sizes on both axes (fast path) or the param sizes
+    on the columns (slow path) = the native parity engine."""
+    from rabbittclust_tpu_torch.cluster.greedy import minhash_greedy_parity
+    from rabbittclust_tpu_torch.ops.greedy_device import minhash_greedy_device
+    hashes = clustered_sketches(n=2000, s=400, n_clusters=40, seed=9,
+                                dtype=np.uint64, keep=0.8)
+    psz = ([400] * len(hashes) if psizes == "fast"
+           else [350 + 29 * (i % 5) for i in range(len(hashes))])
+    k1 = _Spy(monkeypatch, bm, "batched_mask")
+    bm.reset_launches()
+    got = minhash_greedy_device(hashes, psz, 0.05, 21, device=gpu)
+    assert bm.LAUNCHES["filter_mask"] > 0
+    assert {a[12] for a in k1.calls} == {"minhash"}
+    want = minhash_greedy_parity(hashes, psz, 0.05, 21, False)
+    assert got.clusters == want.clusters
+    assert got.representatives == want.representatives
+
+
+def test_minhash_dense_engine_on_card_two_planes(gpu, monkeypatch):
+    """Phase 9b's engine at N = 3,000 of 64-bit hashes: K4's mask mode and
+    K5b on two planes, the MST held to the host engine."""
+    hashes = clustered_sketches(n=3000, s=400, n_clusters=30, seed=6,
+                                dtype=np.uint64)
+    k4 = _Spy(monkeypatch, engine, "pair_mask_tiles")
+    k5b = _Spy(monkeypatch, engine, "pair_common")
+    ix.reset_launches()
+    got = engine.compute_mst_device(hashes, 0.05, 21, device=gpu)
+    assert ix.LAUNCHES["pair_mask_tiles"] > 0 and ix.LAUNCHES["pair_common"] > 0
+    assert all(a[1] is not None for a in k4.calls + k5b.calls)
+    want = compute_mst(hashes, 0.05, 21)
+    assert len(got.mst[0]) == len(want.mst[0])
+    np.testing.assert_allclose(np.sort(got.mst[2]), np.sort(want.mst[2]),
+                               rtol=1e-12, atol=0)
+
+
+def test_append_engine_on_card_matches_host(gpu, monkeypatch):
+    """Phase 10's engine: start_index = 2,500 of 3,000 and the saved MST as
+    pre_edges; K4's mask mode launched with that start_index."""
+    hashes = clustered_sketches(n=3000, s=400, n_clusters=30, seed=2)
+    pre = compute_mst(hashes[:2500], 0.05, 21).mst
+    k4 = _Spy(monkeypatch, engine, "pair_mask_tiles")
+    got = engine.compute_mst_device(hashes, 0.05, 21, start_index=2500,
+                                    pre_edges=pre, device=gpu)
+    assert k4.calls and {a[7] for a in k4.calls} == {2500}
+    want = compute_mst(hashes, 0.05, 21, start_index=2500, pre_edges=pre)
+    assert len(got.mst[0]) == len(want.mst[0])
+    np.testing.assert_allclose(np.sort(got.mst[2]), np.sort(want.mst[2]),
+                               rtol=1e-12, atol=0)
+    n = len(hashes)
+    part = sorted(map(sorted, clusters_from_forest(cut_forest(got.mst, 0.05),
+                                                   n)))
+    ref = sorted(map(sorted, clusters_from_forest(cut_forest(want.mst, 0.05),
+                                                  n)))
+    assert part == ref

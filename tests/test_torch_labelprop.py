@@ -251,3 +251,37 @@ def test_lp_rejects_row_block_k2_cannot_read(monkeypatch):
     monkeypatch.setenv("RTC_CLUSTER_ENGINE", "lp")
     with pytest.raises(ValueError, match="row block 4128"):
         port_cf.threshold_clusters_device(hashes, 0.05, 21)
+
+
+@pytest.mark.parametrize("case", ["rb_direct", "rb_dispatcher",
+                                  "panel_tiles"])
+def test_lp_rejects_k2_limits_before_staging(monkeypatch, case):
+    """On the card K2 takes rb <= 16,384 (two int32 per column in shared
+    memory) and at most 65,535 tiles per launch: the engine rejects a row
+    block of 32,768 (directly and through ``RTC_CLUSTER_RB`` with
+    ``RTC_CLUSTER_ENGINE=lp``) and a panel of more tiles
+    (``RTC_LP_PANEL_TILES``) before it stages anything."""
+    from rabbittclust_tpu_torch import device as port_device
+    from rabbittclust_tpu_torch.ops import cluster_fast as port_cf
+    monkeypatch.setattr(port_device, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+
+    def staged(*args, **kwargs):
+        raise AssertionError("stage_signatures ran before the check")
+    monkeypatch.setattr(port_lp, "stage_signatures", staged)
+    one = np.array([1, 2], dtype=np.uint32)
+    if case == "rb_direct":
+        with pytest.raises(ValueError, match="row block 32768"):
+            port_lp.threshold_clusters_device_lp([one] * 20000, 0.05, 21,
+                                                 row_block=32768)
+    elif case == "rb_dispatcher":
+        monkeypatch.setenv("RTC_CLUSTER_RB", "32768")
+        monkeypatch.setenv("RTC_CLUSTER_ENGINE", "lp")
+        with pytest.raises(ValueError, match="row block 32768"):
+            port_cf.threshold_clusters_device([one] * 20000, 0.05, 21)
+    else:
+        # 362 row blocks of 128: 65,703 triangular tiles in one panel
+        monkeypatch.setenv("RTC_LP_PANEL_TILES", "70000")
+        with pytest.raises(ValueError, match="65703 tiles"):
+            port_lp.threshold_clusters_device_lp([one] * (362 * 128), 0.05,
+                                                 21, row_block=128)

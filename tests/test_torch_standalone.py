@@ -4,7 +4,8 @@ module of it that does not import JAX) or ``jax``; the port keeps its own
 copies of the host code it needs.
 
 (a) reads every source with ``ast``; (b) runs each of the port's clust-mst
-arms on the CPU in a fresh process and lists what that process loaded;
+and clust-greedy arms on the CPU in a fresh process and lists what that
+process loaded;
 (c) the port copies none of the JAX package's NumPy fallbacks: its loader
 of the shared native library raises when the library cannot be had.
 """
@@ -70,34 +71,65 @@ def test_the_static_check_sees_imports(tmp_path):
         "rabbittclust_tpu.state", "jax.numpy"]
 
 
-# Each arm: a list of argv runs in one process (the prep run of the saved
-# arms saves the run folder they read); "{list}" is the genome list file,
-# "{run}" the run folder the first run saved.
+# Each arm: a list of (CLI, argv) runs in one process (the prep run of the
+# saved arms saves the run folder they read); "{list}" is the genome list
+# file, "{half}" a list of its first half, "{rest}" of the rest, "{run}"
+# the run folder the first run saved.
 _FRESH = ["--fast", "--device", "-l", "-i", "{list}", "-d", "0.05",
           "--drlevel", "2", "-m", "1000"]
+_MINHASH = ["--device", "-l", "-i", "{list}", "-d", "0.05", "-m", "1000"]
 ARMS = {
-    "default_save": [_FRESH],
-    "e": [_FRESH + ["-e", "-t", "2"]],
-    "newick_tree": [_FRESH + ["-e", "--newick-tree", "--nexus-tree",
-                              "--phylip-tree", "--linkage-matrix"]],
-    "auto_threshold": [_FRESH + ["-e", "--auto-threshold", "--stability"]],
-    "presketched": [_FRESH, ["--fast", "--device", "--presketched", "{run}",
-                             "-d", "0.05"]],
-    "premsted": [_FRESH, ["--fast", "--premsted", "{run}", "-d", "0.03",
+    "default_save": [("mst", _FRESH)],
+    "e": [("mst", _FRESH + ["-e", "-t", "2"])],
+    "newick_tree": [("mst", _FRESH + ["-e", "--newick-tree", "--nexus-tree",
+                                      "--phylip-tree", "--linkage-matrix"])],
+    "auto_threshold": [("mst", _FRESH + ["-e", "--auto-threshold",
+                                         "--stability"])],
+    "presketched": [("mst", _FRESH),
+                    ("mst", ["--fast", "--device", "--presketched", "{run}",
+                             "-d", "0.05"])],
+    "premsted": [("mst", _FRESH),
+                 ("mst", ["--fast", "--premsted", "{run}", "-d", "0.03",
                           "--dedup-dist", "0.01", "--reps-per-cluster",
-                          "2"]],
+                          "2"])],
+    "greedy_kssd": [("greedy", _FRESH),
+                    ("greedy", ["--fast", "--device", "--presketched",
+                                "{run}", "-d", "0.05"])],
+    "greedy_minhash": [("greedy", _MINHASH),
+                       ("greedy", ["--device", "--presketched", "{run}",
+                                   "-d", "0.05"])],
+    "minhash_mst": [("mst", _MINHASH + ["-s", "300"]),
+                    ("mst", ["--device", "--presketched", "{run}", "-d",
+                             "0.05"]),
+                    ("mst", ["--premsted", "{run}", "-d", "0.03"])],
+    "append": [("mst", ["--fast", "--device", "-l", "-i", "{half}", "-d",
+                        "0.05", "-m", "1000"]),
+               ("mst", ["--fast", "--device", "--presketched", "{run}",
+                        "--append", "{rest}", "-l", "-d", "0.05", "-m",
+                        "1000"])],
 }
 
 _RUNNER = r"""
-import os, sys
+import os, sys, time
 import torch
-from rabbittclust_tpu_torch.cli.clust_mst import main
+from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
 runs, list_file = eval(sys.argv[1]), sys.argv[2]
+with open(list_file) as f:
+    files = f.read().split()
+for name, part in (("half", files[:len(files) // 2]),
+                   ("rest", files[len(files) // 2:])):
+    with open(f"{name}.list", "w") as f:
+        f.write("\n".join(part) + "\n")
+subs = {"{list}": list_file, "{half}": os.path.abspath("half.list"),
+        "{rest}": os.path.abspath("rest.list")}
+mains = {"mst": clust_mst.main, "greedy": clust_greedy.main}
 run_dir = None
-for k, argv in enumerate(runs):
-    argv = [a.replace("{list}", list_file).replace("{run}", run_dir or "")
-            for a in argv]
-    rc = main(argv + ["-o", f"out{k}.cluster"], device=torch.device("cpu"))
+for k, (cli, argv) in enumerate(runs):
+    argv = [subs.get(a, run_dir if a == "{run}" else a) for a in argv]
+    if "--append" in argv:
+        time.sleep(1.1)  # the append's own run folder gets a new timestamp
+    rc = mains[cli](argv + ["-o", f"out{k}.cluster"],
+                    device=torch.device("cpu"))
     assert rc == 0, (argv, rc)
     assert os.path.getsize(f"out{k}.cluster") > 0
     if run_dir is None:
