@@ -8,7 +8,7 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K1 / K2 / K4 (both modes) / K5b from
+2. build kernels K1 / K2 / K3 / K4 (both modes) / K5b from
    ``rabbittclust_tpu_torch/csrc`` with nvcc, one process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
@@ -63,10 +63,23 @@ Phases, one line or block each; any failure raises (non-zero exit):
 10. ``clust-mst --fast --device --presketched --append`` of 1,024 FASTA
    genomes onto phase 4's folder: K4's mask mode launched with start_index
    16,384, the new folder's MST held to the native ``compute_mst`` with
-   the same start_index and saved edges, the source folder unchanged.
+   the same start_index and saved edges, the source folder unchanged;
+11. ``clust-dbscan --fast --device --presketched`` on phase 8a's sparse
+   corpus and on the first 16,384 genomes of phase 6's, each under
+   ``RTC_PULL_MODE=mask`` and ``idx``: the ``.cluster`` file byte-equal to
+   the host path's (native pairs), K3 launched exactly on the idx runs;
+12. ``clust-leiden --fast --device --presketched`` on the dense N = 16,384
+   corpus: ``RTC_LEIDEN_DEVICE=force`` under mask and idx, then the default
+   (native) route; the three ``.cluster`` and ``leiden.graph`` files
+   byte-equal, and the graph build's force-vs-native times.
 
-Each of phases 8-10 prints its K1 / K4 / K5b launch counts on a line of
-its own.
+Phase 3d holds K3 (``compact_masks``, and K1 + K3 as ``batched_filter``)
+to its plain versions on batches of 16 tiles at rb 1024 and 4096 over the
+planted and the sparse corpus, and times it beside one ``torch.nonzero``;
+phase 7 also runs the stream engine under ``RTC_PULL_MODE=idx``.
+
+Each of phases 8-12 prints its kernels' launch counts on a line of its
+own.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a visible GPU it exits 2 and
@@ -106,6 +119,8 @@ KERNELS = {
                     "rabbittclust_tpu/ops/bitmap.py:345"),
     "labelprop_round": ("rabbittclust_tpu_torch/csrc/labelprop_round.cu",
                         "rabbittclust_tpu/ops/labelprop.py:101"),
+    "mask_compact": ("rabbittclust_tpu_torch/csrc/mask_compact.cu",
+                     "rabbittclust_tpu/ops/bitmap.py:389"),
 }
 
 NATIVE_PROBE = r"""
@@ -223,7 +238,7 @@ def check_native():
 
 
 def phase_build():
-    say("== phase 2: build K1 / K2 / K4 / K5b (nvcc, sm_90a)")
+    say("== phase 2: build K1 / K2 / K3 / K4 / K5b (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
     info = _build.build()  # all nvcc processes at once
     say(f"build seconds: {info['seconds']:.3f} "
@@ -996,6 +1011,119 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
         "mixed", "compact span=n_pad cap=65536"])
 
 
+def k3_launch_ms(packs, cnt, sel, want, dev):
+    """K3's two launches alone (``rtc_mask_compact``) on inputs already on
+    the card, milliseconds per call; the output must equal ``want``."""
+    from rabbittclust_tpu_torch.kernels import _build
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    if not sel:
+        return 0.0
+    lib = _build.load_kernels()
+    rb = packs.shape[1]
+    c = cnt[sel].astype(np.int64)
+    tiles = torch.from_numpy(np.stack([np.array(sel), np.cumsum(c) - c,
+                                       np.arange(len(sel))]).astype(
+        np.int32)).to(dev)
+    n_seg = -(-rb * rb // 128 // bm.MASK_COMPACT_SEG)
+    seg = torch.empty(len(sel) * n_seg, dtype=torch.int32, device=dev)
+    out = torch.empty(int(c.sum()), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        rc = lib.rtc_mask_compact(packs.data_ptr(), tiles.data_ptr(),
+                                  len(sel), rb, seg.data_ptr(), out.numel(),
+                                  out.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"rtc_mask_compact: CUDA error {rc}")
+        return out
+
+    got, ms = cuda_ms(run, reps=20)
+    if not torch.equal(got, want):
+        raise AssertionError("K3's launches alone differ from its wrapper")
+    return ms
+
+
+def phase_compact_kernel(planted, sparse, dev, rec, card):
+    """K3 against its plain versions at the stream generator's batch (16
+    tiles) at rb 1024 (the dbscan and leiden CLIs' row_block) and rb 4096,
+    over the planted corpus (first 16,384 genomes: 10 tiles at rb 4096,
+    so 6 padding slots) and the sparse one (pairs 16,384 apart: only tiles
+    with r0 - c0 = 16,384 hold a candidate).  ``batched_filter`` (K1 + K3) must equal
+    ``batched_filter_plain`` over the whole buffer, ``compact_masks`` (K3
+    alone, timed) ``compact_masks_plain``; beside them one
+    ``torch.nonzero`` over the batch's unpacked mask."""
+    say("== phase 3d: K3 (mask_compact) against its plain versions")
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    k = kssd_params().kmer_size
+    sc = bm.filter_scalars(THRESHOLD, k)
+    for label, hashes, rb, part in (
+            ("planted", planted, 1024, slice(16, 32)),
+            # row panel 16,384: its first tile holds the 1,024 planted
+            # pairs, the other 15 none
+            ("sparse", sparse, 1024, slice(136, 152)),
+            ("planted", planted, RB, slice(0, 16)),
+            ("sparse", sparse, RB, slice(10, 26))):
+        sig = bm.stage_signatures(hashes, BITS, rb, dev)
+        tiles = bm.triangle_tiles(sig.n_pad, rb)[part]
+        geo = np.zeros((3, 16), dtype=np.int64)
+        geo[:, :len(tiles)] = np.array([[r for r, _ in tiles],
+                                        [c for _, c in tiles],
+                                        [1] * len(tiles)])
+        cnt_d, packs = bm.batched_mask(sig.xd, sig.cd, sig.sd, *geo, *sc,
+                                       False, rb)
+        cnt = cnt_d.cpu().numpy()
+        sel = [t for t in range(16) if cnt[t]]
+        total, maxc = int(cnt.sum()), int(cnt.max())
+        got, call_ms = cuda_ms(lambda: bm.compact_masks(packs, cnt, sel),
+                               reps=20)
+        ms = k3_launch_ms(packs, cnt, sel, got, dev)
+        want, plain_ms = cuda_ms(lambda: bm.compact_masks_plain(packs, sel),
+                                 reps=3)
+        what = f"{label} rb={rb} tiles {part.start}..{part.stop - 1}"
+        hold_exact(rec, "mask_compact", got, want, what)
+        flags = bm.unpack_bits(packs[sel].reshape(-1, rb // 8), torch.bool) \
+            if sel else torch.zeros(0, dtype=torch.bool, device=dev)
+        lib, lib_ms = cuda_ms(lambda: torch.nonzero(flags.reshape(-1)),
+                              reps=5)
+        if lib.numel() != total:
+            raise AssertionError(f"{what}: torch.nonzero found {lib.numel()}"
+                                 f" set bits, K1 counted {total}")
+        del flags, lib
+        k3_bound = bound(len(sel) * rb * rb // 8 + 4 * total, 0, CORE_OPS)
+        rec["mask_compact"]["ms"].append(ms)
+        rec["mask_compact"]["plain_ms"].append(plain_ms)
+        rec["mask_compact"]["bound"].append(k3_bound)
+        rec["mask_compact"].setdefault("library_ms", lib_ms)
+        # K1 + K3 against the plain program, sized as the JAX generator
+        # sizes its index program from the exact counts
+        grid = rb * (rb // min(512, rb))
+        cap_tile, cap_chunks = max(maxc, 1), min(max(maxc, 1), grid)
+        args = (sig.xd, sig.cd, sig.sd, np.arange(16), *geo, *sc, False,
+                cap_tile, cap_chunks, rb)
+        fused = bm.batched_filter(*args)
+        fused_plain = bm.batched_filter_plain(*args)
+        hold_exact(rec, "mask_compact", fused, fused_plain,
+                   f"{what} batched_filter")
+        # compact_masks numbers the selected tiles 0, 1, ...; batched_filter
+        # encodes each tile by its slot in the batch
+        slots = torch.tensor(sel, dtype=torch.int64, device=dev)
+        as_slots = (slots[got.long() // (rb * rb)] * (rb * rb)
+                    + got.long() % (rb * rb)).to(torch.int32)
+        if not torch.equal(fused[2:2 + total], as_slots):
+            raise AssertionError(f"{what}: batched_filter's indices are not "
+                                 "compact_masks'")
+        say(f"K3 {what} ({len(tiles)} tiles, {16 - len(tiles)} padding, "
+            f"{16 - len(sel)} without a candidate): total {total}, max "
+            f"{maxc}: exact, batched_filter whole buffer exact; kernel "
+            f"{ms:.4f} ms (the wrapper's call {call_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, torch.nonzero "
+            f"{lib_ms:.4f} ms; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}: "
+            f"{len(sel) * rb * rb // 8} B of masks read, {4 * total} B "
+            f"written), kernel at {k3_bound[0] / ms:.3f} of it; card {card}")
+        del sig, packs, got, want, fused, fused_plain
+        torch.cuda.empty_cache()
+
+
 def phase_slice(hashes, dev, tmp):
     say(f"== phase 6: clust-mst --fast --device --presketched -e, "
         f"N={len(hashes)} (MST-free main path)")
@@ -1049,35 +1177,42 @@ def phase_slice(hashes, dev, tmp):
 
 
 def phase_engines(hashes, want, dev):
-    say(f"== phase 7: both MST-free engines at N={len(hashes)}, and the "
-        "-t 1 exact-order arm")
+    say(f"== phase 7: both MST-free engines at N={len(hashes)} (the stream "
+        "engine under both pulls), and the -t 1 exact-order arm")
     from rabbittclust_tpu_torch.cluster.mst import (
         clusters_from_forest, compute_mst, cut_forest)
     from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import cluster_fast as cf
     from rabbittclust_tpu_torch.ops import labelprop as lp
     k = kssd_params().kmer_size
-    for engine in ("stream", "lp"):
+    for engine, pull in (("stream", "auto"), ("stream", "idx"), ("lp", "auto")):
         os.environ["RTC_CLUSTER_ENGINE"] = engine
+        os.environ["RTC_PULL_MODE"] = pull
         bm.reset_launches()
         lp.reset_launches()
+        bm.reset_pull_stats()
         t0 = time.perf_counter()
         try:
-            got = cf.threshold_clusters_device(hashes, THRESHOLD, k,
-                                               device=dev)
+            with Spy(bm, "compact_masks") as k3:
+                got = cf.threshold_clusters_device(hashes, THRESHOLD, k,
+                                                   device=dev)
         finally:
-            del os.environ["RTC_CLUSTER_ENGINE"]
+            del os.environ["RTC_CLUSTER_ENGINE"], os.environ["RTC_PULL_MODE"]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         if partition(got) != want:
-            raise AssertionError(f"{engine} engine: partition differs from "
-                                 "the host engine's")
+            raise AssertionError(f"{engine} engine ({pull}): partition "
+                                 "differs from the host engine's")
         k1, k2 = bm.LAUNCHES["filter_mask"], lp.LAUNCHES["labelprop_round"]
-        if k1 <= 0 or (k2 > 0) != (engine == "lp"):
-            raise AssertionError(f"{engine} engine launches: K1 {k1}, K2 "
-                                 f"{k2}")
-        say(f"{engine}: {len(got)} clusters = host engine's partition in "
-            f"{secs:.3f} s (K1 launches {k1}, K2 {k2})")
+        k3n = bm.LAUNCHES["mask_compact"]
+        if k1 <= 0 or (k2 > 0) != (engine == "lp") or \
+                (k3n > 0) != (pull == "idx") or bool(k3.calls) != (k3n > 0):
+            raise AssertionError(f"{engine} engine ({pull}) launches: K1 "
+                                 f"{k1}, K2 {k2}, K3 {k3n}")
+        say(f"{engine} (RTC_PULL_MODE={pull}): {len(got)} clusters = host "
+            f"engine's partition in {secs:.3f} s (K1 launches {k1}, K2 {k2},"
+            f" K3 {k3n}; pulled {bm.PULL_STATS['bytes']} B in "
+            f"{bm.PULL_STATS['pulls']} pulls)")
     small = make_corpus(2000, SKETCH, N_CLUSTERS, SEED + 2)
     t0 = time.perf_counter()
     got, certified = cf.threshold_clusters_device_exact_order(
@@ -1095,18 +1230,24 @@ def phase_engines(hashes, want, dev):
 
 class Spy:
     """Records the arguments of every call of ``module.name`` (the caller
-    looks the name up in that module at each call) and calls through; the
-    wrapper's own launch count is untouched.  ``with`` restores it."""
+    looks the name up in that module at each call) and its host seconds,
+    and calls through; the wrapper's own launch count is untouched.
+    ``with`` restores it."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.calls = []
+        self.seconds = 0.0
 
     def __enter__(self):
         def wrapper(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.real(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return self.real(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
         setattr(self.module, self.name, wrapper)
         return self
 
@@ -1426,6 +1567,133 @@ def phase_append(tmp, n_old):
     say_launches("append", launches, k4=k4, k5b=k5b)
 
 
+def run_pairs_cli(main, argv, env):
+    """One clust-dbscan / clust-leiden run under the environment ``env``
+    from launch and pull counts set to 0: (wall, stats, launches, K3 spy,
+    seconds in ``candidate_pairs_threshold``, seconds in the leiden graph
+    build, pulled bytes)."""
+    from rabbittclust_tpu_torch.cluster import leiden
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    bm.reset_launches()
+    bm.reset_pull_stats()
+    stats = {}
+    try:
+        with Spy(bm, "compact_masks") as k3, \
+                Spy(bm, "candidate_pairs_threshold") as pairs, \
+                Spy(leiden, "build_similarity_graph") as graph:
+            t0 = time.perf_counter()
+            rc = main(argv, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    if rc != 0:
+        raise RuntimeError(f"{argv[:3]}... returned {rc}")
+    return (wall, stats, dict(bm.LAUNCHES), k3, pairs.seconds, graph.seconds,
+            bm.PULL_STATS["bytes"])
+
+
+def phase_dbscan(corpora, tmp):
+    """11: clust-dbscan --fast --device --presketched under mask and idx,
+    each .cluster byte-equal to the host path's (native pairs).  Returns
+    K3's launches in the first idx run."""
+    say("== phase 11: clust-dbscan --fast --device --presketched")
+    from rabbittclust_tpu_torch.cli.clust_dbscan import main
+    from rabbittclust_tpu_torch.cluster.dbscan import (
+        dbscan_cluster, write_dbscan_result)
+    from rabbittclust_tpu_torch.state import sketch_io
+    k3_launches = None
+    for tag, hashes, min_pts in corpora:
+        folder = os.path.join(tmp, f"dbscan_{tag}")
+        save_presketched(hashes, folder)
+        ss, kp = sketch_io.load_kssd_sketches(folder)
+        t0 = time.perf_counter()
+        ref = dbscan_cluster(ss.hashes, THRESHOLD, min_pts, kp.kmer_size)
+        host_s = time.perf_counter() - t0
+        ref_out = os.path.join(tmp, f"dbscan_{tag}_host.cluster")
+        write_dbscan_result(ref, ss, ref_out, THRESHOLD, min_pts)
+        say(f"dbscan {tag}: N={len(hashes)}, minPts {min_pts}: "
+            f"{ref.num_clusters} clusters, {ref.num_noise} noise points; "
+            f"host path (native pairs) {host_s:.3f} s")
+        for pull in ("mask", "idx"):
+            out = os.path.join(tmp, f"dbscan_{tag}_{pull}.cluster")
+            wall, stats, launches, k3, sweep_s, _, pulled = run_pairs_cli(
+                main, ["--fast", "--device", "--presketched", folder, "-o",
+                       out, "--eps", str(THRESHOLD), "--minpts",
+                       str(min_pts)], {"RTC_PULL_MODE": pull})
+            if not same_file(out, ref_out):
+                raise AssertionError(f"dbscan {tag} ({pull}): .cluster "
+                                     "differs from the host path's")
+            idx = pull == "idx"
+            if launches["filter_mask"] <= 0 or \
+                    (launches["mask_compact"] > 0) != idx or \
+                    bool(k3.calls) != idx:
+                raise AssertionError(f"dbscan {tag} ({pull}): launches "
+                                     f"{launches}, K3 calls {len(k3.calls)}")
+            if idx and k3_launches is None:
+                k3_launches = launches["mask_compact"]
+            say(f"dbscan {tag} RTC_PULL_MODE={pull}: .cluster byte-equal to "
+                f"the host path's; CLI wall {wall:.3f} s, dbscan "
+                f"{stats['dbscan_s']:.3f} s, of it the device sweep and "
+                f"exact counts {sweep_s:.3f} s; pulled {pulled} B")
+            say_launches(f"dbscan {tag} {pull}", launches)
+    return k3_launches
+
+
+def phase_leiden(hashes, tmp):
+    """12: clust-leiden --fast --device --presketched, the forced device
+    route under mask and idx and the default (native) route: .cluster and
+    leiden.graph byte-equal across the three."""
+    say(f"== phase 12: clust-leiden --fast --device --presketched, "
+        f"N={len(hashes)}")
+    import shutil
+    from rabbittclust_tpu_torch.cli.clust_leiden import main
+    folder = os.path.join(tmp, "leiden")
+    save_presketched(hashes, folder)
+    outs, builds = [], {}
+    for route, pull in (("force", "mask"), ("force", "idx"),
+                        ("native", "auto")):
+        tag = f"{route}_{pull}"
+        out = os.path.join(tmp, f"leiden_{tag}.cluster")
+        env = {"RTC_LEIDEN_DEVICE": "force" if route == "force" else "",
+               "RTC_PULL_MODE": pull}
+        wall, stats, launches, k3, _, graph_s, pulled = run_pairs_cli(
+            main, ["--fast", "--device", "--presketched", folder, "-o", out,
+                   "-d", str(THRESHOLD)], env)
+        graph = os.path.join(tmp, f"leiden_{tag}.graph")
+        shutil.copyfile(os.path.join(folder, "leiden.graph"), graph)
+        idx = pull == "idx"
+        if (launches["filter_mask"] > 0) != (route == "force") or \
+                (launches["mask_compact"] > 0) != idx or \
+                bool(k3.calls) != idx:
+            raise AssertionError(f"leiden {tag}: launches {launches}")
+        outs.append((tag, out, graph))
+        builds[tag] = graph_s
+        with open(graph) as f:
+            edges = f.readline().split()[1]
+        say(f"leiden {tag}: {edges} edges; CLI wall {wall:.3f} s, graph and "
+            f"clustering {stats['leiden_s']:.3f} s, of it the graph build "
+            f"{graph_s:.3f} s; pulled {pulled} B")
+        say_launches(f"leiden {tag}", launches)
+    for tag, out, graph in outs[1:]:
+        if not (same_file(out, outs[0][1]) and same_file(graph, outs[0][2])):
+            raise AssertionError(f"leiden {tag}: .cluster or leiden.graph "
+                                 f"differs from {outs[0][0]}'s")
+    n_clusters = len(read_cluster_file(outs[0][1]))
+    say(f"leiden: {n_clusters} clusters; the three .cluster and leiden.graph "
+        f"files byte-equal; graph build force/mask {builds['force_mask']:.3f}"
+        f" s, force/idx {builds['force_idx']:.3f} s, native "
+        f"{builds['native_auto']:.3f} s (force/mask at "
+        f"{builds['native_auto'] / builds['force_mask']:.2f}x the native "
+        "route's speed)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -1442,34 +1710,39 @@ def main() -> int:
     hashes = corpus[:N_GENOMES]
     say(f"corpus of {N_SLICE} genomes made in "
         f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sparse = make_corpus(N_GREEDY, SKETCH, N_GREEDY // 2, SEED + 3)
+    say(f"sparse corpus of {N_GREEDY} genomes (pairs) made in "
+        f"{time.perf_counter() - t0:.3f} s")
     rec = phase_kernels(hashes, dev)
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
+    phase_compact_kernel(hashes, sparse, dev, rec, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
         launches, want = phase_end_to_end(hashes, dev, tmp)
         phase_from_fasta(tmp)
         launches.update(phase_slice(corpus, dev, tmp))
         phase_engines(hashes, want, dev)
-        t0 = time.perf_counter()
-        sparse = make_corpus(N_GREEDY, SKETCH, N_GREEDY // 2, SEED + 3)
-        say(f"sparse corpus of {N_GREEDY} genomes (pairs) made in "
-            f"{time.perf_counter() - t0:.3f} s")
         phase_greedy(sparse, tmp, "8a", None)
-        del sparse
         phase_greedy(corpus[:N_GREEDY], tmp, "8b", "force")
         phase_minhash(make_corpus(N_GENOMES, SKETCH, N_CLUSTERS, SEED + 5,
                                   dtype=np.uint64), tmp)
         phase_append(tmp, N_GENOMES)
+        launches["mask_compact"] = phase_dbscan(
+            [("sparse", sparse, 2), ("planted", hashes, 5)], tmp)
+        del sparse
+        phase_leiden(hashes, tmp)
     loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
               or m.startswith(("jax.", "rabbittclust_tpu."))]
     if loaded:
         raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     # each kernel's first timed case, its bound and, for K1, the one
-    # PyTorch call that computes its product (no single call computes
-    # K2's, K4's or K5b's function); launches from the run of the path that
-    # uses the kernel (K4's counts mode is on no path: the dense engine
-    # takes its mask mode)
+    # PyTorch call that computes its product, for K3 torch.nonzero over the
+    # unpacked masks (no single call computes K2's, K4's or K5b's
+    # function); launches from the run of the path that uses the kernel
+    # (K4's counts mode is on no path: the dense engine takes its mask
+    # mode; K3's from phase 11's first idx run)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],

@@ -37,7 +37,7 @@ def main(argv=None, device: Optional[torch.device] = None,
     greedy phase's seconds and route (``workflows._greedy_clusters``,
     ``compute_minhash_clusters``)."""
     args = base_parser("greedy").parse_args(argv)
-    validate_common(args)
+    validate_common(args, "greedy")
     opts = make_output_options(args)
     is_containment = args.contain_compress is not None
     module = "greedy"

@@ -37,7 +37,7 @@ def main(argv=None, device: Optional[torch.device] = None,
     ``clusters_s`` for the MST-free ``-e`` engines, whose phases are in
     ``ops.labelprop.LP_STATS``)."""
     args = base_parser("mst").parse_args(argv)
-    validate_common(args)
+    validate_common(args, "mst")
     opts = make_output_options(args)
     is_containment = args.contain_compress is not None
 

@@ -119,4 +119,6 @@ def load_kernels() -> ctypes.CDLL:
                                          ci, vp, ci, ci, ci, vp, vp]
     lib.rtc_lp_compact.restype = ci
     lib.rtc_lp_compact.argtypes = [vp, ci, ci, ci, ci, vp, vp]
+    lib.rtc_mask_compact.restype = ci
+    lib.rtc_mask_compact.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp]
     return lib

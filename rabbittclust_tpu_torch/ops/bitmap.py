@@ -12,13 +12,22 @@ never drops a pair that can reach the threshold.
   jitted ``_batched_mask_fn`` over ``_tile_mask``.  Kernel in
   ``csrc/filter_mask.cu``; ``batched_mask_plain`` is its plain torch
   version (unpack to 0/1, float32 product, the same float32 bound).
+* K3 ``compact_masks`` — the set bits of chosen tiles of K1's packed
+  masks as ordered flat indices ``t * rb^2 + r * rb + c``; with K1 in
+  front, ``batched_filter`` returns what the jitted ``_batched_filter_fn``
+  over ``compact_mask_two_level`` returns.  Kernel in
+  ``csrc/mask_compact.cu``; ``compact_masks_plain``, ``batched_filter_plain``
+  and ``compact_mask_two_level_plain`` are the plain torch versions.
 * ``candidate_pair_blocks`` — the stream engine's batched generator: batch
-  b+1's K1 is queued before batch b's masks are decoded on the host.  It
-  pulls packed masks only (the index-compaction arm, K3, is not ported).
+  b+1's K1 is queued before batch b's pairs are decoded on the host.
+  ``RTC_PULL_MODE`` picks the pull: ``mask`` and ``auto`` (the default)
+  pull packed masks, ``idx`` runs K3 and pulls 4 bytes a candidate.
+* ``candidate_pairs_threshold`` — every candidate with its exact common
+  count (the DBSCAN neighbour lists and the leiden graph).
 
-The wrapper runs the plain version only when the signatures lie on the
-CPU; on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
-counts kernel launches.  ``pack_mask_u8`` is shared with the dense engine.
+The wrappers run the plain versions only when the tensors lie on the CPU;
+on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
+kernel launches.  ``pack_mask_u8`` is shared with the dense engine.
 """
 
 from __future__ import annotations
@@ -39,17 +48,25 @@ from .intersect import _launch, _upload
 from .pack import _to_device
 from .transfer import _host_async, _host_wait
 
-LAUNCHES = {"filter_mask": 0}
+LAUNCHES = {"filter_mask": 0, "mask_compact": 0}
 BOUNDS = {"mst": 0, "greedy": 1, "minhash": 2}
 # tiles per K1 launch of the stream generator (the JAX generator's default)
 BATCH_TILES = 16
+PULL_MODES = ("auto", "mask", "idx")
+# K3's flat indices are int32, as the JAX program's are: a batch of k tiles
+# of rb x rb needs k * rb^2 below this
+INDEX_LIMIT = 1 << 31
+# 16-byte chunks of a tile that one K3 block covers (``csrc/mask_compact.cu``
+# SEG); the wrapper sizes K3's per-segment scratch with it
+MASK_COMPACT_SEG = 1024
 
 # device-to-host bytes and pulls of the filter (reset_pull_stats() zeroes)
 PULL_STATS = {"bytes": 0, "pulls": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["filter_mask"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def reset_pull_stats() -> None:
@@ -295,6 +312,196 @@ def batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den, c_min,
     return counts, packs
 
 
+def _nonzero_sized(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.nonzero(x, size=size, fill_value=-1)`` of a 1-D mask: the
+    first ``size`` indices of its set entries, ascending, -1 padded (int32)."""
+    (idx,) = torch.nonzero(x, as_tuple=True)
+    out = torch.full((size,), -1, dtype=torch.int32, device=x.device)
+    k = min(size, idx.numel())
+    out[:k] = idx[:k].to(torch.int32)
+    return out
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::compact_mask_two_level
+def compact_mask_two_level_plain(mask: torch.Tensor, cap_tile: int,
+                                 cap_chunks: int):
+    """(count int32, flat indices (cap_tile,) int32, -1 padded) of a 2-D
+    bool mask, by the JAX program's two levels: the W-wide column chunks
+    with a set entry (W = min(512, ncols)), then the entries of those
+    chunks.  Exact while the hit chunks fit ``cap_chunks`` and the set
+    entries ``cap_tile``; the flat branch when the columns do not divide
+    by W or ``cap_chunks`` covers the whole chunk grid."""
+    nrows, ncols = mask.shape
+    count = mask.sum(dtype=torch.int32)
+    w = min(512, ncols)
+    if ncols % w or cap_chunks >= nrows * (ncols // w):
+        return count, _nonzero_sized(mask.reshape(-1), cap_tile)
+    ncc = ncols // w
+    m3 = mask.reshape(nrows, ncc, w)
+    cid = _nonzero_sized(m3.any(dim=2).reshape(-1), cap_chunks)
+    okc = cid >= 0
+    rows = cid.clamp(min=0) // ncc
+    cols = cid.clamp(min=0) % ncc
+    sub = m3[rows.long(), cols.long()] & okc[:, None]
+    loc = _nonzero_sized(sub.reshape(-1), cap_tile)
+    c2 = (loc.clamp(min=0) // w).long()
+    flat = rows[c2] * ncols + cols[c2] * w + loc.clamp(min=0) % w
+    return count, torch.where(loc >= 0, flat, -1).to(torch.int32)
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::_batched_filter_fn
+def batched_filter_plain(xd, cd, sd, ts, r0s, c0s, valid, jmin_num,
+                         jmin_den, c_min, radio, is_containment, cap_tile,
+                         cap_chunks, rb, bound="mst") -> torch.Tensor:
+    """Plain K1 + K3 for a batch: one int32 tensor [total, max tile
+    count, buffer (k * cap_tile)].  Tile t's mask is compacted and its
+    indices, encoded ``ts[t] * rb^2 + local``, are written at the running
+    total over ``cap_tile`` slots (the compaction's padding, encoded too,
+    is overwritten by the next tile's write or lies past the final
+    total), as the JAX scan writes them; invalid tiles write -1."""
+    k = len(ts)
+    dev = xd.device
+    buf = torch.full((k * cap_tile,), -1, dtype=torch.int32, device=dev)
+    total = maxc = 0
+    for t in range(k):
+        if valid[t]:
+            mask = tile_mask_plain(xd, cd, sd, int(r0s[t]), int(c0s[t]), rb,
+                                   jmin_num, jmin_den, c_min, radio,
+                                   is_containment, bound)
+            count, flat = compact_mask_two_level_plain(mask, cap_tile,
+                                                       cap_chunks)
+            # int32 arithmetic, wrapping as the JAX program's does
+            enc = (flat.long() + int(ts[t]) * rb * rb).to(torch.int32)
+            count = int(count)
+        else:
+            enc = torch.full((cap_tile,), -1, dtype=torch.int32, device=dev)
+            count = 0
+        # dynamic_update_slice clamps the start so that the update fits
+        start = min(total, k * cap_tile - cap_tile)
+        buf[start:start + cap_tile] = enc
+        total += count
+        maxc = max(maxc, count)
+    head = torch.tensor([total, maxc], dtype=torch.int32, device=dev)
+    return torch.cat([head, buf])
+
+
+def compact_masks_plain(packs: torch.Tensor, sel) -> torch.Tensor:
+    """Plain K3: the set bits of tiles ``sel`` of ``packs`` (k, rb, rb // 8)
+    uint8, as int32 ``p * rb^2 + r * rb + c`` (p the tile's place in
+    ``sel``), in order: tile by tile, row-major within a tile."""
+    rb = packs.shape[1]
+    sel_t = torch.as_tensor(list(sel), dtype=torch.long, device=packs.device)
+    bits = unpack_bits(packs.index_select(0, sel_t).reshape(-1, rb // 8),
+                       torch.bool)
+    (flat,) = torch.nonzero(bits.reshape(-1), as_tuple=True)
+    return flat.to(torch.int32)
+
+
+def _check_index_range(k: int, rb: int) -> None:
+    if k * rb * rb >= INDEX_LIMIT:
+        raise ValueError(
+            f"{k} tiles of {rb} x {rb} pairs: flat pair indices t * rb^2 + "
+            f"local reach {k * rb * rb}, past int32 (the JAX program's "
+            "indices wrap there); use fewer or smaller tiles")
+
+
+def _compact_into(packs: torch.Tensor, src, base, code, out: torch.Tensor,
+                  limit: int) -> None:
+    """Launch K3 (``csrc/mask_compact.cu``): tile ``src[q]`` of ``packs``
+    writes its set bits, encoded ``code[q] * rb^2 + local``, in order at
+    ``out[base[q]:]``; no write reaches ``out[limit:]``."""
+    k, rb = packs.shape[0], packs.shape[1]
+    if (packs.dtype != torch.uint8 or not packs.is_contiguous()
+            or tuple(packs.shape) != (k, rb, rb // 8) or rb % 32
+            or packs.data_ptr() % 16):
+        raise ValueError("packs must be a contiguous, 16-byte aligned "
+                         "(k, rb, rb // 8) uint8 tensor, rb a multiple of 32")
+    if out.dtype != torch.int32 or not out.is_contiguous() \
+            or out.device != packs.device or out.numel() < limit:
+        raise ValueError(f"out must be a contiguous int32 tensor of at least "
+                         f"{limit} entries on {packs.device}")
+    m = len(src)
+    if m == 0 or limit == 0:
+        return
+    if m > 65535:
+        raise ValueError(f"{m} tiles: K3 takes at most 65,535 a launch")
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    dev = packs.device
+    tiles = _upload(np.stack([np.asarray(src), np.asarray(base),
+                              np.asarray(code)]), dev)
+    n_seg = -(-rb * rb // 128 // MASK_COMPACT_SEG)
+    seg = torch.empty(m * n_seg, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_mask_compact, packs.data_ptr(), tiles.data_ptr(), m,
+                rb, seg.data_ptr(), limit, out.data_ptr(), stream)
+    LAUNCHES["mask_compact"] += 1
+
+
+def compact_masks(packs: torch.Tensor, counts, sel) -> torch.Tensor:
+    """K3: ``compact_masks_plain``'s result, int32 (total,).  ``counts`` are
+    K1's exact per-tile counts on the host (each selected tile's output
+    starts at the sum of the counts before it in ``sel``), ``sel`` host
+    tile indices in output order."""
+    sel = [int(t) for t in sel]
+    _check_index_range(packs.shape[0], packs.shape[1])
+    if packs.device.type == "cpu":
+        return compact_masks_plain(packs, sel)
+    if packs.device.type != "cuda":
+        raise ValueError(f"packs on {packs.device}: expected cuda or cpu")
+    cnt = np.asarray(counts, dtype=np.int64).reshape(-1)[sel]
+    base = np.cumsum(cnt) - cnt
+    total = int(cnt.sum())
+    out = torch.empty(total, dtype=torch.int32, device=packs.device)
+    _compact_into(packs, sel, base, np.arange(len(sel)), out, total)
+    return out
+
+
+def batched_filter(xd, cd, sd, ts, r0s, c0s, valid, jmin_num, jmin_den,
+                   c_min, radio, is_containment, cap_tile, cap_chunks, rb,
+                   bound="mst") -> torch.Tensor:
+    """K1 then K3: ``batched_filter_plain``'s result, whole buffer.  The
+    arguments are those of the JAX ``_batched_filter_fn``; ``ts``, ``r0s``,
+    ``c0s`` and ``valid`` are host int sequences.  On the card K3 compacts
+    K1's packed masks after one pull of K1's counts, which sets each tile's
+    offset; ``cap_tile`` must hold every tile's count and ``cap_chunks``
+    every tile's hit chunks (the count, or the whole chunk grid), the
+    sizing under which the JAX program loses no index."""
+    ts, r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
+                           for x in (ts, r0s, c0s, valid))
+    k = len(ts)
+    _check_index_range(k, rb)
+    if xd.device.type == "cpu":
+        return batched_filter_plain(xd, cd, sd, ts, r0s, c0s, valid,
+                                    jmin_num, jmin_den, c_min, radio,
+                                    is_containment, cap_tile, cap_chunks, rb,
+                                    bound)
+    counts, packs = batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num,
+                                 jmin_den, c_min, radio, is_containment, rb,
+                                 bound)
+    cnt = counts.cpu().numpy().astype(np.int64)
+    maxc = int(cnt.max()) if k else 0
+    w = min(512, rb)
+    grid = rb * (rb // w) if rb % w == 0 else 0
+    if maxc > cap_tile or cap_chunks < min(maxc, grid):
+        raise ValueError(f"cap_tile {cap_tile} / cap_chunks {cap_chunks} "
+                         f"below the largest tile count {maxc}: the JAX "
+                         "program would drop indices there")
+    base = np.cumsum(cnt) - cnt
+    total = int(cnt.sum())
+    out = torch.full((2 + k * cap_tile,), -1, dtype=torch.int32,
+                     device=xd.device)
+    out[:2] = torch.tensor([total, maxc], dtype=torch.int32)
+    if k and valid[-1] and cap_tile:
+        # the last tile's padding, encoded, past the final total
+        out[2 + total:2 + int(base[-1]) + cap_tile] = \
+            int(ts[-1]) * rb * rb - 1
+    sel = [t for t in range(k) if valid[t] and cnt[t]]
+    _compact_into(packs, sel, base[sel], ts[sel], out[2:], total)
+    return out
+
+
 @dataclass
 class Signatures:
     """The filter's resident state: packed signatures (n_pad, bits // 8)
@@ -355,15 +562,24 @@ def candidate_pair_blocks(hashes: List[np.ndarray], threshold: float,
                           markers: bool = False, row_sizes=None,
                           device: Optional[torch.device] = None):
     """Yields (ii, jj) int64 arrays of unverified candidate pairs (i > j),
-    block by block in the JAX generator's order under
-    ``RTC_PULL_MODE=mask``; with ``markers`` also ("panel", row_end) once
-    every pair with ii < row_end has been yielded.  ``BATCH_TILES`` tiles
-    go into one K1 launch."""
+    block by block in the JAX generator's order under the same
+    ``RTC_PULL_MODE``; with ``markers`` also ("panel", row_end) once every
+    pair with ii < row_end has been yielded.  ``BATCH_TILES`` tiles go into
+    one K1 launch.  ``mask`` and ``auto`` pull each tile's packed mask and
+    yield a block per tile with candidates; ``idx`` compacts the batch's
+    masks on the device (K3), pulls 4 bytes a candidate and yields one
+    block per batch.  Both give the pairs tile by tile, row-major within a
+    tile, so the two concatenations are the same sequence."""
     from ..device import resolve_device
+    pull_mode = os.environ.get("RTC_PULL_MODE", "auto")
+    if pull_mode not in PULL_MODES:
+        raise ValueError(f"RTC_PULL_MODE={pull_mode!r}: one of {PULL_MODES}")
     device = resolve_device(device)
     batch_k = BATCH_TILES
     n = len(hashes)
     rb = min(row_block, max(128, 1 << max(n - 1, 1).bit_length()))
+    if pull_mode == "idx":
+        _check_index_range(batch_k, rb)
     sig = stage_signatures(hashes, bits, rb, device, bound, row_sizes,
                            col_sizes)
     scalars = filter_scalars(threshold, kmer_size, bound)
@@ -390,15 +606,66 @@ def candidate_pair_blocks(hashes: List[np.ndarray], threshold: float,
         counts = _host_wait(counts_pending)
         account_pull(4 * batch_k)
         sel = [t for t in range(n_valid) if counts[t]]
-        packs_pending = _host_async(packs_dev.index_select(
-            0, _upload(sel, packs_dev.device))) if sel else None
+        pull = None
+        if sel and pull_mode == "idx":
+            pull = _host_async(compact_masks(packs_dev, counts, sel))
+        elif sel:
+            pull = _host_async(packs_dev.index_select(
+                0, _upload(sel, packs_dev.device)))
         if b + 1 < len(batches):
             pending = dispatch(batches[b + 1])
-        if sel:
-            packs = np.ascontiguousarray(_host_wait(packs_pending))
+        if sel and pull_mode == "idx":
+            enc = _host_wait(pull).astype(np.int64)
+            account_pull(4 * len(enc))
+            t_loc = enc // (rb * rb)
+            local = enc - t_loc * (rb * rb)
+            ii = r0s[sel][t_loc] + local // rb
+            jj = c0s[sel][t_loc] + local % rb
+            keep = ii < n
+            yield ii[keep], jj[keep]
+        elif sel:
+            packs = np.ascontiguousarray(_host_wait(pull))
             account_pull(packs.nbytes)
             for s_i, t in enumerate(sel):
                 yield _decode_packed_mask(packs[s_i], rb, int(r0s[t]),
                                           int(c0s[t]), n, int(counts[t]))
         if markers:
             yield from batch_markers(batch)
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::candidate_pairs_threshold
+def candidate_pairs_threshold(hashes: List[np.ndarray], threshold: float,
+                              kmer_size: int, is_containment: bool = False,
+                              bits: int = 8192, row_block: int = 1024,
+                              return_shared: bool = False,
+                              device: Optional[torch.device] = None
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All pairs (i > j) that can possibly have distance <= threshold, with
+    exact common counts.  Returns (i, j, common) — every returned pair passed
+    the size-ratio filter and common >= 1; callers apply the distance.
+    With ``return_shared`` the third column is zeros and no exact
+    verification is performed."""
+    cand_i: List[np.ndarray] = []
+    cand_j: List[np.ndarray] = []
+    for ii, jj in candidate_pair_blocks(
+            hashes, threshold, kmer_size, is_containment=is_containment,
+            bits=bits, row_block=row_block, device=device):
+        cand_i.append(ii)
+        cand_j.append(jj)
+    if not cand_i:
+        empty = np.empty(0, dtype=np.int64)
+        return empty, empty.copy(), np.empty(0, dtype=np.int64)
+    ii = np.concatenate(cand_i)
+    jj = np.concatenate(cand_j)
+    if return_shared:
+        return ii, jj, np.zeros(len(ii), dtype=np.int64)
+    common = exact_common_counts(hashes, ii, jj)
+    nz = common > 0
+    return ii[nz], jj[nz], common[nz].astype(np.int64)
+
+
+# Source: rabbittclust_tpu/ops/bitmap.py::exact_common_counts
+def exact_common_counts(hashes: List[np.ndarray], ii: np.ndarray,
+                        jj: np.ndarray, threads: int = 0) -> np.ndarray:
+    """Exact |A_i ∩ A_j| for candidate pairs (native two-pointer)."""
+    return CsrSketches(hashes).count_common(ii, jj, threads)

@@ -3,9 +3,10 @@
 packages).
 
 The port uses its KSSD and MinHash sketchers, its MST and greedy engines,
-its size sort and pair counts, the CSR flatten and exact-count kernels,
-the signature pack, the mask decoder and the verify merge.  If the library is missing, or older than its source, it is built
-with g++ here; if it can be neither built nor loaded, ``load_native``
+its Louvain/Leiden loops, its size sort and pair counts, the CSR flatten
+and exact-count kernels, the signature pack, the mask decoder and the
+verify merge.  If the library is missing, or older than its source, it is
+built with g++ here; if it can be neither built nor loaded, ``load_native``
 raises: the port has no NumPy fallbacks.
 """
 
@@ -134,6 +135,21 @@ def load_native():
                                           _c_u64p, ctypes.c_int]
     lib.rtc_unpack_postings_u32.argtypes = [_c_u64p, ctypes.c_int64,
                                             _c_u32p, _c_u32p, ctypes.c_int]
+    # Source: rabbittclust_tpu/utils/native.py::load_native (the community
+    # detection hot loops of cluster/leiden.py)
+    _c_f64p = ctypes.POINTER(ctypes.c_double)
+    lib.rtc_louvain_one_level.restype = ctypes.c_int64
+    lib.rtc_louvain_one_level.argtypes = [
+        ctypes.c_int64, _c_i64p, _c_i64p, _c_f64p, _c_f64p,
+        ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_int64,
+        _c_i64p]
+    lib.rtc_leiden_refine_moves.argtypes = [
+        ctypes.c_int64, _c_i64p, _c_i64p, _c_f64p, _c_f64p,
+        ctypes.c_double, _c_i64p, ctypes.c_double, _c_f64p, _c_f64p,
+        ctypes.c_void_p, _c_i64p]
+    lib.rtc_csr_build.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _c_i64p, _c_i64p, _c_f64p,
+        _c_i64p, _c_i64p, _c_f64p, _c_f64p]
     for fn in ("rtc_intra_mst_u32", "rtc_intra_mst_u64"):
         getattr(lib, fn).restype = ctypes.c_void_p
         getattr(lib, fn).argtypes = [

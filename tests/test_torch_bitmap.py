@@ -118,3 +118,149 @@ def test_candidate_pair_blocks_equal_to_jax(case, monkeypatch):
     assert any(b[0] == "panel" for b in want) == bool(kw.get("markers"))
     # a count pull per batch: four batches
     assert port_bm.PULL_STATS["pulls"] >= 4
+
+
+def _filter_args(hashes, bits, rb, tiles):
+    xp, coll = jax_bm.pack_bitmaps_packed(hashes, bits=bits, pad_n_to=rb)
+    sizes = np.zeros(xp.shape[0], dtype=np.int32)
+    sizes[:len(hashes)] = [len(h) for h in hashes]
+    num, den, c_min, radio = port_bm.filter_scalars(0.05, 21)
+    jax_args = (jnp.asarray(xp), jnp.asarray(coll), jnp.asarray(sizes),
+                jnp.arange(len(tiles[0]), dtype=jnp.int32),
+                *map(jnp.asarray, tiles), jnp.float32(num), jnp.float32(den),
+                jnp.float32(c_min), jnp.int32(radio), False)
+    port_args = (torch.from_numpy(xp), torch.from_numpy(coll),
+                 torch.from_numpy(sizes), np.arange(len(tiles[0])), *tiles,
+                 num, den, c_min, radio, False)
+    return jax_args, port_args
+
+
+# (label, rb, tiles (r0s, c0s, valid), cap_tile, cap_chunks): 300 genomes
+# pad to 512 at rb 256 (the 256-wide chunk grid has 256 rows, and no tile
+# has a set bit in all of them) and to 384 at rb 128
+RB256 = [np.array(x, dtype=np.int32) for x in (
+    [0, 256, 256, 0], [0, 0, 256, 0], [1, 1, 1, 0])]
+FILTER_CASES = [
+    # two-level branch, the last slot a padding tile: the tail after the
+    # total is all -1
+    ("two_level_padding", 256, RB256, 20000, 255),
+    # every slot a real tile: the last tile's encoded padding stays past
+    # the total, as the JAX scan leaves it
+    ("two_level_full", 256, [t[:3] for t in RB256], 20000, 255),
+    # flat-nonzero branch: cap_chunks covers the whole chunk grid
+    ("flat", 256, RB256, 20000, 1 << 20),
+    # cap_chunks below the hit chunks: the JAX program drops indices, and
+    # its plain copy drops the same ones (the CUDA wrapper refuses this)
+    ("truncating", 128, TILES, 4096, 64),
+]
+
+
+@pytest.mark.parametrize("case", FILTER_CASES, ids=[c[0] for c in FILTER_CASES])
+def test_batched_filter_plain_equals_jax(case):
+    """The plain K1 + K3 program against the JAX ``_batched_filter_fn``:
+    the whole fused buffer equal, head, indices and tail."""
+    label, rb, tiles, cap_tile, cap_chunks = case
+    hashes = clustered_sketches(n=300, s=150, n_clusters=10)
+    jax_args, port_args = _filter_args(hashes, 2048, rb, tiles)
+    want = np.asarray(jax_bm._jitted_batched_filter()(
+        *jax_args, cap_tile, cap_chunks, rb, "mst"))
+    got = port_bm.batched_filter(*port_args, cap_tile, cap_chunks, rb)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    total = int(want[0])
+    assert total > 0 and int(want[1]) <= cap_tile
+    tail = want[2 + total:]
+    assert (tail == -1).all() == (label != "two_level_full")
+    # the indices: the tiles' set bits in order, as K3 writes them
+    counts, packs = port_bm.batched_mask(*port_args[:3], *port_args[4:], rb)
+    sel = [t for t in range(len(tiles[0])) if tiles[2][t]]
+    indices = port_bm.compact_masks(packs, counts.numpy(), sel).numpy()
+    assert len(indices) == total
+    assert np.array_equal(got[2:2 + total].numpy(), indices) == \
+        (label != "truncating")
+
+
+@pytest.mark.parametrize("shape,density", [
+    ((1024, 1024), 1e-4), ((512, 2048), 3e-4), ((1024, 1024), 0.0)])
+def test_compact_mask_two_level_plain_equals_jax(shape, density):
+    """The three masks of the JAX package's own two-level test
+    (``tests/test_device_engine.py``), through both two-level programs:
+    count and the whole padded index array equal."""
+    rng = np.random.default_rng(7)
+    mask = rng.random(shape) < density
+    want_c, want_f = jax_bm.compact_mask_two_level(jnp.asarray(mask), 1 << 12,
+                                                   512)
+    got_c, got_f = port_bm.compact_mask_two_level_plain(
+        torch.from_numpy(mask), 1 << 12, 512)
+    assert int(got_c) == int(want_c) == int(mask.sum())
+    assert np.array_equal(got_f.numpy(), np.asarray(want_f))
+    assert np.array_equal(got_f.numpy()[:int(mask.sum())],
+                          np.flatnonzero(mask))
+
+
+def test_k3_rejects_int32_wrap():
+    """k * rb^2 >= 2^31 (16 tiles of 16384^2, or 8 tiles of 16384^2) is
+    refused before anything runs, where the JAX indices would wrap."""
+    packs = torch.zeros((1, 16384, 2048), dtype=torch.uint8).expand(
+        8, -1, -1)
+    with pytest.raises(ValueError, match="int32"):
+        port_bm.compact_masks(packs, np.ones(8, dtype=np.int64), [0])
+    x = torch.zeros((128, 16), dtype=torch.uint8)
+    c = torch.zeros(128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        port_bm.batched_filter(x, c, c, np.arange(16), [0] * 16, [0] * 16,
+                               [1] * 16, 0.5, 1.5, 0.3, 2, False, 16, 16,
+                               16384)
+
+
+def test_pull_mode_bogus_raises(monkeypatch):
+    monkeypatch.setenv("RTC_PULL_MODE", "bogus")
+    with pytest.raises(ValueError, match="RTC_PULL_MODE"):
+        next(port_bm.candidate_pair_blocks(
+            clustered_sketches(n=50), 0.05, 21, bits=1024, device=CPU))
+
+
+@pytest.mark.parametrize("batch", ["16", "3"])
+@pytest.mark.parametrize("case", ["mst", "containment", "markers"])
+def test_candidate_pair_blocks_idx_equal_to_jax(case, batch, monkeypatch):
+    """RTC_PULL_MODE=idx on both sides: the same blocks (one per batch) in
+    the same order; concatenated, the same sequence as under ``mask``.
+    RTC_BATCH_TILES=3 gives the JAX side batches of 3 tiles, the last one
+    padded; the port's batch follows it here (``BATCH_TILES``)."""
+    monkeypatch.setenv("RTC_BATCH_TILES", batch)
+    monkeypatch.setattr(port_bm, "BATCH_TILES", int(batch))
+    hashes = BLOCK_CASES[case]["hashes"]()
+    kw = dict(BLOCK_CASES[case]["kw"])
+    args = (hashes, 0.05, 21)
+    common = dict(bits=2048, row_block=64, **kw)
+    seqs = {}
+    for mode in ("idx", "mask"):
+        monkeypatch.setenv("RTC_PULL_MODE", mode)
+        want = _blocks(jax_bm.candidate_pair_blocks(*args, **common))
+        port_bm.reset_pull_stats()
+        got = _blocks(port_bm.candidate_pair_blocks(*args, device=CPU,
+                                                    **common))
+        assert got == want, mode
+        pairs = [b for b in got if b[0] == "pairs"]
+        seqs[mode] = (b"".join(b[2] for b in pairs),
+                      b"".join(b[3] for b in pairs))
+        if mode == "idx":
+            # 4 bytes pulled a candidate beside the counts
+            n_cand = len(seqs[mode][0]) // 8
+            assert port_bm.PULL_STATS["bytes"] == 4 * n_cand + \
+                4 * int(batch) * (port_bm.PULL_STATS["pulls"] - len(pairs))
+    assert seqs["idx"] == seqs["mask"]
+    assert len(seqs["idx"][0]) > 0
+
+
+def test_candidate_pairs_threshold_equal_to_jax(monkeypatch):
+    hashes = clustered_sketches(n=400, s=150, n_clusters=10)
+    for mode in ("mask", "idx"):
+        monkeypatch.setenv("RTC_PULL_MODE", mode)
+        want = jax_bm.candidate_pairs_threshold(hashes, 0.05, 21, bits=2048,
+                                                row_block=128)
+        got = port_bm.candidate_pairs_threshold(hashes, 0.05, 21, bits=2048,
+                                                row_block=128, device=CPU)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w), mode
+        assert len(got[0]) > 0

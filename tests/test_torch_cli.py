@@ -1,4 +1,5 @@
-"""The port's clust-mst and clust-greedy CLIs on the CPU
+"""The port's clust-mst, clust-greedy, clust-dbscan and clust-leiden CLIs
+on the CPU
 (``main(argv, device=cpu)``) against the JAX package's CLIs: cluster files,
 trees, sketch folders and edge.mst byte-equal.
 
@@ -17,20 +18,29 @@ import sys
 import pytest
 import torch
 
+from rabbittclust_tpu.cli.clust_dbscan import main as jax_dbscan_main
 from rabbittclust_tpu.cli.clust_greedy import main as jax_greedy_main
+from rabbittclust_tpu.cli.clust_leiden import main as jax_leiden_main
 from rabbittclust_tpu.cli.clust_mst import main as jax_main
+from rabbittclust_tpu_torch.cli.clust_dbscan import main as port_dbscan_main
 from rabbittclust_tpu_torch.cli.clust_greedy import main as port_greedy_main
+from rabbittclust_tpu_torch.cli.clust_leiden import main as port_leiden_main
 from rabbittclust_tpu_torch.cli.clust_mst import main as port_main
 
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+MAINS = {"greedy": (jax_greedy_main, port_greedy_main),
+         "dbscan": (jax_dbscan_main, port_dbscan_main),
+         "leiden": (jax_leiden_main, port_leiden_main)}
+
+
 def _run_both(tmp_path, monkeypatch, argv, presketched=None,
-              mst_free=False, greedy=False):
-    """Run argv through both CLIs (clust-greedy's with ``greedy``), each in
-    its own working directory (run folders are named by the clock);
-    returns {side: (out_dir, folder)}."""
+              mst_free=False, greedy=False, module=None):
+    """Run argv through both CLIs (clust-greedy's with ``greedy``, another
+    command's with ``module``), each in its own working directory (run
+    folders are named by the clock); returns {side: (out_dir, folder)}."""
     monkeypatch.setenv("RTC_MESH", "0")
     if mst_free:
         monkeypatch.delenv("RTC_MST_CLUSTERS_FAST", raising=False)
@@ -38,8 +48,9 @@ def _run_both(tmp_path, monkeypatch, argv, presketched=None,
     else:
         monkeypatch.setenv("RTC_MST_CLUSTERS_FAST", "0")
     res = {}
-    mains = ((("jax", jax_greedy_main), ("port", port_greedy_main)) if greedy
-             else (("jax", jax_main), ("port", port_main)))
+    jax_fn, port_fn = MAINS.get("greedy" if greedy else module,
+                                (jax_main, port_main))
+    mains = (("jax", jax_fn), ("port", port_fn))
     for side, fn in mains:
         wd = tmp_path / side
         wd.mkdir(parents=True)
@@ -369,3 +380,122 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.fixture(scope="module")
+def kssd_folder(synthetic_genomes, tmp_path_factory):
+    """A --presketched KSSD run folder of the synthetic genomes (saved by
+    the JAX clust-leiden, which writes sketches, index and leiden.graph)."""
+    wd = tmp_path_factory.mktemp("kssd_folder")
+    cwd = os.getcwd()
+    os.chdir(wd)
+    try:
+        assert jax_leiden_main(_fresh_args(synthetic_genomes) +
+                               ["-o", str(wd / "out.cluster")]) == 0
+    finally:
+        os.chdir(cwd)
+    runs = [p for p in wd.iterdir() if p.is_dir()]
+    assert len(runs) == 1
+    return runs[0]
+
+
+DBSCAN_ARMS = {
+    "presketched": ["--fast", "--device", "--eps", "0.05", "--minpts", "3"],
+    "fasta": ["--fast", "--device", "--eps", "0.05", "--minpts", "3",
+              "--drlevel", "2", "-m", "1000"],
+    "knn": ["--fast", "--device", "--eps", "0.05", "--minpts", "3",
+            "--knn", "2", "--drlevel", "2", "-m", "1000"],
+    "max_posting": ["--fast", "--device", "--eps", "0.05", "--minpts", "3",
+                    "--max-posting", "3", "--drlevel", "2", "-m", "1000"],
+    "minhash": ["--device", "--minhash", "--eps", "0.05", "--minpts", "3",
+                "-m", "1000", "-s", "300"],
+}
+
+
+@pytest.mark.parametrize("mode", ["mask", "idx"])
+@pytest.mark.parametrize("arm", list(DBSCAN_ARMS))
+def test_cli_dbscan_byte_equal(arm, mode, synthetic_genomes, kssd_folder,
+                               tmp_path, monkeypatch):
+    """clust-dbscan --device: the KSSD arms take the device filter (K1, and
+    K3 under idx); --max-posting and --minhash run on the host on both
+    sides, as the JAX CLI does under --device."""
+    monkeypatch.setenv("RTC_PULL_MODE", mode)
+    argv = list(DBSCAN_ARMS[arm])
+    if arm != "presketched":
+        argv += ["-l", "-i", synthetic_genomes.list_file]
+    res = _run_both(tmp_path, monkeypatch, argv, module="dbscan",
+                    presketched=kssd_folder if arm == "presketched" else None)
+    assert _same_bytes(res["jax"][0] / "out.cluster",
+                       res["port"][0] / "out.cluster")
+    with open(res["port"][0] / "out.cluster") as f:
+        text = f.read()
+    assert "# Total clusters:" in text and text.count("the cluster") >= 4
+
+
+LEIDEN_ARMS = {
+    "default": ({}, []),
+    "force_mask": ({"RTC_LEIDEN_DEVICE": "force", "RTC_PULL_MODE": "mask"},
+                   []),
+    "force_idx": ({"RTC_LEIDEN_DEVICE": "force", "RTC_PULL_MODE": "idx"},
+                  []),
+    "louvain_idx": ({"RTC_LEIDEN_DEVICE": "force", "RTC_PULL_MODE": "idx"},
+                    ["--louvain"]),
+}
+
+
+@pytest.mark.parametrize("arm", list(LEIDEN_ARMS))
+def test_cli_leiden_byte_equal(arm, synthetic_genomes, tmp_path,
+                               monkeypatch):
+    """clust-leiden --fast --device from genomes: the .cluster file and the
+    saved run folder (sketches, index, leiden.graph) byte-equal; then
+    --pregraph over the saved folder at another resolution."""
+    env, extra = LEIDEN_ARMS[arm]
+    for key in ("RTC_LEIDEN_DEVICE", "RTC_PULL_MODE"):
+        monkeypatch.delenv(key, raising=False)
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    res = _run_both(tmp_path / "fresh", monkeypatch,
+                    _fresh_args(synthetic_genomes) + extra, module="leiden")
+    (jw, jf), (pw, pf) = res["jax"], res["port"]
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    _same_folders(jf, pf)
+    assert "leiden.graph" in {p.name for p in pf.iterdir()}
+    with open(pw / "out.cluster") as f:
+        assert f.read().count("the cluster") == 4
+    for side, fn in (("jax", jax_leiden_main), ("port", port_leiden_main)):
+        wd, folder = res[side]
+        assert fn(["--pregraph", str(folder), "--resolution", "0.5", "-o",
+                   str(wd / "re.cluster")] + extra) == 0
+        assert fn(["--pregraph", str(folder / "leiden.graph"), "-o",
+                   str(wd / "bare.cluster")]) == 0
+    for name in ("re.cluster", "bare.cluster"):
+        assert _same_bytes(jw / name, pw / name), name
+
+
+def test_cli_leiden_presketched_no_save_byte_equal(kssd_folder, tmp_path,
+                                                   monkeypatch):
+    """--presketched -e under the forced device route: nothing saved."""
+    monkeypatch.setenv("RTC_LEIDEN_DEVICE", "force")
+    monkeypatch.setenv("RTC_PULL_MODE", "idx")
+    res = _run_both(tmp_path, monkeypatch, ["--fast", "--device", "-e"],
+                    presketched=kssd_folder, module="leiden")
+    (jw, _), (pw, _) = res["jax"], res["port"]
+    assert _same_bytes(jw / "out.cluster", pw / "out.cluster")
+    # the copied folder's graph is the one it came with
+    assert _same_bytes(kssd_folder / "leiden.graph",
+                       pw / "sketches" / "leiden.graph")
+
+
+@pytest.mark.parametrize("main_fn", [port_dbscan_main, port_leiden_main],
+                         ids=["dbscan", "leiden"])
+def test_cli_dbscan_leiden_refusals(main_fn, tmp_path, capsys):
+    """--multihost exits 1 naming its ROADMAP item; without --device the
+    port's clust-dbscan and clust-leiden exit 1 too."""
+    out = str(tmp_path / "o.cluster")
+    assert main_fn(["--fast", "--device", "--multihost", "localhost:1,1,0",
+                    "-o", out], device=CPU) == 1
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP Queue 1 item 11" in err
+    assert main_fn(["--fast", "-l", "-i", "x", "-o", out], device=CPU) == 1
+    assert "pass --device" in capsys.readouterr().err
+    assert not (tmp_path / "o.cluster").exists()

@@ -1,4 +1,4 @@
-"""Kernels K1 / K2 / K4 (counts and mask modes) / K5b and the port's
+"""Kernels K1 / K2 / K3 / K4 (counts and mask modes) / K5b and the port's
 engines on the card, against their plain torch versions and the native
 host engine.  Marked ``cuda``; every test skips inside itself when no GPU
 is visible.  This file imports no JAX, so it also runs where JAX is
@@ -514,3 +514,111 @@ def test_append_engine_on_card_matches_host(gpu, monkeypatch):
     ref = sorted(map(sorted, clusters_from_forest(cut_forest(want.mst, 0.05),
                                                   n)))
     assert part == ref
+
+
+def _k3_case(hashes, rb, tiles, gpu, bits=2048):
+    """K1's counts and packs of ``tiles`` and the plain K3's indices of
+    the tiles with a candidate."""
+    sig = _signatures(hashes, bits, rb, gpu)
+    sc = bm.filter_scalars(0.05, 21)
+    counts, packs = bm.batched_mask(sig.xd, sig.cd, sig.sd, *tiles, *sc,
+                                    False, rb)
+    cnt = counts.cpu().numpy()
+    sel = [t for t in range(len(cnt)) if cnt[t]]
+    return sig, sc, cnt, packs, sel
+
+
+@pytest.mark.parametrize("rb,n", [(128, 300), (256, 300), (1024, 1500)])
+def test_k3_matches_plain(gpu, rb, n):
+    """K3 over K1's masks, ragged n (padded last row block) and a padding
+    tile, against the plain compaction; every tile, then only the nonzero
+    ones in a permuted order."""
+    hashes = clustered_sketches(n=n, s=150, n_clusters=10)
+    n_pad = -(-n // rb) * rb
+    tiles = bm.triangle_tiles(n_pad, rb)[:15]
+    geo = [[r for r, _ in tiles] + [0], [c for _, c in tiles] + [0],
+           [1] * len(tiles) + [0]]
+    _, _, cnt, packs, sel = _k3_case(hashes, rb, geo, gpu)
+    for order in (list(range(len(cnt))), sel[::-1]):
+        before = bm.LAUNCHES["mask_compact"]
+        got = bm.compact_masks(packs, cnt, order)
+        torch.cuda.synchronize()
+        assert bm.LAUNCHES["mask_compact"] == before + 1
+        want = bm.compact_masks_plain(packs, order)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(cnt.sum()) > 0 and cnt[-1] == 0
+
+
+def test_k3_edge_cases(gpu):
+    """An empty batch, a single set bit in the last column of the last row
+    of the last tile, and an all-zero tile among full ones."""
+    rb = 256
+    packs = torch.zeros((4, rb, rb // 8), dtype=torch.uint8, device=gpu)
+    before = bm.LAUNCHES["mask_compact"]
+    assert bm.compact_masks(packs, np.zeros(4), []).numel() == 0
+    assert bm.compact_masks(packs, np.zeros(4), [0, 1]).numel() == 0
+    assert bm.LAUNCHES["mask_compact"] == before  # nothing to launch
+    packs[3, rb - 1, rb // 8 - 1] = 0x80
+    got = bm.compact_masks(packs, np.array([0, 0, 0, 1]), [3])
+    assert got.tolist() == [rb * rb - 1]
+    got = bm.compact_masks(packs, np.array([0, 0, 0, 1]), [0, 1, 2, 3])
+    assert got.tolist() == [4 * rb * rb - 1]
+    packs[1] = 0xFF
+    packs[2] = 0xA5
+    cnt = [int(bm.unpack_bits(t.reshape(-1, rb // 8), torch.uint8).sum())
+           for t in packs]
+    got = bm.compact_masks(packs, cnt, [0, 1, 2, 3])
+    assert torch.equal(got, bm.compact_masks_plain(packs, [0, 1, 2, 3]))
+    assert got.numel() == sum(cnt) == rb * rb + rb * rb // 2 + 1
+
+
+def test_k3_rejects_int32_wrap_before_launch(gpu):
+    packs = torch.zeros((1, 16384, 2048), dtype=torch.uint8,
+                        device=gpu).expand(8, -1, -1)
+    before = bm.LAUNCHES["mask_compact"]
+    with pytest.raises(ValueError, match="int32"):
+        bm.compact_masks(packs, np.ones(8, dtype=np.int64), [0])
+    assert bm.LAUNCHES["mask_compact"] == before
+
+
+@pytest.mark.parametrize("rb,n_clusters", [(256, 10), (1024, 750)],
+                         ids=["flat", "two_level"])
+def test_batched_filter_matches_plain(gpu, rb, n_clusters):
+    """K1 + K3 (``batched_filter``) against the plain program, whole
+    buffer: head, indices and the -1 / encoded-padding tail.  Dense tiles
+    at rb 256 take the flat branch (cap_chunks over the chunk grid); pairs
+    of genomes (750 clusters of 2) at rb 1024 the two-level one, both
+    sized from the exact counts as the JAX generator sizes them."""
+    hashes = clustered_sketches(n=1500, s=150, n_clusters=n_clusters)
+    n_pad = -(-1500 // rb) * rb
+    tiles = bm.triangle_tiles(n_pad, rb)[:5]
+    for valid in ([1] * len(tiles), [1] * (len(tiles) - 1) + [0]):
+        geo = ([r for r, _ in tiles], [c for _, c in tiles], valid)
+        sig, sc, cnt, _, _ = _k3_case(hashes, rb, geo, gpu)
+        cap = int(cnt.max())
+        grid = rb * (rb // min(512, rb))
+        cap_chunks = cap if n_clusters > 10 else 1 << 20
+        assert (cap_chunks < grid) == (n_clusters > 10)
+        args = (sig.xd, sig.cd, sig.sd, np.arange(len(tiles)),
+                *map(np.asarray, geo), *sc, False, cap, cap_chunks, rb)
+        got = bm.batched_filter(*args)
+        want = bm.batched_filter_plain(*args)
+        assert torch.equal(got, want), valid
+        assert int(want[0]) > 0
+
+
+def test_stream_generator_idx_on_card(gpu, monkeypatch):
+    """candidate_pair_blocks under idx on the card: K3 launched, the same
+    pairs in the same order as under mask."""
+    hashes = clustered_sketches(n=3000, s=400, n_clusters=30, seed=4)
+    seqs = {}
+    for mode in ("mask", "idx"):
+        monkeypatch.setenv("RTC_PULL_MODE", mode)
+        bm.reset_launches()
+        blocks = list(bm.candidate_pair_blocks(hashes, 0.05, 21,
+                                               row_block=1024, device=gpu))
+        seqs[mode] = (np.concatenate([b[0] for b in blocks]),
+                      np.concatenate([b[1] for b in blocks]))
+        assert (bm.LAUNCHES["mask_compact"] > 0) == (mode == "idx")
+    assert all(np.array_equal(a, b) for a, b in zip(seqs["mask"],
+                                                    seqs["idx"]))

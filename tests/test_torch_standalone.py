@@ -3,9 +3,9 @@
 module of it that does not import JAX) or ``jax``; the port keeps its own
 copies of the host code it needs.
 
-(a) reads every source with ``ast``; (b) runs each of the port's clust-mst
-and clust-greedy arms on the CPU in a fresh process and lists what that
-process loaded;
+(a) reads every source with ``ast``; (b) runs each of the port's clust-mst,
+clust-greedy, clust-dbscan and clust-leiden arms on the CPU in a fresh
+process and lists what that process loaded;
 (c) the port copies none of the JAX package's NumPy fallbacks: its loader
 of the shared native library raises when the library cannot be had.
 """
@@ -71,8 +71,8 @@ def test_the_static_check_sees_imports(tmp_path):
         "rabbittclust_tpu.state", "jax.numpy"]
 
 
-# Each arm: a list of (CLI, argv) runs in one process (the prep run of the
-# saved arms saves the run folder they read); "{list}" is the genome list
+# Each arm: a list of (CLI, argv[, environment]) runs in one process (the
+# prep run of the saved arms saves the run folder they read); "{list}" is the genome list
 # file, "{half}" a list of its first half, "{rest}" of the rest, "{run}"
 # the run folder the first run saved.
 _FRESH = ["--fast", "--device", "-l", "-i", "{list}", "-d", "0.05",
@@ -107,12 +107,23 @@ ARMS = {
                ("mst", ["--fast", "--device", "--presketched", "{run}",
                         "--append", "{rest}", "-l", "-d", "0.05", "-m",
                         "1000"])],
+    "dbscan": [("leiden", _FRESH),
+               ("dbscan", ["--fast", "--device", "--presketched", "{run}",
+                           "--minpts", "3"], {"RTC_PULL_MODE": "idx"}),
+               ("dbscan", _FRESH + ["--max-posting", "3"]),
+               ("dbscan", ["--device", "--minhash", "-l", "-i", "{list}",
+                           "-m", "1000", "-s", "300"])],
+    "leiden": [("leiden", _FRESH, {"RTC_LEIDEN_DEVICE": "force",
+                                   "RTC_PULL_MODE": "idx"}),
+               ("leiden", ["--pregraph", "{run}"]),
+               ("leiden", _FRESH + ["--louvain", "-e"])],
 }
 
 _RUNNER = r"""
 import os, sys, time
 import torch
-from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
+from rabbittclust_tpu_torch.cli import (clust_dbscan, clust_greedy,
+                                        clust_leiden, clust_mst)
 runs, list_file = eval(sys.argv[1]), sys.argv[2]
 with open(list_file) as f:
     files = f.read().split()
@@ -122,10 +133,14 @@ for name, part in (("half", files[:len(files) // 2]),
         f.write("\n".join(part) + "\n")
 subs = {"{list}": list_file, "{half}": os.path.abspath("half.list"),
         "{rest}": os.path.abspath("rest.list")}
-mains = {"mst": clust_mst.main, "greedy": clust_greedy.main}
+mains = {"mst": clust_mst.main, "greedy": clust_greedy.main,
+         "dbscan": clust_dbscan.main, "leiden": clust_leiden.main}
 run_dir = None
-for k, (cli, argv) in enumerate(runs):
+for k, (cli, argv, *env) in enumerate(runs):
     argv = [subs.get(a, run_dir if a == "{run}" else a) for a in argv]
+    for key in ("RTC_PULL_MODE", "RTC_LEIDEN_DEVICE"):
+        os.environ.pop(key, None)
+    os.environ.update(*env)
     if "--append" in argv:
         time.sleep(1.1)  # the append's own run folder gets a new timestamp
     rc = mains[cli](argv + ["-o", f"out{k}.cluster"],
