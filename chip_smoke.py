@@ -8,7 +8,7 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K1 / K2 / K3 / K4 (both modes) / K5b from
+2. build kernels K1 / K2 / K3 / K4 (both modes) / K5b / K7 / K8 from
    ``rabbittclust_tpu_torch/csrc`` with nvcc, one process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
@@ -71,12 +71,30 @@ Phases, one line or block each; any failure raises (non-zero exit):
 12. ``clust-leiden --fast --device --presketched`` on the dense N = 16,384
    corpus: ``RTC_LEIDEN_DEVICE=force`` under mask and idx, then the default
    (native) route; the three ``.cluster`` and ``leiden.graph`` files
-   byte-equal, and the graph build's force-vs-native times.
+   byte-equal, and the graph build's force-vs-native times;
+13. the device KSSD sketcher (K7) on its path: ``clust-mst --fast
+   --device -l -i list`` over 128 FASTA genomes of 4 Mb (32 ancestors x 4
+   copies at 1 % point mutations) with ``RTC_DEVICE_SKETCH=1`` and without
+   it: the ``.cluster`` files and the saved folders byte-equal, the
+   partition the 32 planted groups, K7 launched on the device run only;
+   then ``clust-greedy`` the same way, and the first 16 genomes at k 21,
+   drlevel 2 (64-bit hashes); each run's sketch-phase seconds;
+14. the WMH / OMH / HLL arm (K8): ``clust-mst --sketch-func WMH``, ``OMH``
+   and ``HLL`` on 128 genomes of 20 kb (32 ancestors x 4 copies at 0.5 %
+   point mutations, the rate of tests/test_extra_sketches.py): the distance
+   matrix equal to the plain version's on the card, the partition the
+   planted one, K8 launched on WMH and OMH and not on HLL; the seconds of
+   sketching, pairs and Kruskal.
 
 Phase 3d holds K3 (``compact_masks``, and K1 + K3 as ``batched_filter``)
 to its plain versions on batches of 16 tiles at rb 1024 and 4096 over the
 planted and the sparse corpus, and times it beside one ``torch.nonzero``;
-phase 7 also runs the stream engine under ``RTC_PULL_MODE=idx``.
+phase 7 also runs the stream engine under ``RTC_PULL_MODE=idx``.  Phase 3e
+holds K7 (``sketch_window``) to its plain version over one full dispatch
+window (16 x 2^20 positions) at k 21 / dr 3, k 23 / dr 3 and k 31 / dr 2,
+and a low-complexity window over a table that keeps every dimension;
+phase 3f holds K8 (``tuple_matches``) to its plain version at N = 8,192 at
+the WMH (50 x 4 words) and OMH (64 x 6) shapes.
 
 Each of phases 8-12 prints its kernels' launch counts on a line of its
 own.
@@ -121,6 +139,10 @@ KERNELS = {
                         "rabbittclust_tpu/ops/labelprop.py:101"),
     "mask_compact": ("rabbittclust_tpu_torch/csrc/mask_compact.cu",
                      "rabbittclust_tpu/ops/bitmap.py:389"),
+    "kssd_sketch": ("rabbittclust_tpu_torch/csrc/kssd_sketch.cu",
+                    "rabbittclust_tpu/ops/sketch_device.py:164"),
+    "tuple_match": ("rabbittclust_tpu_torch/csrc/tuple_match.cu",
+                    "rabbittclust_tpu/ops/extra_pairs.py:48"),
 }
 
 NATIVE_PROBE = r"""
@@ -238,7 +260,7 @@ def check_native():
 
 
 def phase_build():
-    say("== phase 2: build K1 / K2 / K3 / K4 / K5b (nvcc, sm_90a)")
+    say("== phase 2: build K1 / K2 / K3 / K4 / K5b / K7 / K8 (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
     info = _build.build()  # all nvcc processes at once
     say(f"build seconds: {info['seconds']:.3f} "
@@ -1229,15 +1251,16 @@ def phase_engines(hashes, want, dev):
 
 
 class Spy:
-    """Records the arguments of every call of ``module.name`` (the caller
-    looks the name up in that module at each call) and its host seconds,
-    and calls through; the wrapper's own launch count is untouched.
+    """Records the arguments and results of every call of ``module.name``
+    (the caller looks the name up in that module at each call) and its host
+    seconds, and calls through; the wrapper's own launch count is untouched.
     ``with`` restores it."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.calls = []
+        self.results = []
         self.seconds = 0.0
 
     def __enter__(self):
@@ -1245,7 +1268,9 @@ class Spy:
             self.calls.append((args, kwargs))
             t0 = time.perf_counter()
             try:
-                return self.real(*args, **kwargs)
+                out = self.real(*args, **kwargs)
+                self.results.append(out)
+                return out
             finally:
                 self.seconds += time.perf_counter() - t0
         setattr(self.module, self.name, wrapper)
@@ -1487,10 +1512,11 @@ def hold_mst(mst, ref, n, what):
     return rel
 
 
-def write_fasta_genomes(work, n_bases, per_base, length, seed):
-    """``n_bases`` x ``per_base`` genomes of ``length`` bp (1 % point
-    mutations of a random base sequence) as one FASTA file each; returns
-    the list file."""
+def write_fasta_genomes(work, n_bases, per_base, length, seed,
+                        list_name="append.list", rate=0.01):
+    """``n_bases`` x ``per_base`` genomes of ``length`` bp (point mutations
+    of a random base sequence at ``rate``) as one FASTA file each, genome i
+    a copy of base i // per_base; returns the list file."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     os.makedirs(work)
@@ -1499,13 +1525,13 @@ def write_fasta_genomes(work, n_bases, per_base, length, seed):
         base = rng.integers(0, 4, length)
         for m in range(per_base):
             seq = base.copy()
-            hit = rng.random(length) < 0.01
+            hit = rng.random(length) < rate
             seq[hit] = rng.integers(0, 4, int(hit.sum()))
             files.append(os.path.join(work, f"a{c}_{m}.fna"))
             with open(files[-1], "wb") as f:
                 f.write(f">appended_{c}_{m} base{c}\n".encode())
                 f.write(acgt[seq].tobytes() + b"\n")
-    lst = os.path.join(work, "append.list")
+    lst = os.path.join(work, list_name)
     with open(lst, "w") as f:
         f.write("\n".join(files) + "\n")
     return lst
@@ -1694,6 +1720,307 @@ def phase_leiden(hashes, tmp):
         "route's speed)")
 
 
+# (k, drlevel) of phase 3e: 32-bit hashes, 64-bit hashes, 64-bit tuples
+SKETCH_CASES = ((21, 3), (23, 3), (31, 2))
+
+
+def sketch_codes(rng, k, n_pos, periodic=False):
+    """One dispatch window of base codes (n_pos + k - 1, int8): random bases
+    with 2 % invalid codes, or a periodic low-complexity sequence (a 3-base
+    unit); a record separator (k - 1 invalid codes) every 2^20 positions."""
+    n = n_pos + k - 1
+    if periodic:
+        w = np.resize(np.array([0, 2, 3], dtype=np.int8), n)
+    else:
+        w = rng.integers(0, 4, n, dtype=np.int8)
+        w[rng.random(n, dtype=np.float32) < 0.02] = -1
+    for at in range(1 << 20, n_pos, 1 << 20):
+        w[at - (k - 1):at] = -1
+    return w
+
+
+def valid_windows(w, k):
+    """Positions whose k codes are all valid (the table gathers K7 makes)."""
+    bad = np.concatenate([[0], np.cumsum(w < 0, dtype=np.int64)])
+    return int(((bad[k:] - bad[:-k]) == 0).sum())
+
+
+def phase_sketch_kernel(dev, rec, card, n_pos=None):
+    """3e: K7 over one full dispatch window (S x C = 16 x 2^20 positions)
+    against its plain version on the card, at each of SKETCH_CASES over the
+    shuffle table, and a low-complexity window over a table that keeps
+    every dimension (every valid window kept: the scatter's worst case)."""
+    say("== phase 3e: K7 (kssd_sketch) against sketch_window_plain")
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams, \
+        get_shuffle_table
+    rng = np.random.default_rng(SEED + 30)
+    n_pos = n_pos or sd.S_ROWS * sd.CHUNK
+    cases = [(k, dr, False) for k, dr in SKETCH_CASES] + [(21, 3, True)]
+    for k, dr, periodic in cases:
+        p = KssdParams.from_kmer_size(k, dr)
+        w = sketch_codes(rng, p.kmer_size, n_pos, periodic)
+        table_np = get_shuffle_table(p.half_subk)
+        if periodic:
+            table_np = rng.integers(0, p.dim_end, len(table_np),
+                                    dtype=np.int32)
+        codes = torch.from_numpy(w).to(dev)
+        table = torch.from_numpy(table_np).to(dev)
+        got_h, got_pos = sd.sketch_window(codes, table, p)
+        (want_h, want_pos), plain_ms = cuda_ms(
+            lambda: sd.sketch_window_plain(codes, table, p), warmup=False)
+        what = (f"k {p.kmer_size} dr {dr}"
+                + (" low-complexity, every dimension kept" if periodic
+                   else ""))
+        hold_exact(rec, "kssd_sketch", got_h, want_h, f"{what} hashes")
+        hold_exact(rec, "kssd_sketch", got_pos, want_pos, f"{what} positions")
+        _, ms = cuda_ms(lambda: sd.sketch_window_launch(codes, table, p),
+                        reps=10)
+        total = int(got_h.numel())
+        n_valid = valid_windows(w, p.kmer_size)
+        # codes read once, kept rows written once, a 32-byte sector of the
+        # table for each kept window
+        k7_bound = bound(len(w) + 12 * total + 32 * total, 0, CORE_OPS)
+        gather = 32 * n_valid
+        rec["kssd_sketch"]["ms"].append(ms)
+        rec["kssd_sketch"]["plain_ms"].append(plain_ms)
+        rec["kssd_sketch"]["bound"].append(k7_bound)
+        say(f"K7 {what}: {n_pos} positions, {n_valid} valid, {total} kept "
+            f"({'64' if p.use64 else '32'}-bit hashes): rows and total "
+            f"exact; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{k7_bound[0]:.4f} ms ({k7_bound[1]}: {len(w)} B of codes, "
+            f"{12 * total} B written, {32 * total} B of table sectors for "
+            f"the kept), kernel at {k7_bound[0] / ms:.4f} of it; the table "
+            f"gathers of every valid window imply {gather} B of sectors "
+            f"({1e3 * gather / HBM_BPS:.4f} ms at {HBM_BPS / 1e12:.2f} "
+            f"TB/s); card {card}")
+        del codes, table, got_h, got_pos, want_h, want_pos
+        torch.cuda.empty_cache()
+
+
+def planted_tokens(n, s, c, seed):
+    """(n, s, c) uint32 token planes in groups of 8: a genome copies each
+    sample of its group's base with its own probability in [0, 1], so
+    pairs share from 0 to s samples."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 2 ** 32, size=(-(-n // 8), s, c),
+                         dtype=np.uint32)
+    tok = rng.integers(0, 2 ** 32, size=(n, s, c), dtype=np.uint32)
+    take = rng.random((n, s)) < rng.random((n, 1))
+    tok[take] = bases[np.arange(n) // 8][take]
+    return tok
+
+
+def phase_match_kernel(dev, rec, card, n=8192):
+    """3f: K8 at N = 8,192 at the WMH and OMH shapes against its plain
+    version on the card."""
+    say("== phase 3f: K8 (tuple_match) against tuple_matches_plain")
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    for label, s, c in (("WMH", 50, 4), ("OMH", 64, 6)):
+        tok = torch.from_numpy(planted_tokens(n, s, c, SEED + s).view(
+            np.int32)).to(dev)
+        got, ms = cuda_ms(lambda: xp.tuple_matches(tok), reps=10)
+        want, plain_ms = cuda_ms(lambda: xp.tuple_matches_plain(tok),
+                                 warmup=False)
+        hold_exact(rec, "tuple_match", got, want, label)
+        k8_bound = bound(4 * n * n, n * n * s * c, CORE_OPS)
+        rec["tuple_match"]["ms"].append(ms)
+        rec["tuple_match"]["plain_ms"].append(plain_ms)
+        rec["tuple_match"]["bound"].append(k8_bound)
+        say(f"K8 {label} N={n}, {s} samples x {c} words: exact (counts "
+            f"{int(want.min())}..{int(want.max())}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms; bound {k8_bound[0]:.4f} ms "
+            f"({k8_bound[1]}: {n * n * s * c} word compares at "
+            f"{CORE_OPS / 1e12:.0f} TOP/s, {4 * n * n} B written), kernel "
+            f"at {k8_bound[0] / ms:.4f} of it; card {card}")
+        del tok, got, want
+        torch.cuda.empty_cache()
+
+
+def run_sketch_cli(main, argv, env, dev, cwd):
+    """One CLI run from genomes in ``cwd`` under the environment ``env``,
+    from K7's launch count set to 0: (wall, stats, K7 launches, spy of the
+    device sketcher)."""
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    back = os.getcwd()
+    os.chdir(cwd)  # the run folder is created in the working directory
+    sd.reset_launches()
+    stats = {}
+    try:
+        with Spy(sd, "sketch_files_kssd_device") as spy:
+            t0 = time.perf_counter()
+            rc = main(argv, device=dev, stats=stats)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(back)
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    if rc != 0:
+        raise RuntimeError(f"{argv[:3]}... returned {rc}")
+    return wall, stats, sd.LAUNCHES["kssd_sketch"], spy
+
+
+def planted_partition(n_bases, per_base, n=None):
+    n = n_bases * per_base if n is None else n
+    return partition([[i for i in range(n) if i // per_base == c]
+                      for c in range(-(-n // per_base))])
+
+
+def phase_device_sketch(tmp, dev, n_bases=32, per_base=4,
+                        length=4_000_000):
+    """13: the device KSSD sketcher on its path, against the native one."""
+    say(f"== phase 13: RTC_DEVICE_SKETCH=1 clust-mst / clust-greedy --fast "
+        f"--device -l, {n_bases * per_base} genomes of {length} bp")
+    from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
+    work = os.path.join(tmp, "sketch13")
+    t0 = time.perf_counter()
+    lst = write_fasta_genomes(work, n_bases, per_base, length, SEED + 13,
+                              "genomes.list")
+    with open(lst) as f:
+        first16 = f.read().split()[:16]
+    lst16 = os.path.join(work, "first16.list")
+    with open(lst16, "w") as f:
+        f.write("\n".join(first16) + "\n")
+    say(f"{n_bases * per_base} FASTA files written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    from rabbittclust_tpu_torch.io.fasta import read_fasta, read_file_list
+    from rabbittclust_tpu_torch.ops.sketch_device import _encode_codes
+    t0 = time.perf_counter()
+    n_codes = 0
+    for f in read_file_list(lst):
+        for _, _, seq in read_fasta(f):
+            n_codes += len(_encode_codes(seq))
+    say(f"the device route's host floor: reading and encoding the "
+        f"{n_codes} bases alone takes {time.perf_counter() - t0:.3f} s")
+    launches = None
+    # the 64-bit case: -k 23 would be replaced by the CLI's k tuning (k
+    # above recommended + 3 = 21 at 4 Mb), so k 21 at drlevel 2 (half_k
+    # 11 - drlevel 2 > 8)
+    for tag, main, extra, lst_used, n in (
+            ("clust-mst", clust_mst.main, [], lst, n_bases * per_base),
+            ("clust-greedy", clust_greedy.main, [], lst, None),
+            ("clust-mst -k 21 --drlevel 2", clust_mst.main,
+             ["-k", "21", "--drlevel", "2"], lst16,
+             min(16, n_bases * per_base))):
+        runs = {}
+        for mode in ("1", "0"):
+            cwd = os.path.join(work, f"{tag.replace(' ', '_')}_{mode}")
+            os.makedirs(cwd)
+            out = os.path.join(cwd, "out.cluster")
+            wall, stats, k7, spy = run_sketch_cli(
+                main, ["--fast", "--device", "-l", "-i", lst_used, "-d",
+                       str(THRESHOLD), "-o", out] + extra,
+                {"RTC_DEVICE_SKETCH": mode}, dev, cwd)
+            device = mode == "1"
+            on_card = device and dev.type == "cuda"
+            if (k7 > 0) != on_card or bool(spy.calls) != device:
+                raise AssertionError(f"{tag} RTC_DEVICE_SKETCH={mode}: K7 "
+                                     f"launches {k7}, device sketcher "
+                                     f"calls {len(spy.calls)}")
+            if device and launches is None:
+                launches = k7
+            if device:
+                use64 = spy.results[0][1].use64
+                if use64 != ("drlevel" in tag):
+                    raise AssertionError(f"{tag}: 64-bit hashes {use64}")
+            folders = [d for d in os.listdir(cwd)
+                       if os.path.isdir(os.path.join(cwd, d))]
+            if len(folders) != 1:
+                raise AssertionError(f"{tag}: expected one run folder, "
+                                     f"found {folders}")
+            runs[mode] = (out, folder_digest(os.path.join(cwd, folders[0])),
+                          stats["sketch_s"], wall, k7)
+        if not same_file(runs["1"][0], runs["0"][0]):
+            raise AssertionError(f"{tag}: .cluster differs between the "
+                                 "device and the native sketcher")
+        if runs["1"][1] != runs["0"][1]:
+            raise AssertionError(f"{tag}: saved folders differ between the "
+                                 "device and the native sketcher")
+        got = partition(read_cluster_file(runs["1"][0]))
+        if n is not None and got != planted_partition(n_bases, per_base, n):
+            raise AssertionError(f"{tag}: partition {got} != planted")
+        say(f"{tag} ({'64' if use64 else '32'}-bit hashes): .cluster and "
+            f"saved folder ({len(runs['1'][1])} files) "
+            f"byte-equal under both sketchers; {len(got)} clusters"
+            + (" = planted" if n is not None else "")
+            + f"; sketch phase device {runs['1'][2]:.3f} s (K7 launches "
+            f"{runs['1'][4]}), native {runs['0'][2]:.3f} s; CLI walls "
+            f"{runs['1'][3]:.3f} / {runs['0'][3]:.3f} s")
+    return launches
+
+
+class swapped:
+    """``module.name`` is ``value`` inside the ``with``."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_extra_sketch(tmp, dev, n_bases=32, per_base=4, length=20_000):
+    """14: clust-mst --sketch-func WMH / OMH / HLL (K8 for WMH and OMH)."""
+    say(f"== phase 14: clust-mst --sketch-func WMH / OMH / HLL, "
+        f"{n_bases * per_base} genomes of {length} bp")
+    from rabbittclust_tpu_torch import workflows_extra as wx
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    work = os.path.join(tmp, "extra14")
+    # tests/test_extra_sketches.py's rate: at 1 % a WMH distance of 50
+    # samples (~0.32 +- 0.07) can pass the 0.5 threshold within a group
+    lst = write_fasta_genomes(work, n_bases, per_base, length, SEED + 14,
+                              "genomes.list", rate=0.005)
+    want = planted_partition(n_bases, per_base)
+    launches = None
+    for func, thr in (("WMH", 0.5), ("OMH", 0.2), ("HLL", 0.05)):
+        out = os.path.join(work, f"{func}.cluster")
+        xp.reset_launches()
+        stats = {}
+        with Spy(wx, "pair_distances_extra") as pairs:
+            t0 = time.perf_counter()
+            # WMH and OMH take the card without --device
+            rc = main(["--sketch-func", func, "-l", "-i", lst, "-d",
+                       str(thr), "-o", out], stats=stats,
+                      device=None if dev.type == "cuda" else dev)
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"--sketch-func {func} returned {rc}")
+        k8 = xp.LAUNCHES["tuple_match"]
+        if (k8 == 1) != (func != "HLL" and dev.type == "cuda") or k8 > 1:
+            raise AssertionError(f"{func}: K8 launches {k8}")
+        if func == "WMH":
+            launches = k8
+        got = partition(read_cluster_file(out))
+        if got != want:
+            raise AssertionError(f"{func}: partition {got} != planted")
+        note = "host float64"
+        if func != "HLL":
+            with swapped(xp, "tuple_matches", xp.tuple_matches_plain):
+                plain = wx.pair_distances_extra(pairs.calls[0][0][0], func,
+                                                21, device=dev)
+            if not np.array_equal(pairs.results[0], plain):
+                raise AssertionError(f"{func}: K8's distance matrix differs "
+                                     "from the plain version's")
+            note = "K8's distance matrix = the plain version's on the card"
+        say(f"{func}: {len(got)} clusters = planted; {note}; K8 launches "
+            f"{k8}; CLI {wall:.3f} s: sketching {stats['sketch_s']:.3f} s, "
+            f"pairs {stats['pairs_s']:.3f} s, Kruskal "
+            f"{stats['kruskal_s']:.3f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -1718,6 +2045,8 @@ def main() -> int:
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
     phase_compact_kernel(hashes, sparse, dev, rec, card)
+    phase_sketch_kernel(dev, rec, card)
+    phase_match_kernel(dev, rec, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
         launches, want = phase_end_to_end(hashes, dev, tmp)
@@ -1733,16 +2062,19 @@ def main() -> int:
             [("sparse", sparse, 2), ("planted", hashes, 5)], tmp)
         del sparse
         phase_leiden(hashes, tmp)
+        launches["kssd_sketch"] = phase_device_sketch(tmp, dev)
+        launches["tuple_match"] = phase_extra_sketch(tmp, dev)
     loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
               or m.startswith(("jax.", "rabbittclust_tpu."))]
     if loaded:
         raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     # each kernel's first timed case, its bound and, for K1, the one
     # PyTorch call that computes its product, for K3 torch.nonzero over the
-    # unpacked masks (no single call computes K2's, K4's or K5b's
-    # function); launches from the run of the path that uses the kernel
-    # (K4's counts mode is on no path: the dense engine takes its mask
-    # mode; K3's from phase 11's first idx run)
+    # unpacked masks (no single call computes K2's, K4's, K5b's, K7's or
+    # K8's function); launches from the run of the path that uses the
+    # kernel (K4's counts mode is on no path: the dense engine takes its
+    # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
+    # first device run, K8's from phase 14's WMH run)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],

@@ -19,13 +19,18 @@ Layout mirrors the JAX package:
     ops/cluster_fast.py MST-free dispatcher (stream / LP, -t 1 order)
     ops/greedy_device.py greedy over one K1 sweep and a host replay
     ops/transfer.py     device-to-host pulls on events
+    ops/sketch_device.py the device KSSD sketcher (RTC_DEVICE_SKETCH=1):
+                        kernel K7
+    ops/extra_pairs.py  WMH / OMH positional token matches: kernel K8
     workflows.py        clust-mst / clust-greedy --device workflows and
                         their output tail
+    workflows_extra.py  clust-mst --sketch-func WMH / HLL / OMH
     cli/clust_mst.py, cli/clust_greedy.py
                         entry points; cli/common.py their flags and the
                         table of arms not ported yet
     sketch/ io/ state/ distance/ cluster/ post/ utils/
-                        host code: KSSD and MinHash sketching, FASTA
+                        host code: KSSD, MinHash and WMH / HLL / OMH
+                        sketching, FASTA
                         input, persistence, distances, Kruskal and forest
                         cuts, the native greedy engines, trees /
                         auto-threshold / dedup, the native loader

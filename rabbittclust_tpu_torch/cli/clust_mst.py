@@ -6,8 +6,10 @@ torch device (reference src/main.cpp:524-651 dispatch).
 
 The flags are the reference's (``cli/common.py``, a copy of the JAX
 package's parser).  KSSD (``--fast``: fresh genomes, ``--presketched``,
-``--premsted``, the classic ``--append``) and MinHash (no ``--fast``: fresh
-genomes, ``--presketched``, ``--premsted``) run; the arms of
+``--premsted``, the classic ``--append``), MinHash (no ``--fast``: fresh
+genomes, ``--presketched``, ``--premsted``) and ``--sketch-func
+WMH|HLL|OMH`` (fresh genomes; WMH and OMH on the card with or without
+``--device``) run; the arms of
 ``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
 will port them.
 """
@@ -41,6 +43,8 @@ def main(argv=None, device: Optional[torch.device] = None,
     opts = make_output_options(args)
     is_containment = args.contain_compress is not None
 
+    if args.sketch_func in ("WMH", "HLL", "OMH"):
+        return _extra_sketch_arm(args, device, stats)
     if refuse_unported(args, "mst"):
         return 1
     if args.premsted and not args.append:
@@ -103,6 +107,31 @@ def main(argv=None, device: Optional[torch.device] = None,
         args.sketch_size or 1000, args.threshold, tuned.is_containment,
         tuned.contain_compress, args.min_len, args.threads, opts, device,
         stats)
+    return 0
+
+
+# Source: rabbittclust_tpu/cli/clust_mst.py::main (the extra sketch arm)
+def _extra_sketch_arm(args, device: Optional[torch.device],
+                      stats: Optional[dict]) -> int:
+    """``--sketch-func WMH|HLL|OMH``: the dense all-pairs modifyMST path
+    (latent in the reference), fresh genome input only.  WMH and OMH take
+    the card whether or not ``--device`` is given; HLL stays on the
+    host."""
+    if args.is_fast or args.repdb_path or args.presketched \
+            or args.premsted or args.append:
+        print("ERROR: --sketch-func WMH/HLL/OMH supports fresh genome "
+              "input only (no --fast/--db/--presketched/--premsted/"
+              "--append)", file=sys.stderr)
+        return 1
+    if not args.input:
+        print("ERROR: -i/--input needed", file=sys.stderr)
+        return 1
+    from ..workflows_extra import clust_from_genomes_extra
+    if args.sketch_func != "HLL":
+        device = resolve_device(device)
+    clust_from_genomes_extra(
+        args.input, args.output, args.sketch_by_file, args.sketch_func,
+        args.kmer_size or 21, args.threshold, args.min_len, device, stats)
     return 0
 
 

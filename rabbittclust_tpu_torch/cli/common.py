@@ -232,8 +232,6 @@ def _mst_state_append(a) -> bool:
 # args, what it is, ROADMAP Queue 1 item).  None of them falls back to the
 # JAX package.
 NOT_PORTED = [
-    (("mst",), lambda a: a.sketch_func != "MinHash",
-     "--sketch-func WMH/HLL/OMH", 8),
     (("mst", "greedy"), lambda a: a.repdb_path, "--db (RepDB)", 10),
     (("mst", "greedy", "leiden", "dbscan"), lambda a: a.multihost,
      "--multihost", 11),

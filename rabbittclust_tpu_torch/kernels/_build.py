@@ -121,4 +121,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_lp_compact.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     lib.rtc_mask_compact.restype = ci
     lib.rtc_mask_compact.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp]
+    u64 = ctypes.c_uint64
+    lib.rtc_kssd_sketch.restype = ci
+    lib.rtc_kssd_sketch.argtypes = [vp, ci, ci, vp, u64, u64, u64, u64, ci,
+                                    ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.rtc_tuple_match.restype = ci
+    lib.rtc_tuple_match.argtypes = [vp, ci, ci, ci, vp, vp]
     return lib

@@ -12,7 +12,10 @@ Math replicated exactly from reference src/SketchInfo.cpp:
   * rolling 2-bit canonical scan + filter:   SketchInfo.cpp:1120-1165
 
 Sketching runs in the native C++ library (``native/rtc_native.cpp`` via
-ctypes); this module derives the parameters and drives it.
+ctypes); this module derives the parameters and drives it.  ``BASE_MAP``
+encodes bases for the device sketcher (``ops/sketch_device.py``), and
+``kssd_kmer_hashes_numpy`` is the NumPy statement of the sketch its tests
+hold it to.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ from .base import SketchSet
 _CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".cache")
+
+# Source: rabbittclust_tpu/sketch/kssd.py::BASE_MAP
+# Base encoding: A/a=0 C/c=1 G/g=2 T/t=3, everything else -1
+BASE_MAP = np.full(256, -1, dtype=np.int8)
+for i, b in enumerate("ACGT"):
+    BASE_MAP[ord(b)] = i
+    BASE_MAP[ord(b.lower())] = i
+
 
 # Source: rabbittclust_tpu/sketch/kssd.py::KssdParams
 @dataclass(frozen=True)
@@ -108,6 +119,41 @@ def get_shuffle_table(half_subk: int) -> np.ndarray:
     except OSError:
         pass
     return arr
+
+
+# Source: rabbittclust_tpu/sketch/kssd.py::kssd_kmer_hashes_numpy
+def kssd_kmer_hashes_numpy(seq: bytes, p: KssdParams,
+                           shuffled_dim: np.ndarray) -> np.ndarray:
+    """All kept (non-deduplicated) KSSD hashes of one sequence, as uint64."""
+    k = p.kmer_size
+    codes = BASE_MAP[np.frombuffer(seq, dtype=np.uint8)]
+    n = len(codes)
+    if n < k:
+        return np.empty(0, dtype=np.uint64)
+    from numpy.lib.stride_tricks import sliding_window_view
+    win = sliding_window_view(codes, k)                       # (n-k+1, k)
+    valid = (win >= 0).all(axis=1)
+    if not valid.any():
+        return np.empty(0, dtype=np.uint64)
+    w = win[valid].astype(np.uint64)
+    sh_fwd = (2 * (k - 1 - np.arange(k))).astype(np.uint64)
+    sh_rev = (2 * np.arange(k)).astype(np.uint64)
+    tup = (w << sh_fwd).sum(axis=1)
+    rvs = ((w ^ np.uint64(3)) << sh_rev).sum(axis=1)
+    uni = np.minimum(tup, rvs)
+    hol2 = np.uint64(2 * (p.half_k - p.half_subk))
+    dim_id = ((uni & np.uint64(p.domask)) >> hol2).astype(np.int64)
+    pf = shuffled_dim[dim_id]
+    keep = (pf >= 0) & (pf < p.dim_end)
+    if not keep.any():
+        return np.empty(0, dtype=np.uint64)
+    uni = uni[keep]
+    pf = pf[keep].astype(np.uint64)
+    shift1 = np.uint64(2 * p.kmer_size - 4 * (p.half_k - p.half_subk))
+    dr = ((((uni & np.uint64(p.undomask0))
+            | ((uni & np.uint64(p.undomask1)) << shift1))
+           >> np.uint64(4 * p.drlevel)) | pf)
+    return dr
 
 
 # Source: rabbittclust_tpu/sketch/kssd.py::_finalize_dtype

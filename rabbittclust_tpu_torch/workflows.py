@@ -433,13 +433,22 @@ def clust_from_genome_fast(input_file: str, output_file: str,
                            device: torch.device,
                            stats: Optional[dict] = None,
                            module: str = "mst"):
-    """clust-mst / clust-greedy --fast --device from genomes (native KSSD
-    sketching on the host, then the device engine)."""
+    """clust-mst / clust-greedy --fast --device from genomes (reference
+    sub_command.cpp:1934): native KSSD sketching on the host, or by file
+    under ``RTC_DEVICE_SKETCH=1`` the device sketcher (K7, bit-identical),
+    then the device engine."""
     timer = Timer()
     with timer.phase("computing sketch (with index)"):
         if sketch_by_file:
-            ss, p = sketch_files_kssd(read_file_list(input_file), min_len,
-                                      kmer_size, drlevel, threads)
+            files = read_file_list(input_file)
+            if opts.use_device and \
+                    os.environ.get("RTC_DEVICE_SKETCH", "0") == "1":
+                from .ops.sketch_device import sketch_files_kssd_device
+                ss, p = sketch_files_kssd_device(files, min_len, kmer_size,
+                                                 drlevel, device=device)
+            else:
+                ss, p = sketch_files_kssd(files, min_len, kmer_size,
+                                          drlevel, threads)
         else:
             ss, p = sketch_sequences_kssd(input_file, min_len, kmer_size,
                                           drlevel, threads)

@@ -309,11 +309,17 @@ def test_classic_append_preserves_source_folder(synthetic_genomes, tmp_path,
 ], ids=["append", "save-rep", "buildDB", "db", "sketch-func", "multihost"])
 def test_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
     """Arms not ported yet exit 1 naming their ROADMAP item; ``append`` is
-    the MinHash --append (no --fast)."""
+    the MinHash --append (no --fast).  The extra sketches are ported, and
+    ``--fast --sketch-func`` exits 1 with the JAX CLI's error: they take
+    fresh genome input only."""
     argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
     assert port_main(argv, device=CPU) == 1
     err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP Queue 1 item" in err
+    if "--sketch-func" in extra:
+        assert "supports fresh genome input only" in err
+        assert "not ported" not in err
+    else:
+        assert "not ported" in err and "ROADMAP Queue 1 item" in err
     assert not (tmp_path / "o.cluster").exists()
 
 

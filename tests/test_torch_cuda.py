@@ -1,6 +1,6 @@
-"""Kernels K1 / K2 / K3 / K4 (counts and mask modes) / K5b and the port's
-engines on the card, against their plain torch versions and the native
-host engine.  Marked ``cuda``; every test skips inside itself when no GPU
+"""Kernels K1 / K2 / K3 / K4 (counts and mask modes) / K5b / K7 / K8 and
+the port's engines on the card, against their plain torch versions and
+the native host engine.  Marked ``cuda``; every test skips inside itself when no GPU
 is visible.  This file imports no JAX, so it also runs where JAX is
 absent:
 
@@ -23,7 +23,7 @@ from rabbittclust_tpu_torch.ops import intersect as ix
 from rabbittclust_tpu_torch.ops import labelprop as lp
 from rabbittclust_tpu_torch.ops.pack import pack_sketches, planes_to_device
 from torch_port_data import clear_list, clustered_sketches, \
-    containment_sketches
+    containment_sketches, dense_keep_table, kssd_window, planted_tokens
 
 pytestmark = pytest.mark.cuda
 
@@ -622,3 +622,171 @@ def test_stream_generator_idx_on_card(gpu, monkeypatch):
         assert (bm.LAUNCHES["mask_compact"] > 0) == (mode == "idx")
     assert all(np.array_equal(a, b) for a, b in zip(seqs["mask"],
                                                     seqs["idx"]))
+
+
+# ---------------------------------------------------------------------------
+# K7 (the device KSSD sketcher) and K8 (WMH / OMH token matches)
+
+
+def _k7_inputs(gpu, k, dr, window, table_kind="shuffle"):
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams, \
+        get_shuffle_table
+    p = KssdParams.from_kmer_size(k, dr)
+    table = get_shuffle_table(p.half_subk) if table_kind == "shuffle" \
+        else dense_keep_table(p.dim_end, p.half_subk, k)
+    return p, torch.from_numpy(window).to(gpu), torch.from_numpy(table).to(gpu)
+
+
+def _k7_hold(codes, table, p):
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    before = sd.LAUNCHES["kssd_sketch"]
+    h, pos = sd.sketch_window(codes, table, p)
+    torch.cuda.synchronize()
+    assert sd.LAUNCHES["kssd_sketch"] == before + 1
+    wh, wpos = sd.sketch_window_plain(codes, table, p)
+    assert torch.equal(h, wh) and torch.equal(pos, wpos)
+    return int(h.numel())
+
+
+@pytest.mark.parametrize("table_kind", ["shuffle", "dense"])
+@pytest.mark.parametrize("k,dr", [(21, 3), (23, 3), (31, 2)])
+def test_k7_matches_plain(gpu, k, dr, table_kind):
+    """One window of 2^20 positions with invalid codes, record separators,
+    a low-complexity run and a padded tail (the dense table keeps nearly
+    every window): the ordered (hash, position) rows equal."""
+    kk = 2 * ((k + 1) // 2)
+    p, codes, table = _k7_inputs(gpu, k, dr,
+                                 kssd_window(k + dr, kk, 1 << 20),
+                                 table_kind)
+    total = _k7_hold(codes, table, p)
+    assert total > (300_000 if table_kind == "dense" else 0)
+
+
+def test_k7_edges(gpu):
+    """Ragged windows (1 position, 10,001, one past a block), separators at
+    a block's edge, an all-invalid window, a full 64-bit tuple width."""
+    rng = np.random.default_rng(5)
+    for k, dr, n_pos in ((21, 3, 1), (16, 2, 10_001), (31, 2, 8193),
+                         (23, 3, 3 * 8192)):
+        kk = 2 * ((k + 1) // 2)
+        w = rng.integers(0, 4, n_pos + kk - 1).astype(np.int8)
+        for at in (8192 - kk, 8192, 16384 - 1):
+            w[at:at + kk - 1] = -1
+        for kind in ("shuffle", "dense"):
+            p, codes, table = _k7_inputs(gpu, k, dr, w, kind)
+            _k7_hold(codes, table, p)
+    p, codes, table = _k7_inputs(gpu, 21, 3,
+                                 np.full(20_000, -1, dtype=np.int8))
+    assert _k7_hold(codes, table, p) == 0
+
+
+def test_k7_rejects_bad_inputs(gpu):
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    p, codes, table = _k7_inputs(gpu, 21, 3, kssd_window(1, 22, 9000))
+    with pytest.raises(ValueError, match="aligned"):
+        sd.sketch_window(codes[1:], table, p)
+    with pytest.raises(ValueError, match="table"):
+        sd.sketch_window(codes, table[:-1], p)
+
+
+def _write_genomes(tmp_path, n_groups, per, length, seed, records=1):
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    files = []
+    for g in range(n_groups):
+        base = rng.integers(0, 4, length)
+        for m in range(per):
+            seq = base.copy()
+            hit = rng.random(length) < 0.01
+            seq[hit] = rng.integers(0, 4, int(hit.sum()))
+            files.append(str(tmp_path / f"g{g}_{m}.fna"))
+            cut = np.linspace(0, length, records + 1).astype(int)
+            with open(files[-1], "wb") as f:
+                for r in range(records):
+                    f.write(f">g{g}_{m}_{r} group{g}\n".encode())
+                    f.write(acgt[seq[cut[r]:cut[r + 1]]].tobytes() + b"\n")
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(files) + "\n")
+    return files, str(lst)
+
+
+@pytest.mark.parametrize("k,dr", [(21, 3), (23, 3)])
+def test_k7_stream_equals_native_sketcher(gpu, tmp_path, k, dr):
+    """Files spanning several windows (4 rows of 8,192 positions), two
+    records each: the card's sketches equal the native sketcher's."""
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    from rabbittclust_tpu_torch.sketch.kssd import sketch_files_kssd
+    files, _ = _write_genomes(tmp_path, 3, 2, 50_000, 8, records=2)
+    ss_h, _ = sketch_files_kssd(files, 1000, k, dr)
+    sd.reset_launches()
+    ss_d, _ = sd.sketch_files_kssd_device(files, 1000, k, dr, chunk=8192,
+                                          s_rows=4, device=gpu)
+    # six genomes of two records: 11 separators of k - 1 codes
+    kk = 2 * ((k + 1) // 2)
+    assert sd.LAUNCHES["kssd_sketch"] == -(-(300_000 + 11 * (kk - 1))
+                                           // 32768)
+    for gh, gd in zip(ss_h.hashes, ss_d.hashes):
+        assert gh.dtype == gd.dtype and np.array_equal(gh, gd)
+    assert ss_h.names == ss_d.names and ss_h.total_lens == ss_d.total_lens
+
+
+@pytest.mark.parametrize("n", [1, 65, 700])
+@pytest.mark.parametrize("s,c", [(50, 4), (64, 6), (7, 1), (3, 8)])
+def test_k8_matches_plain(gpu, n, s, c):
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    tok = torch.from_numpy(planted_tokens(n, s, c, seed=n + s).view(
+        np.int32)).to(gpu)
+    before = xp.LAUNCHES["tuple_match"]
+    got = xp.tuple_matches(tok)
+    torch.cuda.synchronize()
+    assert xp.LAUNCHES["tuple_match"] == before + 1
+    assert torch.equal(got, xp.tuple_matches_plain(tok))
+
+
+def test_k8_rejects_nine_words(gpu):
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    tok = torch.zeros((4, 2, 9), dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="words"):
+        xp.tuple_matches(tok)
+
+
+@pytest.mark.parametrize("func", ["WMH", "OMH", "HLL"])
+def test_extra_sketch_cli_on_card(gpu, tmp_path, monkeypatch, func):
+    """``--sketch-func``: the card's .cluster equals the CPU run's, and K8
+    is launched for WMH and OMH (without --device), not for HLL."""
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    _, lst = _write_genomes(tmp_path, 4, 3, 12_000, 9)
+    monkeypatch.chdir(tmp_path)
+    thr = {"WMH": "0.5", "HLL": "0.05", "OMH": "0.2"}[func]
+    argv = ["--sketch-func", func, "-l", "-i", lst, "-d", thr, "-m", "1000"]
+    xp.reset_launches()
+    assert main(argv + ["-o", "card.cluster"]) == 0
+    assert (xp.LAUNCHES["tuple_match"] == 1) == (func != "HLL")
+    assert main(argv + ["-o", "cpu.cluster"],
+                device=torch.device("cpu")) == 0
+    assert (tmp_path / "card.cluster").read_bytes() == \
+        (tmp_path / "cpu.cluster").read_bytes()
+    assert len(_cluster_ids(str(tmp_path / "card.cluster"))) == 4
+
+
+def test_device_sketch_cli_on_card(gpu, tmp_path, monkeypatch):
+    """``RTC_DEVICE_SKETCH=1`` clust-mst --fast --device: K7 launched, the
+    .cluster and the saved folder byte-equal to the native sketcher's."""
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    _, lst = _write_genomes(tmp_path, 4, 3, 60_000, 10, records=2)
+    folders = {}
+    for mode in ("1", "0"):
+        wd = tmp_path / f"run{mode}"
+        wd.mkdir()
+        monkeypatch.chdir(wd)
+        monkeypatch.setenv("RTC_DEVICE_SKETCH", mode)
+        sd.reset_launches()
+        assert main(["--fast", "--device", "-l", "-i", lst, "-d", "0.05",
+                     "-m", "1000", "-o", "out.cluster"]) == 0
+        assert (sd.LAUNCHES["kssd_sketch"] > 0) == (mode == "1")
+        (run,) = [p for p in wd.iterdir() if p.is_dir()]
+        folders[mode] = {p.name: p.read_bytes() for p in run.iterdir()}
+        folders[mode]["out.cluster"] = (wd / "out.cluster").read_bytes()
+    assert folders["1"] == folders["0"]

@@ -4,8 +4,9 @@ module of it that does not import JAX) or ``jax``; the port keeps its own
 copies of the host code it needs.
 
 (a) reads every source with ``ast``; (b) runs each of the port's clust-mst,
-clust-greedy, clust-dbscan and clust-leiden arms on the CPU in a fresh
-process and lists what that process loaded;
+clust-greedy, clust-dbscan and clust-leiden arms (the device sketcher's
+``RTC_DEVICE_SKETCH=1`` and ``--sketch-func WMH|OMH|HLL`` among them) on
+the CPU in a fresh process and lists what that process loaded;
 (c) the port copies none of the JAX package's NumPy fallbacks: its loader
 of the shared native library raises when the library cannot be had.
 """
@@ -113,6 +114,11 @@ ARMS = {
                ("dbscan", _FRESH + ["--max-posting", "3"]),
                ("dbscan", ["--device", "--minhash", "-l", "-i", "{list}",
                            "-m", "1000", "-s", "300"])],
+    "device_sketch": [("mst", _FRESH, {"RTC_DEVICE_SKETCH": "1"}),
+                      ("greedy", _FRESH, {"RTC_DEVICE_SKETCH": "1"})],
+    "sketch_func": [("mst", ["--sketch-func", func, "-l", "-i", "{list}",
+                             "-d", "0.5", "-m", "1000"])
+                    for func in ("WMH", "OMH", "HLL")],
     "leiden": [("leiden", _FRESH, {"RTC_LEIDEN_DEVICE": "force",
                                    "RTC_PULL_MODE": "idx"}),
                ("leiden", ["--pregraph", "{run}"]),
@@ -138,7 +144,7 @@ mains = {"mst": clust_mst.main, "greedy": clust_greedy.main,
 run_dir = None
 for k, (cli, argv, *env) in enumerate(runs):
     argv = [subs.get(a, run_dir if a == "{run}" else a) for a in argv]
-    for key in ("RTC_PULL_MODE", "RTC_LEIDEN_DEVICE"):
+    for key in ("RTC_PULL_MODE", "RTC_LEIDEN_DEVICE", "RTC_DEVICE_SKETCH"):
         os.environ.pop(key, None)
     os.environ.update(*env)
     if "--append" in argv:

@@ -60,3 +60,47 @@ def clear_list(packs, rng, n_pairs=40, pad_to=256):
     if ents:
         out[:, :len(ents)] = np.array(ents, dtype=np.int32).T
     return out
+
+
+def kssd_window(seed, k, n_pos):
+    """One dispatch window of base codes (n_pos + k - 1, int8): random
+    bases with 2 % invalid codes, two record separators (k - 1 invalid
+    codes), a low-complexity run of a 3-base unit, and the -1 padding of a
+    final window over its last 700 positions."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 4, n_pos + k - 1).astype(np.int8)
+    w[rng.random(len(w)) < 0.02] = -1
+    for at in (n_pos // 3, 2 * n_pos // 3 + 5):
+        w[at:at + k - 1] = -1
+    run = n_pos // 2
+    w[run:run + 600] = np.resize(np.array([0, 2, 3], np.int8), 600)
+    w[n_pos - 700:] = -1
+    return w
+
+
+def dense_keep_table(dim_end, half_subk, seed):
+    """A KSSD shuffle table that keeps most dimensions (ranks mostly below
+    ``dim_end``, some negative), so nearly every valid window is kept."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-dim_end // 8, dim_end + dim_end // 4,
+                     1 << (4 * half_subk))
+    return t.astype(np.int32)
+
+
+def planted_tokens(n, s, c, seed):
+    """(n, s, c) uint32 WMH/OMH-style token planes in clusters of 7: a
+    genome copies each sample of its cluster's base with its own
+    probability in [0, 1], so pairs share from 0 to s samples; rows 0 and
+    1 agree in word 0 only, rows 2 and 3 are equal."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 2 ** 32, size=(-(-n // 7), s, c),
+                         dtype=np.uint64).astype(np.uint32)
+    tok = rng.integers(0, 2 ** 32, size=(n, s, c),
+                       dtype=np.uint64).astype(np.uint32)
+    for i in range(n):
+        take = rng.random(s) < rng.random()
+        tok[i, take] = bases[i // 7, take]
+    if n >= 4:
+        tok[1, :, 0] = tok[0, :, 0]
+        tok[3] = tok[2]
+    return tok
