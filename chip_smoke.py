@@ -84,7 +84,24 @@ Phases, one line or block each; any failure raises (non-zero exit):
    point mutations, the rate of tests/test_extra_sketches.py): the distance
    matrix equal to the plain version's on the card, the partition the
    planted one, K8 launched on WMH and OMH and not on HLL; the seconds of
-   sketching, pairs and Kruskal.
+   sketching, pairs and Kruskal;
+15. the mesh ring engines (``parallel/dist_engine.py``) over logical
+   shards on the one card (a mesh that repeats ``cuda:0``; shards run one
+   after another, so no multi-GPU time is claimed): (a) ``RTC_MESH=1
+   clust-mst --fast --device --presketched`` at N = 16,384, a 1-shard exact
+   ring, ``edge.mst`` and ``.cluster`` byte-equal to phase 4's dense-engine
+   run; (b) ``distributed_mst`` exact and bitmap over 4 shards: the exact
+   ring's MST equal to phase 4's ``edge.mst``, both partitions at 0.05
+   phase 4's; (c) the mesh LP engine over 8 shards at N = 131,072: the 64
+   planted clusters, its rounds and their device milliseconds; (d)
+   ``distributed_threshold_clusters`` and ``distributed_similarity_graph``
+   over 4 shards: phase 4's partition, and the edges and weights of the
+   port's ``build_similarity_graph`` (no kNN);
+16. ``greedy_cluster_device(conflict="batched", batch_size=2048)`` (K6) at
+   N = 32,768 on phases 8a's and 8b's corpora, equal to the copied
+   ``greedy_cluster_batched`` (which runs in two worker processes at the
+   lowest priority while the card runs phase 3); the device sweep and host
+   seconds.
 
 Phase 3d holds K3 (``compact_masks``, and K1 + K3 as ``batched_filter``)
 to its plain versions on batches of 16 tiles at rb 1024 and 4096 over the
@@ -94,10 +111,17 @@ holds K7 (``sketch_window``) to its plain version over one full dispatch
 window (16 x 2^20 positions) at k 21 / dr 3, k 23 / dr 3 and k 31 / dr 2,
 and a low-complexity window over a table that keeps every dimension;
 phase 3f holds K8 (``tuple_matches``) to its plain version at N = 8,192 at
-the WMH (50 x 4 words) and OMH (64 x 6) shapes.
+the WMH (50 x 4 words) and OMH (64 x 6) shapes.  Phase 3g holds K6
+(``greedy_filter``) to its plain version at B = 2,048 against R = 1,024
+and 16,384 reps, triangular, and a ragged B = 7, over phases 8a's and 8b's
+resident signatures, beside a bfloat16 ``torch.mm`` of the gathered
+product; phase 3h holds each step kind of the exact, bitmap and mask rings
+(self, interior, antipodal, and the antipodal step's empty tile) to the
+plain steps at 4 shards of N = 16,384 and 8 shards of N = 131,072, and one
+LP round over a shard's slab with a clear list of repeated targets.
 
-Each of phases 8-12 prints its kernels' launch counts on a line of its
-own.
+Each of phases 8-12 and 15-16 prints its kernels' launch counts on a line
+of its own.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a visible GPU it exits 2 and
@@ -143,6 +167,20 @@ KERNELS = {
                     "rabbittclust_tpu/ops/sketch_device.py:164"),
     "tuple_match": ("rabbittclust_tpu_torch/csrc/tuple_match.cu",
                     "rabbittclust_tpu/ops/extra_pairs.py:48"),
+    # K1's gathered form, then K3's row form
+    "greedy_filter": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+                      "rabbittclust_tpu/ops/greedy_device.py:310"),
+    # K4's mask mode over two shards, K3, K5b
+    "ring_edges": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
+                   "rabbittclust_tpu/parallel/dist_engine.py:168"),
+    # K1 over two shards, then K3
+    "ring_bitmap": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+                    "rabbittclust_tpu/parallel/dist_engine.py:296"),
+    "ring_masks": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+                   "rabbittclust_tpu/parallel/dist_engine.py:620"),
+    # K2 over each shard's slab
+    "dist_lp_round": ("rabbittclust_tpu_torch/csrc/labelprop_round.cu",
+                      "rabbittclust_tpu/parallel/dist_engine.py:671"),
 }
 
 NATIVE_PROBE = r"""
@@ -171,7 +209,13 @@ print("native library ok")
 """
 
 
+T_START = time.perf_counter()
+
+
 def say(msg):
+    """Print a line; a phase's heading also gets the script's seconds."""
+    if msg.startswith("== phase"):
+        msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -260,7 +304,8 @@ def check_native():
 
 
 def phase_build():
-    say("== phase 2: build K1 / K2 / K3 / K4 / K5b / K7 / K8 (nvcc, sm_90a)")
+    say("== phase 2: build K1 (with K6's gathered form) / K2 / K3 / K4 / K5b"
+        " / K7 / K8 (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
     info = _build.build()  # all nvcc processes at once
     say(f"build seconds: {info['seconds']:.3f} "
@@ -2021,6 +2066,521 @@ def phase_extra_sketch(tmp, dev, n_bases=32, per_base=4, length=20_000):
     return launches
 
 
+def unpack_product_ms(bm, xa, xb):
+    """The shared-bit product of two signature row sets alone, as one
+    bfloat16 ``torch.mm`` with a float32 result (exact for 0/1 operands):
+    milliseconds."""
+    ua = bm.unpack_bits(xa, torch.bfloat16)
+    ub = bm.unpack_bits(xb, torch.bfloat16)
+    _, ms = cuda_ms(lambda: torch.mm(ua, ub.T, out_dtype=torch.float32),
+                    reps=3)
+    del ua, ub
+    return ms
+
+
+def greedy_resident(hashes, dev):
+    """The batched greedy's resident signatures: packed to 128 rows with
+    one zero-size padding row (``_greedy_batched``'s layout)."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    xp, coll = bm.pack_bitmaps_packed(hashes, BITS, 128)
+    n = len(hashes)
+    if xp.shape[0] == n:
+        xp = np.vstack([xp, np.zeros((1, xp.shape[1]), dtype=np.uint8)])
+        coll = np.r_[coll, np.int32(0)]
+    sizes = np.zeros(xp.shape[0], dtype=np.int32)
+    sizes[:n] = [len(h) for h in hashes]
+    return [torch.from_numpy(a).to(dev) for a in (xp, coll, sizes)]
+
+
+def pair_bound(rows, cols, tri, out_bytes, b1_ops, extra=8):
+    """The bound of K1's pair kernel (a ring step, K6) over ``rows`` x
+    ``cols`` pairs: the shared-bit products it needs, two operations a bit
+    multiply-add at ``b1_ops``; under the triangle (the same genomes on
+    both sides, column position < row position) only the 128 x 128 blocks
+    holding some j < i, as ``ring_compares`` counts them, and the
+    signatures (with ``extra`` bytes a genome) read once; ``out_bytes``
+    written."""
+    if tri:
+        nb_r, nb_c = -(-rows // 128), -(-cols // 128)
+        pairs = 128 * 128 * sum(min(b + 1, nb_c) for b in range(nb_r))
+        read = rows * (BITS // 8 + extra)
+    else:
+        pairs = rows * cols
+        read = (rows + cols) * (BITS // 8 + extra)
+    return bound(read + out_bytes, 2 * pairs * BITS, b1_ops)
+
+
+def k6_launch_ms(x, coll, sizes, bi, ri, sc, cap, tri, want, dev):
+    """K6's two launches alone (K1's gathered form, K3's row form) on
+    indices already on the card, milliseconds per call; the fused output
+    must equal ``want``."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    b, r = len(bi), len(ri)
+    row_words = 4 * -(-r // 128)
+    gather = torch.from_numpy(np.concatenate([bi, ri]).astype(np.int32)).to(
+        dev)
+    geo = torch.tensor([[0], [0], [1]], dtype=torch.int32, device=dev)
+    counts = torch.zeros(1, dtype=torch.int32, device=dev)
+    packs = torch.empty((b, row_words), dtype=torch.int32, device=dev)
+    out = torch.full((1 + cap,), -1, dtype=torch.int32, device=dev)
+
+    def run():
+        counts.zero_()
+        bm.launch_filter((x, coll, sizes), (x, coll, sizes),
+                         (gather[:b], gather[b:]), geo, 1, b, r, row_words,
+                         sc, False, "greedy", tri, counts, packs)
+        out[:1] = counts
+        bm.compact_rows_into(packs, r, out[1:], cap)
+        return out
+
+    got, ms = cuda_ms(run, reps=20)
+    if not torch.equal(got, want):
+        raise AssertionError("K6's launches alone differ from its wrapper")
+    return ms
+
+
+def phase_greedy_filter_kernel(corpora, dev, rec, card, b1_ops):
+    """K6 against ``greedy_filter_plain`` at the batched greedy's shapes:
+    a batch of B = 2,048 genomes against R = 1,024 and 16,384 reps (the
+    rep list padded with the padding row, as rep_cap pads it), the batch
+    against itself (triangular), and a ragged B = 7, over the resident
+    N = 32,768 signatures of phases 8a and 8b; cap 262,144 (the JAX
+    route's), so a dense case runs past it.  Beside it one bfloat16
+    ``torch.mm`` of the same gathered 0/1 product."""
+    say("== phase 3g: K6 (greedy_filter) against greedy_filter_plain")
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import greedy_device as gd
+    sc = bm.filter_scalars(THRESHOLD, kssd_params().kmer_size, "greedy")
+    cap = max(1 << 18, 2048 * 64)
+    for tag, hashes in corpora:
+        x, coll, sizes = greedy_resident(hashes, dev)
+        pad = x.shape[0] - 1
+        batch = np.arange(N_GREEDY // 2, N_GREEDY // 2 + 2048)
+        reps = {}
+        for r in (1024, 16384):
+            reps[r] = np.full(r, pad)
+            reps[r][:r - 24] = np.arange(r - 24) * (N_GREEDY // r)
+        for label, bi, ri, tri in (
+                ("B=2048 R=1024", batch, reps[1024], False),
+                ("B=2048 R=16384", batch, reps[16384], False),
+                ("B=2048 triangular", batch, batch, True),
+                ("B=7 R=1024", batch[:7], reps[1024], False)):
+            args = (x, bi, ri, coll, sizes, *sc, False, cap, tri)
+            got, call_ms = cuda_ms(lambda: gd.greedy_filter(*args), reps=5)
+            ms = k6_launch_ms(x, coll, sizes, bi, ri, sc, cap, tri, got, dev)
+            want, plain_ms = cuda_ms(lambda: gd.greedy_filter_plain(
+                x, torch.from_numpy(bi).to(dev, torch.int32),
+                torch.from_numpy(ri).to(dev, torch.int32), coll, sizes, *sc,
+                False, cap, tri), warmup=False)
+            what = f"{tag} {label}"
+            hold_exact(rec, "greedy_filter", got, want, what)
+            lib_ms = unpack_product_ms(bm, x[torch.from_numpy(bi).to(dev)],
+                                       x[torch.from_numpy(ri).to(dev)])
+            b, r = len(bi), len(ri)
+            k6_bound = pair_bound(b, r, tri, 4 * (1 + cap), b1_ops, 12)
+            entry = rec["greedy_filter"]
+            entry["ms"].append(ms)
+            entry["plain_ms"].append(plain_ms)
+            entry["bound"].append(k6_bound)
+            entry.setdefault("library_ms", lib_ms)
+            count = int(got[0])
+            past = " (past cap)" if count > cap else ""
+            say(f"K6 {what}: count {count}{past}: whole buffer exact; kernel {ms:.4f} ms (its launches "
+                f"alone; the wrapper's call with its index uploads "
+                f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+                f"bfloat16 torch.mm of the gathered product {lib_ms:.4f} "
+                f"ms; bound {k6_bound[0]:.4f} ms ({k6_bound[1]}), kernel at "
+                f"{k6_bound[0] / ms:.3f} of it; card {card}")
+        del x, coll, sizes
+        torch.cuda.empty_cache()
+
+
+def band_shard(shard, r, rows):
+    """Rows [r, r + rows) of an exact-ring shard, as a shard of its own."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    return de.PlaneShard(shard.p0[r:r + rows],
+                         None if shard.p1 is None else shard.p1[r:r + rows],
+                         shard.sizes[r:r + rows], shard.lo + r)
+
+
+def exact_step_bound(loc, vis, kind, n_out):
+    """The exact ring step's bound: both shards' compact forms read once
+    (values and ids, bucket offsets), ``n_out`` (position, count) pairs
+    written, and the compares ``ring_compares`` counts."""
+    from rabbittclust_tpu_torch.ops.pack import compact_of
+    forms = [compact_of(s.p0, None) for s in (loc, vis)]
+    return bound(sum(f.entries * 5 + f.goff.numel() * 4 for f in forms)
+                 + 8 * n_out, ring_compares(loc, vis, kind), CORE_OPS)
+
+
+def ring_compares(loc, vis, kind):
+    """The compares K4 needs for a ring step between two one-plane shards:
+    for every block of 128 x 128 pairs it computes (all of them, or on the
+    self step those with some j < i), its rows' real entries of each bucket
+    against its columns'."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP
+    occ = [(s.p0 >= 0).sum(1, dtype=torch.int64).view(
+        -1, GROUP, s.p0.shape[2]).sum(1).double() for s in (loc, vis)]
+    need = occ[0] @ occ[1].T
+    if kind == "self":
+        i0 = GROUP * torch.arange(need.shape[0], device=need.device)
+        need = need * (i0[None, :] < i0[:, None] + GROUP - 1)
+    return int(need.sum())
+
+
+def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
+    """Each ring step kind of the exact, bitmap and mask rings (self,
+    interior, antipodal on the higher shard, and the antipodal step's
+    empty tile on the lower one) at 4 shards of N = 16,384 and 8 shards of
+    N = 131,072, against the plain steps (the JAX ownership mask on the
+    genome ids); the exact ring's plain step on a band of rows; then one
+    LP round over a shard's slab with a clear list of repeated targets."""
+    say("== phase 3h: the mesh ring steps against their plain versions "
+        "(logical shards on one card)")
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    from rabbittclust_tpu_torch.ops.pack import pack_sketches
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    sc_all = bm.filter_scalars(THRESHOLD, kssd_params().kmer_size)
+    sc, radio = sc_all[:3], int(sc_all[3])
+    for n, n_dev, band in ((N_GENOMES, 4, 256), (N_SLICE, 8, 128)):
+        hashes = corpus[:n]
+        mesh = de.make_mesh(devices=[dev] * n_dev)
+        shard = n // n_dev
+        band = min(band, shard)
+        top = n_dev - 1
+        cases = (("self", top, 0), ("interior", top, 1),
+                 ("antipodal", top, n_dev // 2),
+                 ("antipodal, lower shard", 0, n_dev // 2))
+        xp, coll = bm.pack_bitmaps_packed(hashes, BITS, pad_n_to=n_dev)
+        sizes = np.array([len(h) for h in hashes], dtype=np.int32)
+        shards = de._bit_shards(xp, coll, sizes, mesh)
+        del xp
+        for label, d, t in cases:
+            loc, vis = shards[d], shards[(d - t) % n_dev]
+            kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
+            what = f"{n_dev} shards of N={n} {label} ({kind})"
+            got, ms = cuda_ms(lambda: de.ring_bitmap_step(
+                loc, vis, t, n_dev, sc, radio, False), reps=3)
+            want, plain_ms = cuda_ms(lambda: de.ring_bitmap_step_plain(
+                loc, vis, t, n_dev, sc, radio, False), warmup=False)
+            hold_exact(rec, "ring_bitmap", got, want, what)
+            out = torch.zeros((1, shard, shard // 8), dtype=torch.uint8,
+                              device=dev)
+            _, mms = cuda_ms(lambda: de.ring_masks_step(
+                loc, vis, t, n_dev, sc, radio, False, out), reps=3)
+            want_m, mplain_ms = cuda_ms(lambda: bm.pack_mask_u8(
+                de.ring_filter_mask_plain(loc, vis, t, n_dev, sc, radio,
+                                          False)), warmup=False)
+            hold_exact(rec, "ring_masks", out[0], want_m, what)
+            del want_m
+            if kind == "none":
+                say(f"ring step {what}: empty on both: exact")
+                continue
+            lib_ms = unpack_product_ms(bm, loc.xp, vis.xp)
+            count = got.numel()
+            b_bm = pair_bound(shard, shard, kind == "self", 4 * count,
+                              b1_ops)
+            b_mk = pair_bound(shard, shard, kind == "self",
+                              shard * shard // 8, b1_ops)
+            for name, t_ms, p_ms, bnd in (("ring_bitmap", ms, plain_ms, b_bm),
+                                          ("ring_masks", mms, mplain_ms,
+                                           b_mk)):
+                rec[name]["ms"].append(t_ms)
+                rec[name]["plain_ms"].append(p_ms)
+                rec[name]["bound"].append(bnd)
+                rec[name].setdefault("library_ms", lib_ms)
+            say(f"ring step {what}: bitmap ring {count} candidates, mask "
+                f"ring's slab step: exact; bitmap {ms:.4f} ms (plain "
+                f"{plain_ms:.3f}), masks {mms:.4f} ms (plain "
+                f"{mplain_ms:.3f}), bfloat16 torch.mm of the product "
+                f"{lib_ms:.4f} ms; bounds {b_bm[0]:.4f} / {b_mk[0]:.4f} ms "
+                f"({b_bm[1]}); card {card}")
+        if n == N_SLICE:
+            # one slab of the mesh LP engine (shard 7: steps 0..4) and one
+            # round of it with a clear list of repeated targets
+            rng = np.random.default_rng(6)
+            slab = torch.zeros((de._n_ring_steps(n_dev), shard, shard // 8),
+                               dtype=torch.uint8, device=dev)
+            for t in range(slab.shape[0]):
+                de.ring_masks_step(shards[top], shards[(top - t) % n_dev], t,
+                                   n_dev, sc, radio, False, slab[t:t + 1])
+            geo = torch.tensor([[top * shard] * slab.shape[0],
+                                [((top - t) % n_dev) * shard
+                                 for t in range(slab.shape[0])],
+                                [1] * slab.shape[0]], dtype=torch.int32,
+                               device=dev)
+            clr = torch.from_numpy(clear_targets(slab.cpu().numpy(),
+                                                 rng)).to(dev)
+            planted = np.arange(n) % N_CLUSTERS
+            labels = torch.from_numpy(mixed_labels(planted, rng)).to(dev)
+            mine, ref = slab.clone(), slab.clone()
+            got, ms = cuda_ms(lambda: lp.lp_round(mine, labels, clr, *geo,
+                                                  shard), reps=3)
+            want, plain_ms = cuda_ms(lambda: lp.round_plain(
+                ref, labels, clr, *geo, shard), warmup=False)
+            hold_exact(rec, "dist_lp_round", got, want,
+                       "one slab round, fused output")
+            hold_exact(rec, "dist_lp_round", mine, ref,
+                       "one slab round, cleared slab")
+            b_lp = bound(slab.numel() + 4 * labels.numel() + 4 * clr.numel()
+                         + 4 * got.numel(), 0, CORE_OPS)
+            rec["dist_lp_round"]["ms"].append(ms)
+            rec["dist_lp_round"]["plain_ms"].append(plain_ms)
+            rec["dist_lp_round"]["bound"].append(b_lp)
+            live = clr[3] > 0
+            say(f"LP slab round, shard {top} of 8 at N={n} ({slab.shape[0]} "
+                f"steps of {shard}^2, {int(live.sum())} clear-list bits), "
+                f"cross {int(want[0])}: fused output and slab exact; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound {b_lp[0]:.4f} "
+                f"ms ({b_lp[1]}), kernel at {b_lp[0] / ms:.3f} of it; card "
+                f"{card}")
+            del slab, mine, ref, got, want
+        del shards
+        torch.cuda.empty_cache()
+        # the exact ring: planes of the shards the cases read (all four at
+        # N = 16,384; shards 3, 6 and 7 at N = 131,072, whose empty case
+        # reads shards 0 and 4 only for their ids)
+        need = sorted({d for _, d, _ in cases} | {(d - t) % n_dev
+                                                  for _, d, t in cases})
+        if n == N_SLICE:
+            need = [3, 6, 7]
+        part = [h for d in need for h in hashes[d * shard:(d + 1) * shard]]
+        t0 = time.perf_counter()
+        pk = pack_sketches(part, False, pad_n_to=shard)
+        pack_s = time.perf_counter() - t0
+        planes = {}
+        for q, d in enumerate(need):
+            sl = slice(q * shard, (q + 1) * shard)
+            planes[d] = de.PlaneShard(
+                torch.from_numpy(pk.plane0[sl].view(np.int32)).to(dev), None,
+                torch.from_numpy(pk.sizes[sl].astype(np.int32)).to(dev),
+                d * shard)
+        for d in range(n_dev):
+            if d not in planes:  # the empty case's ids only
+                planes[d] = de.PlaneShard(planes[need[0]].p0, None,
+                                          planes[need[0]].sizes, d * shard)
+        for label, d, t in cases:
+            loc, vis = planes[d], planes[(d - t) % n_dev]
+            kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
+            what = f"{n_dev} shards of N={n} {label} ({kind})"
+            (flat, common), ms = cuda_ms(lambda: de.ring_edges_step(
+                loc, vis, t, n_dev, radio), reps=1)
+            # the plain step on the whole tile for the first case, else on
+            # a band of rows (K4's plain form takes seconds a band)
+            whole = not rec.get("ring_edges", {}).get("ms")
+            r, rows = (0, shard) if whole else (shard // 2 - band // 2, band)
+            (pf, pc), plain_ms = cuda_ms(lambda: de.ring_edges_step_plain(
+                band_shard(loc, r, rows), vis, t, n_dev, radio),
+                warmup=False)
+            li = flat.long() // shard
+            inb = (li >= r) & (li < r + rows)
+            rows_of = f"rows {r}..{r + rows - 1}"
+            hold_exact(rec, "ring_edges", (flat.long()[inb] - r * shard).to(
+                torch.int32), pf, f"{what} {rows_of}")
+            hold_exact(rec, "ring_edges", common[inb], pc,
+                       f"{what} common counts")
+            if kind == "none":
+                say(f"exact ring step {what}: empty on both: exact")
+                continue
+            b_ex = exact_step_bound(loc, vis, kind, flat.numel())
+            if whole:
+                rec["ring_edges"]["ms"].append(ms)
+                rec["ring_edges"]["plain_ms"].append(plain_ms)
+                rec["ring_edges"]["bound"].append(b_ex)
+            say(f"exact ring step {what}: {flat.numel()} pairs (K4 mask "
+                f"mode, K3, K5b), {rows_of} against the plain step: exact; "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for those rows;"
+                f" bound {b_ex[0]:.4f} ms ({b_ex[1]}), kernel at "
+                f"{b_ex[0] / ms:.3f} of it; planes packed in {pack_s:.3f} s"
+                f"; card {card}")
+        del planes, pk
+        torch.cuda.empty_cache()
+
+
+def phase_mesh(corpus, want, dev, tmp):
+    """The mesh ring engines over logical shards on the card: (a)
+    ``RTC_MESH=1 clust-mst`` (one visible card: a 1-shard exact ring)
+    against phase 4's dense-engine files, (b) ``distributed_mst`` exact and
+    bitmap over 4 shards, (c) the mesh LP engine over 8 shards at
+    N = 131,072, (d) the bitmap ring's threshold clusters and similarity
+    graph over 4 shards."""
+    say("== phase 15: the mesh ring engines (N logical shards on one card; "
+        "no multi-GPU time is claimed from them)")
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.cluster.leiden import build_similarity_graph
+    from rabbittclust_tpu_torch.cluster.mst import (clusters_from_forest,
+                                                    cut_forest)
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    from rabbittclust_tpu_torch.state import sketch_io
+    k = kssd_params().kmer_size
+    hashes = corpus[:N_GENOMES]
+    n = len(hashes)
+    launches = {}
+
+    folder = os.path.join(tmp, "mesh_sketches")
+    save_presketched(hashes, folder)
+    out = os.path.join(tmp, "mesh.cluster")
+    os.environ["RTC_MESH"] = "1"
+    de.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rc = main(["--fast", "--device", "--presketched", folder, "-o", out,
+                   "-d", str(THRESHOLD)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["RTC_MESH"]
+    if rc != 0:
+        raise RuntimeError(f"RTC_MESH=1 clust-mst returned {rc}")
+    la = dict(de.LAUNCHES)
+    if la["ring_edges"] != 1:
+        raise AssertionError(f"the 1-shard exact ring launched {la}")
+    dense_folder = os.path.join(tmp, "sketches")
+    if not (same_file(out, os.path.join(tmp, "slice.cluster")) and
+            same_file(os.path.join(folder, "edge.mst"),
+                      os.path.join(dense_folder, "edge.mst"))):
+        raise AssertionError("RTC_MESH=1: edge.mst or .cluster differs from "
+                             "phase 4's dense-engine run")
+    say(f"15a RTC_MESH=1 clust-mst --fast --device --presketched, N={n}: a "
+        f"1-shard exact ring, edge.mst and .cluster byte-equal to phase 4's"
+        f" dense engine; wall {wall:.3f} s; launches {la}")
+
+    mesh4 = de.make_mesh(devices=[dev] * 4)
+    dense_mst = sketch_io.load_mst(dense_folder)
+    for engine in ("exact", "bitmap"):
+        de.reset_launches()
+        t0 = time.perf_counter()
+        res = de.distributed_mst(hashes, THRESHOLD, k, mesh=mesh4,
+                                 engine=engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        key = "ring_edges" if engine == "exact" else "ring_bitmap"
+        launches[key] = de.LAUNCHES[key]
+        if launches[key] != 10:
+            raise AssertionError(f"{engine} ring over 4 shards: "
+                                 f"{launches[key]} step launches, not 10")
+        got = partition(clusters_from_forest(cut_forest(res.mst, THRESHOLD),
+                                             n))
+        if got != want:
+            raise AssertionError(f"{engine} ring: partition differs")
+        same = engine == "bitmap" or all(
+            np.array_equal(a, b) for a, b in zip(res.mst, dense_mst))
+        if not same:
+            raise AssertionError("exact ring: MST differs from the dense "
+                                 "engine's edge.mst")
+        say(f"15b distributed_mst engine={engine} over [cuda:0] * 4, N={n}:"
+            f" {len(res.mst[0])} MST edges"
+            f"{' = the dense engine edge.mst' if engine == 'exact' else ''}"
+            f", partition at {THRESHOLD} = phase 4's; {secs:.3f} s (4 "
+            f"logical shards on one card); step launches {launches[key]}")
+    # the copies a mesh of distinct cards would make, which logical shards
+    # on one card do not (the dist_engine module's analytic volume)
+    say(f"15b a bitmap ring over 4 distinct cards would move per device "
+        f"{de.ring_comm_stats(-(-n // 4) * 4, 4, BITS // 8)} (analytic, "
+        "not measured: the logical shards share one card)")
+
+    mesh8 = de.make_mesh(devices=[dev] * 8)
+    de.reset_launches()
+    t0 = time.perf_counter()
+    got = de.distributed_threshold_clusters_lp(corpus, THRESHOLD, k,
+                                               mesh=mesh8)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["ring_masks"] = de.LAUNCHES["ring_masks"]
+    launches["dist_lp_round"] = de.LAUNCHES["dist_lp_round"]
+    planted = partition([list(range(c, len(corpus), N_CLUSTERS))
+                         for c in range(N_CLUSTERS)])
+    if partition(got) != planted:
+        raise AssertionError(f"mesh LP: {len(got)} clusters, not the "
+                             f"{N_CLUSTERS} planted ones")
+    st = de.DIST_LP_LAST
+    say(f"15c distributed_threshold_clusters_lp over [cuda:0] * 8, "
+        f"N={len(corpus)}: the {N_CLUSTERS} planted clusters in {secs:.3f} s"
+        f" (8 logical shards on one card): build {st['build_ms']:.3f} ms, "
+        f"{st['rounds']} rounds, per-round ms "
+        f"{[round(x, 4) for x in st['round_ms']]}, host rounds "
+        f"{st['rounds_s']:.3f} s; step launches {launches['ring_masks']}, "
+        f"slab rounds {launches['dist_lp_round']}")
+    comm = de.dist_lp_comm_stats(st["n_pad"], st["n_dev"], st["bits"],
+                                 st["rounds"])
+    say(f"15c over 8 distinct cards it would move per device {comm} "
+        "(analytic, not measured)")
+
+    de.reset_launches()
+    t0 = time.perf_counter()
+    tc = de.distributed_threshold_clusters(hashes, THRESHOLD, k, mesh=mesh4)
+    tc_s = time.perf_counter() - t0
+    if partition(tc) != want:
+        raise AssertionError("distributed_threshold_clusters: partition "
+                             "differs from phase 4's")
+    t0 = time.perf_counter()
+    frm, to, w = de.distributed_similarity_graph(hashes, THRESHOLD, k,
+                                                 mesh=mesh4)
+    g_s = time.perf_counter() - t0
+    hf, ht, hw = build_similarity_graph(hashes, THRESHOLD, k)
+
+    def edge_order(f, t, wt):
+        f, t, wt = (np.asarray(x) for x in (f, t, wt))
+        o = np.lexsort((wt, t, f))
+        return f[o], t[o], wt[o]
+
+    if len(frm) != len(hf) or not all(
+            np.array_equal(a, b) for a, b in zip(edge_order(frm, to, w),
+                                                 edge_order(hf, ht, hw))):
+        raise AssertionError("distributed_similarity_graph: edges differ "
+                             "from build_similarity_graph's")
+    say(f"15d over [cuda:0] * 4, N={n}: distributed_threshold_clusters = "
+        f"phase 4's partition ({tc_s:.3f} s), distributed_similarity_graph "
+        f"= build_similarity_graph's {len(frm)} edges and weights "
+        f"({g_s:.3f} s); bitmap step launches {de.LAUNCHES['ring_bitmap']}")
+    say("launches (phase 15): " + ", ".join(
+        f"{k_}={v}" for k_, v in launches.items()))
+    return launches
+
+
+def batched_oracle(hashes, kmer_size):
+    """The copied ``greedy_cluster_batched`` (a Python inverted index), run
+    in a worker process while the card runs the earlier phases."""
+    from rabbittclust_tpu_torch.cluster.greedy import greedy_cluster_batched
+    t0 = time.perf_counter()
+    res = greedy_cluster_batched(hashes, THRESHOLD, kmer_size,
+                                 batch_size=2048)
+    return res.clusters, res.representatives, time.perf_counter() - t0
+
+
+def phase_batched_greedy(corpora, oracles, dev):
+    """``greedy_cluster_device(conflict="batched", batch_size=2048)`` at
+    N = 32,768 on phases 8a's and 8b's corpora, equal to the copied
+    ``greedy_cluster_batched``."""
+    say("== phase 16: the batched greedy (K6) at N=32,768")
+    from rabbittclust_tpu_torch.ops import greedy_device as gd
+    k = kssd_params().kmer_size
+    launches = 0
+    for (tag, hashes), oracle in zip(corpora, oracles):
+        gd.reset_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        res = gd.greedy_cluster_device(hashes, THRESHOLD, k,
+                                       batch_size=2048, conflict="batched",
+                                       device=dev, stats=stats)
+        secs = time.perf_counter() - t0
+        n_k6 = gd.LAUNCHES["greedy_filter"]
+        clusters, reps, host_s = oracle.get()
+        if res.clusters != clusters or res.representatives != reps:
+            raise AssertionError(f"batched greedy {tag}: differs from "
+                                 "greedy_cluster_batched")
+        if n_k6 < -(-(len(hashes) - 1) // 2048):
+            raise AssertionError(f"batched greedy {tag}: {n_k6} K6 launches")
+        launches = launches or n_k6
+        say(f"16 {tag}: {len(reps)} reps, {len(clusters)} clusters = "
+            f"greedy_cluster_batched's; {secs:.3f} s (device sweep "
+            f"{stats['sweep_s']:.3f} s, host {stats['replay_s']:.3f} s), "
+            f"the Python oracle {host_s:.3f} s (in a worker process)")
+        say(f"launches (phase 16 {tag}): greedy_filter={n_k6}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -2041,12 +2601,65 @@ def main() -> int:
     sparse = make_corpus(N_GREEDY, SKETCH, N_GREEDY // 2, SEED + 3)
     say(f"sparse corpus of {N_GREEDY} genomes (pairs) made in "
         f"{time.perf_counter() - t0:.3f} s")
+    greedy_corpora = [("8a", sparse), ("8b", corpus[:N_GREEDY])]
+    # phase 16's Python oracles run meanwhile in two worker processes at the
+    # lowest priority, so that they take no core from the host code timed
+    # in phases 3-15 (they are done before phase 4)
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        2, initializer=os.nice, initargs=(19,))
+    try:
+        oracles = [pool.apply_async(batched_oracle,
+                                    (h, kssd_params().kmer_size))
+                   for _, h in greedy_corpora]
+        pool.close()
+        launches, rec = run_phases(corpus, hashes, sparse, greedy_corpora,
+                                   oracles, dev, card)
+    finally:
+        pool.terminate()
+        pool.join()
+    loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
+              or m.startswith(("jax.", "rabbittclust_tpu."))]
+    if loaded:
+        raise AssertionError(f"jax or the JAX package was imported: {loaded}")
+    # each kernel's first timed case, its bound and, for K1, K6 and the
+    # bitmap and mask rings, the one PyTorch call that computes its
+    # product, for K3 torch.nonzero over the unpacked masks (no single call
+    # computes K2's, K4's, K5b's, K7's, K8's, the exact ring's or the LP
+    # round's function); launches from the run of the path that uses the
+    # kernel (K4's counts mode is on no path: the dense engine takes its
+    # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
+    # first device run, K8's from phase 14's WMH run, K6's from phase 16's
+    # 8a run, the rings' from phase 15)
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": rec[name]["err"],
+                "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0],
+                "bound_ms": rec[name]["bound"][0][0],
+                "bound_by": rec[name]["bound"][0][1],
+                "library_ms": rec[name].get("library_ms")}
+               for name, (src, replaces) in KERNELS.items()]
+    say(f"script seconds: {time.perf_counter() - T_START:.1f}")
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
+    """Phases 3-16; returns (launches, kernel records)."""
     rec = phase_kernels(hashes, dev)
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
     phase_compact_kernel(hashes, sparse, dev, rec, card)
     phase_sketch_kernel(dev, rec, card)
     phase_match_kernel(dev, rec, card)
+    phase_greedy_filter_kernel(greedy_corpora, dev, rec, card, b1_ops)
+    phase_ring_kernels(corpus, dev, rec, card, b1_ops)
+    say("phase 16's oracles " + ", ".join(
+        f"{tag}: {'done' if o.ready() else 'running'}"
+        for (tag, _), o in zip(greedy_corpora, oracles)))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
         launches, want = phase_end_to_end(hashes, dev, tmp)
@@ -2060,34 +2673,13 @@ def main() -> int:
         phase_append(tmp, N_GENOMES)
         launches["mask_compact"] = phase_dbscan(
             [("sparse", sparse, 2), ("planted", hashes, 5)], tmp)
-        del sparse
         phase_leiden(hashes, tmp)
         launches["kssd_sketch"] = phase_device_sketch(tmp, dev)
         launches["tuple_match"] = phase_extra_sketch(tmp, dev)
-    loaded = [m for m in sys.modules if m in ("jax", "rabbittclust_tpu")
-              or m.startswith(("jax.", "rabbittclust_tpu."))]
-    if loaded:
-        raise AssertionError(f"jax or the JAX package was imported: {loaded}")
-    # each kernel's first timed case, its bound and, for K1, the one
-    # PyTorch call that computes its product, for K3 torch.nonzero over the
-    # unpacked masks (no single call computes K2's, K4's, K5b's, K7's or
-    # K8's function); launches from the run of the path that uses the
-    # kernel (K4's counts mode is on no path: the dense engine takes its
-    # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
-    # first device run, K8's from phase 14's WMH run)
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": rec[name]["err"],
-                "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0],
-                "bound_ms": rec[name]["bound"][0][0],
-                "bound_by": rec[name]["bound"][0][1],
-                "library_ms": rec[name].get("library_ms")}
-               for name, (src, replaces) in KERNELS.items()]
-    say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        launches.update(phase_mesh(corpus, want, dev, tmp))
+        launches["greedy_filter"] = phase_batched_greedy(greedy_corpora,
+                                                         oracles, dev)
+    return launches, rec
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ Layout mirrors the JAX package:
                         engine's generator, mask bit-packing
     ops/labelprop.py    resident-mask label-propagation engine: kernel K2
     ops/cluster_fast.py MST-free dispatcher (stream / LP, -t 1 order)
-    ops/greedy_device.py greedy over one K1 sweep and a host replay
+    ops/greedy_device.py greedy over one K1 sweep and a host replay, and
+                        the batched greedy over kernel K6
+    parallel/dist_engine.py
+                        the mesh ring engines over a list of devices
+                        (exact, bitmap and mask rings, the mesh LP round)
     ops/transfer.py     device-to-host pulls on events
     ops/sketch_device.py the device KSSD sketcher (RTC_DEVICE_SKETCH=1):
                         kernel K7

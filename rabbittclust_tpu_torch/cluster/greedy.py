@@ -18,7 +18,9 @@ Re-derivation of the reference flagship algorithm
 Clusters are reported in representative-creation order with the
 representative first (src/greedy.cpp:854-867).  Both engines run in the
 native library (``rtc_greedy_*``, ``rtc_greedy_minhash``); the port has no
-Python fallback.
+Python fallback.  ``greedy_cluster_batched`` (the reference's experimental
+batched variant, over a Python inverted index) is the oracle of the batched
+device route, ``ops/greedy_device.py`` with ``conflict="batched"``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -40,6 +42,129 @@ class GreedyResult:
     clusters: List[List[int]]       # in original (input) genome ids
     representatives: List[int]      # original ids, one per cluster
     order: np.ndarray               # size-desc permutation used internally
+
+
+# Source: rabbittclust_tpu/cluster/greedy.py::RepInvertedIndex (what
+# greedy_cluster_batched calls)
+class RepInvertedIndex:
+    """Dynamic hash -> [rep_id] index over representatives only
+    (reference DynamicInvertedIndex, src/greedy.cpp:361-520)."""
+
+    def __init__(self):
+        self.index: Dict[int, List[int]] = {}
+
+    def add_representative(self, rep_id: int, hashes: np.ndarray) -> None:
+        idx = self.index
+        for h in hashes.tolist():
+            lst = idx.get(h)
+            if lst is None:
+                idx[h] = [rep_id]
+            else:
+                lst.append(rep_id)
+
+    def probe(self, hashes: np.ndarray):
+        """Intersection counts with every rep sharing >= 1 hash.
+        Returns (touched_rep_ids, counts) in first-touch order."""
+        idx = self.index
+        cnt: Dict[int, int] = {}
+        for h in hashes.tolist():
+            lst = idx.get(h)
+            if lst is None:
+                continue
+            for r in lst:
+                cnt[r] = cnt.get(r, 0) + 1
+        # Python dicts preserve insertion (first-touch) order.
+        return list(cnt.keys()), list(cnt.values())
+
+
+# Source: rabbittclust_tpu/cluster/greedy.py::greedy_cluster_batched
+def greedy_cluster_batched(
+    hashes: List[np.ndarray],
+    threshold: float,
+    kmer_size: int,
+    batch_size: int = 64,
+    presorted: bool = False,
+    is_containment: bool = False,
+) -> GreedyResult:
+    """Batched greedy variant (reference
+    KssdGreedyClusterWithInvertedIndexBatched, greedy.cpp:1412-1543):
+    each batch matches against the representative index snapshot in
+    parallel (min exact distance <= threshold); conflicts are resolved by
+    inserting results in distance-descending order, so would-be
+    representatives are registered before closer matches are assigned.
+    Exact-distance ties go to the smallest rep id (the reference iterates an
+    unordered_map, i.e. its tie order is unspecified); the device variant
+    (ops/greedy_device.py) reproduces this tie-break bit-exactly.
+    """
+    n = len(hashes)
+    if n == 0:
+        return GreedyResult([], [], np.empty(0, dtype=np.int64))
+    if presorted:
+        order = np.arange(n, dtype=np.int64)
+        inv = list(hashes)
+    else:
+        sizes0 = np.array([len(h) for h in hashes], dtype=np.int64)
+        order = np.lexsort((np.arange(n), -sizes0))
+        inv = [hashes[i] for i in order]
+    sizes = np.array([len(h) for h in inv], dtype=np.int64)
+
+    index = RepInvertedIndex()
+    rep_order: List[int] = [0]
+    members: Dict[int, List[int]] = {0: []}
+    index.add_representative(0, inv[0])
+
+    def mash(common, s0, s1):
+        denom = s0 + s1 - common
+        if s0 == 0 or s1 == 0 or denom == 0:
+            return 1.0
+        j = common / denom
+        if j == 1.0:
+            return 0.0
+        if j == 0.0:
+            return 1.0
+        d = -math.log(2 * j / (1.0 + j)) / kmer_size
+        return min(d, 1.0)
+
+    def aaf(common, s0, s1):
+        mn = min(s0, s1)
+        if mn == 0:
+            return 1.0
+        c = common / mn
+        if c == 1.0:
+            return 0.0
+        if c == 0.0:
+            return 1.0
+        return min(-math.log(c) / kmer_size, 1.0)
+
+    dist_fn = aaf if is_containment else mash
+
+    for b0 in range(1, n, batch_size):
+        b1 = min(b0 + batch_size, n)
+        results = []
+        for j in range(b0, b1):
+            touched, counts = index.probe(inv[j])
+            best_d, best_rep = float("inf"), -1
+            for rep_id, common in zip(touched, counts):
+                d = dist_fn(common, int(sizes[j]), int(sizes[rep_id]))
+                if d <= threshold and (d < best_d or
+                                       (d == best_d and rep_id < best_rep)):
+                    best_d, best_rep = d, rep_id
+            results.append((j, best_d, best_rep))
+        # distance-descending conflict resolution (ties: stable)
+        results.sort(key=lambda t: -t[1])
+        for j, _d, rep in results:
+            if rep != -1:
+                members[rep].append(j)
+            else:
+                rep_order.append(j)
+                members[j] = []
+                index.add_representative(j, inv[j])
+
+    clusters = [[int(order[r])] + [int(order[m]) for m in members[r]]
+                for r in rep_order]
+    reps_orig = [int(order[r]) for r in rep_order]
+    return GreedyResult(clusters=clusters, representatives=reps_orig,
+                        order=order)
 
 
 # Source: rabbittclust_tpu/cluster/greedy.py::_greedy_native

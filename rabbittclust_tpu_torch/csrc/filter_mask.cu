@@ -13,6 +13,23 @@
 // __fadd_rn, __fdiv_rn: no FMA contraction, no fast-math division).  The
 // (rb, rb) count matrix never reaches device memory.
 //
+// A second kernel, filter_pair_kernel (the same tiles, loads and product
+// over FilterArgs), carries two more JAX programs; the square sweep keeps
+// filter_mask_kernel as it was (one generalised kernel for all three ran
+// slower on the sweep):
+//   - the mesh rings' steps (rabbittclust_tpu/parallel/dist_engine.py
+//     ::build_ring_bitmap_fn, build_ring_masks_fn): rows from the local
+//     shard's signatures and columns from the visiting shard's (sig_c,
+//     coll_c, size_c), the strict triangle only on the self step (tri), and
+//     a radio of 0 that disables the size-ratio gate;
+//   - K6, rabbittclust_tpu/ops/greedy_device.py::_greedy_filter_fn: a
+//     batch's rows and its reps' columns gathered through two index lists
+//     in the loads (GATHER: the block's 256 genome ids staged in shared
+//     memory once), a rows x cols rectangle with ragged edges, the greedy
+//     bound, and the triangle on positions in its triangular mode.  K3's
+//     row form (mask_compact.cu) then writes the set positions b * R + r
+//     in order.
+//
 // Bound: the shared-bit counts are a 0/1 matrix product, rb^2 * bits
 // bit multiply-adds per tile.  A 4096^2 tile at 8192 bits is 1.37e11 of
 // them, 2.75e11 operations.  As an int8 product that is 0.139 ms at the
@@ -59,7 +76,9 @@
 // any order, and equal to the popcount of the packed mask by construction.
 //
 // Shapes: any rb that is a multiple of 32 (block tiles past rb % 128 are
-// masked: a warp's 32 columns lie wholly inside or outside the tile), any
+// masked: a warp's 32 columns lie wholly inside or outside the tile; K6's
+// rectangles take any rows and cols, columns past cols masked one by one),
+// any
 // bits that is a power of two of at least 64 (a short last stage is zero),
 // batches up to 65,535.  Offsets into the masks are 64-bit: a panel of 512
 // tiles at rb = 8192 is 4.3 GB.
@@ -92,6 +111,10 @@ static_assert(KSTEPS == 4, "the swizzle spreads 4 genomes over 4 groups");
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Bound { kMst = 0, kGreedy = 1, kMinhash = 2 };
+// filter_pair_kernel's modes.  kRing: the columns' own signatures,
+// collisions and sizes, the triangle when tri, radio 0 disabling the gate;
+// kGather: as kRing, rows and columns gathered through index lists (K6)
+enum Mode { kRing = 0, kGather = 1 };
 
 __device__ __forceinline__ void cp_async8(uint32_t* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -337,6 +360,250 @@ filter_mask_kernel(const uint64_t* __restrict__ sig, int words,
   if (threadIdx.x == 0 && block_count) atomicAdd(&counts[t], block_count);
 }
 
+// The operands of one launch.  Rows come from sig_r, columns from sig_c
+// (the same signatures for the square sweep, two shards' for a ring step).
+// Row position p of a tile is genome p (sig_r's row p) unless gat_r is set
+// (K6: the genome is gat_r[p]); columns likewise.  A tile is rows x cols
+// pairs from positions (r0s[t], c0s[t]); its mask rows are row_words uint32
+// words apart.
+struct FilterArgs {
+  const uint64_t* sig_r;
+  const uint64_t* sig_c;
+  const int* coll_r;
+  const int* coll_c;
+  const int* size_r;
+  const int* size_c;
+  const int* gat_r;
+  const int* gat_c;
+  const int* r0s;
+  const int* c0s;
+  const int* valid;
+  int* counts;
+  uint32_t* packs;
+  int words, rows, cols, row_words;
+  float jmin_num, jmin_den, c_min, radio_f;
+  int radio_i, containment, bound, tri;
+};
+
+// load_chunk for filter_pair_kernel: rows from sig_r, columns from sig_c,
+// the genomes gr[0, rows_left) and gc[...] under GATHER.
+template <int MODE>
+__device__ __forceinline__ void load_pair_chunk(uint32_t* stage,
+                                           const FilterArgs& A, int chunk,
+                                           int64_t row0, int64_t col0,
+                                           const int64_t* gr,
+                                           const int64_t* gc, int rows_left,
+                                           int cols_left) {
+  const int words = A.words;
+  const int w0 = chunk * CHUNK64;
+  // 16-byte granules of two words; 64-bit signatures (words == 1) are not
+  // 16-byte aligned and take 8-byte ones
+  const int per = (words & 1) ? CHUNK64 : CHUNK64 / 2;
+  const int gw = (words & 1) ? 1 : 2;  // 64-bit words a granule
+  for (int e = threadIdx.x; e < (BM + BN) * per; e += THREADS) {
+    const int g = e / per;
+    const int w = (e % per) * gw;  // 64-bit word of the chunk
+    uint32_t* dst = stage + g * CHUNK32 + swz(g, 2 * w);
+    const bool is_row = g < BM;
+    const int local = is_row ? g : g - BM;
+    if (w0 + w >= words) {
+      if (gw == 2)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+    } else if (local < (is_row ? rows_left : cols_left)) {
+      const int64_t gen = MODE == kGather
+                              ? (is_row ? gr[local] : gc[local])
+                              : (is_row ? row0 : col0) + local;
+      const uint64_t* src =
+          (is_row ? A.sig_r : A.sig_c) + gen * words + w0 +
+          w;
+      if (gw == 2)
+        cp_async16(dst, src);
+      else
+        cp_async8(dst, src);
+    }
+  }
+}
+
+// pair_ok for filter_pair_kernel: the triangle on positions only when tri
+__device__ __forceinline__ bool pair_gate(int shared, int i, int j, int si,
+                                        int sj, int ci, int cj,
+                                        const FilterArgs& A) {
+  const float fi = (float)si;
+  const float fj = (float)sj;
+  const float mn_f = fminf(fi, fj);
+  int common_min;
+  if (A.containment) {
+    common_min = (int)floorf(__fmul_rn(A.c_min, mn_f)) - 1;
+  } else {
+    common_min = (int)floorf(__fdiv_rn(
+        __fmul_rn(A.jmin_num, __fadd_rn(fi, fj)), A.jmin_den)) - 1;
+  }
+  const int thresh = common_min - min(ci, cj);
+  const int mni = min(si, sj);
+  bool ok = mni > 0;  // padded rows and columns die here
+  if (A.bound == kGreedy && !A.containment) {
+    ok = ok && fmaxf(fi, fj) <= __fadd_rn(__fmul_rn(A.radio_f, mn_f), 1.0f);
+  } else if (A.bound == kMst && A.radio_i != 0) {
+    // int32 product, wrapping as in XLA; radio 0 disables the gate (the
+    // mesh rings' containment callers)
+    ok = ok && max(si, sj) <= (int)((unsigned)A.radio_i * (unsigned)mni);
+  }
+  return ok && shared >= thresh && (!A.tri || j < i);
+}
+
+// filter_mask_kernel over FilterArgs: the mesh rings' steps and K6
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
+filter_pair_kernel(const FilterArgs A) {
+  constexpr bool GATHER = MODE == kGather;
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int block_count;
+  // the block's genomes under GATHER
+  __shared__ int64_t gr[GATHER ? BM : 1], gc[GATHER ? BN : 1];
+  const int t = blockIdx.z;
+  const int tile_row = blockIdx.y * BM;
+  const int tile_col = blockIdx.x * BN;
+  const int64_t row_words = A.row_words;
+  uint32_t* out = A.packs + (int64_t)t * A.rows * row_words;
+  if (!A.valid[t]) {  // a padding slot: zeros, count 0
+    const int nrow = min(BM, A.rows - tile_row);
+    const int nw = min(BN / 32, A.row_words - tile_col / 32);
+    for (int e = threadIdx.x; e < nrow * nw; e += THREADS)
+      out[(int64_t)(tile_row + e / nw) * row_words + tile_col / 32 + e % nw] =
+          0u;
+    return;
+  }
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const int g = lane / 4;  // fragment row / column group
+  const int q = lane % 4;  // lane quad: k words 2q and 2q + 1 of a k-step
+  const int r0 = A.r0s[t];
+  const int c0 = A.c0s[t];
+  const int rows_left = A.rows - tile_row;
+  const int cols_left = A.cols - tile_col;
+  const int64_t row0 = (int64_t)r0 + tile_row;
+  const int64_t col0 = (int64_t)c0 + tile_col;
+  if (GATHER) {
+    for (int e = threadIdx.x; e < BM + BN; e += THREADS) {
+      const bool is_row = e < BM;
+      const int local = is_row ? e : e - BM;
+      if (local < (is_row ? rows_left : cols_left))
+        (is_row ? gr : gc)[local] =
+            is_row ? A.gat_r[row0 + local] : A.gat_c[col0 + local];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) block_count = 0;
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+
+  const int chunks = (A.words + CHUNK64 - 1) / CHUNK64;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks)
+      load_pair_chunk<MODE>(smem + s * STAGE32, A, s, row0, col0, gr, gc,
+                            rows_left, cols_left);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed; stage (c - 1) % STAGES is free
+    const int next = c + STAGES - 1;
+    if (next < chunks)
+      load_pair_chunk<MODE>(smem + (next % STAGES) * STAGE32, A, next,
+                            row0, col0, gr, gc, rows_left, cols_left);
+    cp_async_commit();
+    const uint32_t* stage = smem + (c % STAGES) * STAGE32;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint2 a[MT][2];
+      uint2 b[NT];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gr_ = wm * WM + mi * 16 + h * 8 + g;  // row g (+ 8)
+          a[mi][h] = *reinterpret_cast<const uint2*>(
+              stage + gr_ * CHUNK32 + swz(gr_, 8 * ks + 2 * q));
+        }
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int gc_ = BM + wn * WN + ni * 8 + g;  // column g
+        b[ni] = *reinterpret_cast<const uint2*>(
+            stage + gc_ * CHUNK32 + swz(gc_, 8 * ks + 2 * q));
+      }
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          mma_b1(acc[mi][ni], a[mi][0].x, a[mi][1].x, a[mi][0].y, a[mi][1].y,
+                 b[ni].x, b[ni].y);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: accumulator (mi, ni, 2h + e) is row wm*64 + mi*16 + h*8 + g,
+  // column wn*32 + ni*8 + 2q + e of the block tile
+  const int col_w = tile_col + wn * WN;  // the warp's mask word, local
+  int mine = 0;
+  if (col_w < A.row_words * 32) {  // warp-uniform
+    int jc[NT][2], sj[NT][2], cj[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int local = col_w + ni * 8 + 2 * q + e;
+        const bool col_in = local < A.cols;
+        const int64_t gen =
+            GATHER ? (col_in ? gc[local - tile_col] : 0) : (int64_t)c0 + local;
+        jc[ni][e] = c0 + local;
+        sj[ni][e] = col_in ? A.size_c[gen] : 0;  // 0: no pair
+        cj[ni][e] = col_in ? A.coll_c[gen] : 0;
+      }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int local = tile_row + wm * WM + mi * 16 + h * 8 + g;
+        const bool row_in = local < A.rows;
+        const int i = r0 + local;
+        const int64_t gen =
+            GATHER ? (row_in ? gr[local - tile_row] : 0) : (int64_t)i;
+        const int si = row_in ? A.size_r[gen] : 0;
+        const int ci = row_in ? A.coll_r[gen] : 0;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (pair_gate(acc[mi][ni][2 * h + e], i, jc[ni][e], si, sj[ni][e],
+                          ci, cj[ni][e], A))
+              word |= 1u << (ni * 8 + 2 * q + e);
+        word |= __shfl_xor_sync(FULL, word, 1);
+        word |= __shfl_xor_sync(FULL, word, 2);
+        if (row_in && ((mi * 2 + h) & 3) == q) {
+          out[(int64_t)local * row_words + col_w / 32] = word;
+          mine += __popc(word);
+        }
+      }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) mine += __shfl_xor_sync(FULL, mine, o);
+  if (lane == 0 && mine) atomicAdd(&block_count, mine);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_count) atomicAdd(&A.counts[t], block_count);
+}
+
 // The rate of mma_b1 alone, for K1's bound: each thread runs CHAINS
 // independent accumulator chains of `iters` instructions on registers,
 // with no memory traffic but the one sum it stores.
@@ -365,39 +632,95 @@ __global__ void mma_b1_peak_kernel(int iters, int* __restrict__ out) {
 
 extern "C" {
 
-// sig: (n_pad, words) uint64 (the packed uint8 signatures); coll, size_row,
-// size_col: (n_pad,) int32 (size_row == size_col except for the "minhash"
-// bound); r0s/c0s/valid: (batch,) int32; counts: (batch,) int32, zeroed by
-// the caller; packs: (batch, rb, rb / 8) uint8, 4-byte aligned.  rb % 32 == 0.
-int rtc_filter_mask(const void* sig, int words, const void* coll,
-                    const void* size_row, const void* size_col,
-                    const void* r0s, const void* c0s, const void* valid,
-                    int batch, int rb, float jmin_num, float jmin_den,
+// sig_r/sig_c: (n, words) uint64 (the packed uint8 signatures) of the
+// rows and of the columns; coll_*, size_*: int32 per genome of each (size_r
+// and size_c of one set differ for the "minhash" bound only); gat_r/gat_c:
+// null, or int32 genome of each row/column position (K6); r0s/c0s/valid:
+// (batch,) int32 tile origins in positions; counts: (batch,) int32, zeroed
+// by the caller; packs: (batch, rows, row_words) uint32.  A tile is rows x
+// cols pairs; ceil(cols / 32) <= row_words <= 4 ceil(cols / 128) (every
+// word of a row is written).  tri: keep only column position < row
+// position.
+int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
+                    const void* coll_r, const void* coll_c,
+                    const void* size_r, const void* size_c,
+                    const void* gat_r, const void* gat_c, const void* r0s,
+                    const void* c0s, const void* valid, int batch, int rows,
+                    int cols, int row_words, float jmin_num, float jmin_den,
                     float c_min, int radio_i, float radio_f, int containment,
-                    int bound, void* counts, void* packs, void* stream) {
+                    int bound, int tri, void* counts, void* packs,
+                    void* stream) {
   if (batch == 0) return 0;
-  if (rb <= 0 || rb % 32 != 0 || words <= 0 || batch > 65535)
+  if (rows <= 0 || cols <= 0 || words <= 0 || batch > 65535 ||
+      row_words < (cols + 31) / 32 || row_words > 4 * ((cols + BN - 1) / BN) ||
+      (gat_r == nullptr) != (gat_c == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the square sweep (one set of signatures, square tiles, the triangle,
+  // the ratio gate) takes filter_mask_kernel; the rest filter_pair_kernel
+  const bool sweep = gat_r == nullptr && sig_c == sig_r &&
+                     coll_c == coll_r && tri && rows == cols &&
+                     row_words * 32 == cols && cols % 32 == 0 &&
+                     (bound != kMst || radio_i != 0);
+  const int mode = sweep ? 2 : gat_r != nullptr ? kGather : kRing;
+  const void* kernels[3] = {(const void*)filter_pair_kernel<kRing>,
+                            (const void*)filter_pair_kernel<kGather>,
+                            (const void*)filter_mask_kernel};
   // past 48 KB of dynamic shared memory: raise the kernel's limit once per
   // device, before its first launch there
-  static bool smem_set[64] = {};
+  static bool smem_set[3][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(filter_mask_kernel,
+  if (!smem_set[mode][dev]) {
+    err = cudaFuncSetAttribute(kernels[mode],
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
+    smem_set[mode][dev] = true;
   }
-  const dim3 grid((rb + BN - 1) / BN, (rb + BM - 1) / BM, batch);
-  filter_mask_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const uint64_t*)sig, words, (const int*)coll, (const int*)size_row,
-      (const int*)size_col, (const int*)r0s, (const int*)c0s,
-      (const int*)valid, rb, jmin_num, jmin_den, c_min, radio_i, radio_f,
-      containment, bound, (int*)counts, (uint32_t*)packs);
+  const dim3 grid((cols + BN - 1) / BN, (rows + BM - 1) / BM, batch);
+  if (sweep) {
+    filter_mask_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+        (const uint64_t*)sig_r, words, (const int*)coll_r,
+        (const int*)size_r, (const int*)size_c, (const int*)r0s,
+        (const int*)c0s, (const int*)valid, rows, jmin_num, jmin_den, c_min,
+        radio_i, radio_f, containment, bound, (int*)counts,
+        (uint32_t*)packs);
+    return (int)cudaGetLastError();
+  }
+  FilterArgs A;
+  A.sig_r = (const uint64_t*)sig_r;
+  A.sig_c = (const uint64_t*)sig_c;
+  A.coll_r = (const int*)coll_r;
+  A.coll_c = (const int*)coll_c;
+  A.size_r = (const int*)size_r;
+  A.size_c = (const int*)size_c;
+  A.gat_r = (const int*)gat_r;
+  A.gat_c = (const int*)gat_c;
+  A.r0s = (const int*)r0s;
+  A.c0s = (const int*)c0s;
+  A.valid = (const int*)valid;
+  A.counts = (int*)counts;
+  A.packs = (uint32_t*)packs;
+  A.words = words;
+  A.rows = rows;
+  A.cols = cols;
+  A.row_words = row_words;
+  A.jmin_num = jmin_num;
+  A.jmin_den = jmin_den;
+  A.c_min = c_min;
+  A.radio_f = radio_f;
+  A.radio_i = radio_i;
+  A.containment = containment;
+  A.bound = bound;
+  A.tri = tri;
+  if (mode == kGather)
+    filter_pair_kernel<kGather>
+        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(A);
+  else
+    filter_pair_kernel<kRing>
+        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,13 @@
 // The order of the output is thus fixed by the scans, not by any race, and
 // equals the JAX program's element for element.
 //
+// Row form (rtc_mask_compact_rows), the second half of kernel K6
+// (rabbittclust_tpu/ops/greedy_device.py::_greedy_filter_fn): one (rows,
+// 128 row_chunks) mask of a batch against its reps, written by K1's
+// gathered form with whole 16-byte chunks a row; the same two launches
+// number chunk c's bits (c / row_chunks) * out_cols + column, the JAX
+// program's b_local * R + r_local, in order.
+//
 // Bound: device memory bandwidth.  The selected tiles' packed masks are
 // read twice (count, then scatter; the second read mostly from the 50 MB L2
 // at the stream generator's batch of 16 tiles of 1024^2, 2 MB) and 4 bytes
@@ -76,13 +83,14 @@ __device__ __forceinline__ uint4 load_chunk(const uint4* tile, int c,
   return c < chunks ? __ldg(tile + c) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// tiles: (3, m) int32 = source tile, first output position, code
+// tiles: (3, m) int32 = source tile, first output position, code; null:
+// tile q, position 0, code 0
 __global__ void __launch_bounds__(THREADS)
 mc_count_kernel(const uint4* __restrict__ packs, const int* __restrict__ tiles,
                 int chunks, int n_seg, int* __restrict__ seg_counts) {
   __shared__ int ws[THREADS / 32];
   const int q = blockIdx.y;
-  const uint4* tile = packs + (size_t)tiles[q] * chunks;
+  const uint4* tile = packs + (size_t)(tiles ? tiles[q] : q) * chunks;
   const int c0 = blockIdx.x * SEG + threadIdx.x;
   int n = 0;
 #pragma unroll
@@ -96,7 +104,7 @@ mc_count_kernel(const uint4* __restrict__ packs, const int* __restrict__ tiles,
 __global__ void __launch_bounds__(THREADS)
 mc_scatter_kernel(const uint4* __restrict__ packs,
                   const int* __restrict__ tiles, int m, int chunks,
-                  int n_seg, int tile_bits,
+                  int n_seg, int tile_bits, int row_chunks, int out_cols,
                   const int* __restrict__ seg_counts, int limit,
                   int* __restrict__ out) {
   __shared__ int ws[THREADS / 32];
@@ -107,9 +115,10 @@ mc_scatter_kernel(const uint4* __restrict__ packs,
     before += seg[s];
   int pos;
   block_scan(before, ws, &pos);
-  pos += tiles[m + q];
-  const int code = tiles[2 * m + q] * tile_bits;  // below 2^31 (wrapper)
-  const uint4* tile = packs + (size_t)tiles[q] * chunks;
+  pos += tiles ? tiles[m + q] : 0;
+  // below 2^31 (wrapper)
+  const int code = tiles ? tiles[2 * m + q] * tile_bits : 0;
+  const uint4* tile = packs + (size_t)(tiles ? tiles[q] : q) * chunks;
   for (int s = 0; s < STEPS; ++s) {
     const int c = blockIdx.x * SEG + s * THREADS + threadIdx.x;
     const uint4 v = load_chunk(tile, c, chunks);
@@ -119,7 +128,11 @@ mc_scatter_kernel(const uint4* __restrict__ packs,
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       unsigned x = words[w];
-      const int at = code + c * 128 + w * 32;
+      // row c / row_chunks of out_cols columns (one row a tile for the
+      // square tiles)
+      const int row = c / row_chunks;
+      const int at = code + row * out_cols + (c - row * row_chunks) * 128 +
+                     w * 32;
       while (x) {
         if (p < limit) out[p] = at + __ffs(x) - 1;
         ++p;
@@ -156,7 +169,32 @@ int rtc_mask_compact(const void* packs, const void* tiles, int m, int rb,
   if (err != cudaSuccess) return (int)err;
   mc_scatter_kernel<<<grid, THREADS, 0, st>>>(
       (const uint4*)packs, (const int*)tiles, m, chunks, n_seg, tile_bits,
-      (const int*)seg_counts, limit, (int*)out);
+      chunks, 0, (const int*)seg_counts, limit, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// K6's compaction: the set bits of one (rows, 128 row_chunks) packed mask,
+// row-major, as int32 r * out_cols + c (c < out_cols <= 128 row_chunks),
+// in order from out[0]; no write at or past limit.  seg_counts: scratch of
+// ceil(rows * row_chunks / SEG) int32.  rows * out_cols < 2^31.
+int rtc_mask_compact_rows(const void* packs, int rows, int row_chunks,
+                          int out_cols, void* seg_counts, int limit,
+                          void* out, void* stream) {
+  if (rows <= 0 || row_chunks <= 0 || out_cols <= 0 ||
+      out_cols > 128 * row_chunks ||
+      (long long)rows * row_chunks * 128 >= (1LL << 31) || limit < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int chunks = rows * row_chunks;
+  const int n_seg = (chunks + SEG - 1) / SEG;
+  const dim3 grid(n_seg, 1);
+  mc_count_kernel<<<grid, THREADS, 0, st>>>((const uint4*)packs, nullptr,
+                                            chunks, n_seg, (int*)seg_counts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mc_scatter_kernel<<<grid, THREADS, 0, st>>>(
+      (const uint4*)packs, nullptr, 1, chunks, n_seg, 0, row_chunks,
+      out_cols, (const int*)seg_counts, limit, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -102,13 +102,13 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rtc_pair_tiles.restype = ci
-    lib.rtc_pair_tiles.argtypes = [vp] * 12 + [ci] * 10 + [vp]
+    lib.rtc_pair_tiles.argtypes = [vp] * 18 + [ci] * 11 + [vp]
     lib.rtc_pair_common.restype = ci
-    lib.rtc_pair_common.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.rtc_pair_common.argtypes = [vp] * 12 + [ci] * 3 + [vp]
     cf = ctypes.c_float
     lib.rtc_filter_mask.restype = ci
-    lib.rtc_filter_mask.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,
-                                    cf, cf, cf, ci, cf, ci, ci, vp, vp, vp]
+    lib.rtc_filter_mask.argtypes = [vp, vp, ci] + [vp] * 9 + [ci] * 4 + [
+        cf, cf, cf, ci, cf, ci, ci, ci, vp, vp, vp]
     lib.rtc_mma_b1_peak.restype = ci
     lib.rtc_mma_b1_peak.argtypes = [ci, ci, ci, ci, vp, vp]
     lib.rtc_lp_round.restype = ci
@@ -121,6 +121,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_lp_compact.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     lib.rtc_mask_compact.restype = ci
     lib.rtc_mask_compact.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp]
+    lib.rtc_mask_compact_rows.restype = ci
+    lib.rtc_mask_compact_rows.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp]
     u64 = ctypes.c_uint64
     lib.rtc_kssd_sketch.restype = ci
     lib.rtc_kssd_sketch.argtypes = [vp, ci, ci, vp, u64, u64, u64, u64, ci,

@@ -44,7 +44,7 @@ import torch
 
 from ..distance.mash import min_jaccard_for_threshold, size_ratio_limit
 from ..utils import native as native_mod
-from .intersect import _launch, _upload
+from .intersect import _launch, _ptr, _upload
 from .pack import _to_device
 from .transfer import _host_async, _host_wait
 
@@ -189,19 +189,25 @@ def filter_scalars(threshold: float, kmer_size: int, bound: str = "mst"):
 
 
 def tile_mask_plain(xd, cd, sd, r0, c0, rb, jmin_num, jmin_den, c_min,
-                    radio, is_containment, bound="mst") -> torch.Tensor:
+                    radio, is_containment, bound="mst", cols=None,
+                    tri=True) -> torch.Tensor:
     """Safe candidate mask (rb, rb) bool of the tile rows [r0, +rb) x
     columns [c0, +rb); the operations of ``_tile_mask``, in its order.
-    The float32 product of 0/1 values is exact (counts < 2^24)."""
+    The float32 product of 0/1 values is exact (counts < 2^24).  ``cols``,
+    when given, is the (signatures, collisions, sizes) the columns come
+    from (a visiting shard's); ``tri`` keeps column < row only.  Under the
+    "mst" bound ``radio`` 0 disables the size-ratio gate (as in the JAX
+    mesh rings; the sweep's radio is never 0)."""
     dev = xd.device
     f32 = torch.float32
+    xc, cc, sc = (xd, cd, sd) if cols is None else cols
     xi = unpack_bits(xd[r0:r0 + rb])
-    xj = unpack_bits(xd[c0:c0 + rb])
-    ci, cj = cd[r0:r0 + rb], cd[c0:c0 + rb]
+    xj = unpack_bits(xc[c0:c0 + rb])
+    ci, cj = cd[r0:r0 + rb], cc[c0:c0 + rb]
     if bound == "minhash":
-        si, sj = sd[0, r0:r0 + rb], sd[1, c0:c0 + rb]
+        si, sj = sd[0, r0:r0 + rb], sc[1, c0:c0 + rb]
     else:
-        si, sj = sd[r0:r0 + rb], sd[c0:c0 + rb]
+        si, sj = sd[r0:r0 + rb], sc[c0:c0 + rb]
     shared = (xi @ xj.T).to(torch.int32)
     si_c = si[:, None].to(f32)
     s_c = sj[None, :].to(f32)
@@ -223,14 +229,18 @@ def tile_mask_plain(xd, cd, sd, r0, c0, rb, jmin_num, jmin_den, c_min,
                                 <= rf * torch.minimum(si_c, s_c) + 1.0)
     else:
         mxi = torch.maximum(si[:, None], sj[None, :])
-        ratio_ok = (mni > 0) & (mxi <= int(radio) * mni)
-    span = torch.arange(rb, dtype=torch.int32, device=dev)
-    lower = (span[None, :] + c0) < (span[:, None] + r0)
-    return (shared >= thresh) & ratio_ok & lower
+        ratio_ok = (mni > 0) & ((mxi <= int(radio) * mni) if int(radio)
+                                else True)
+    mask = (shared >= thresh) & ratio_ok
+    if tri:
+        span = torch.arange(rb, dtype=torch.int32, device=dev)
+        mask &= (span[None, :] + c0) < (span[:, None] + r0)
+    return mask
 
 
 def batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den,
-                       c_min, radio, is_containment, rb, bound="mst"):
+                       c_min, radio, is_containment, rb, bound="mst",
+                       cols=None, tri=True):
     """Plain K1: per-tile counts (k,) int32 and packed masks
     (k, rb, rb // 8) uint8; tiles with ``valid == 0`` give 0 and zeros."""
     k = len(r0s)
@@ -241,41 +251,89 @@ def batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den,
         if ok:
             m = tile_mask_plain(xd, cd, sd, int(r0), int(c0), rb, jmin_num,
                                 jmin_den, c_min, radio, is_containment,
-                                bound)
+                                bound, cols, tri)
             counts[t] = m.sum(dtype=torch.int32)
             packs[t] = pack_mask_u8(m)
     return counts, packs
 
 
-def _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid):
-    if xd.device.type != "cuda":
-        raise ValueError(f"signatures on {xd.device}: expected cuda or cpu")
+def _check_signatures(xd, cd, sd, bound, dev):
+    """The (signatures, collisions, sizes) of one side of K1 on ``dev``."""
     if (xd.dtype != torch.uint8 or xd.dim() != 2 or not xd.is_contiguous()
-            or xd.shape[1] % 8 or xd.shape[1] == 0):
-        raise ValueError("signatures must be a contiguous (n_pad, bits // 8)"
-                         " uint8 tensor with whole 64-bit words")
+            or xd.shape[1] % 8 or xd.shape[1] == 0 or xd.device != dev):
+        raise ValueError(f"signatures must be a contiguous (n_pad, bits // 8)"
+                         f" uint8 tensor on {dev} with whole 64-bit words")
     n_pad = xd.shape[0]
     want_sd = (2, n_pad) if bound == "minhash" else (n_pad,)
     for name, t, shape in (("collisions", cd, (n_pad,)),
                            ("sizes", sd, want_sd)):
         if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != xd.device):
+                or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name} must be a contiguous int32 {shape} "
-                             f"tensor on {xd.device}")
+                             f"tensor on {dev}")
+
+
+def _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid, cols):
+    if xd.device.type != "cuda":
+        raise ValueError(f"signatures on {xd.device}: expected cuda or cpu")
+    _check_signatures(xd, cd, sd, bound, xd.device)
+    if cols is not None:
+        _check_signatures(*cols, bound, xd.device)
+        if cols[0].shape[1] != xd.shape[1]:
+            raise ValueError("row and column signatures differ in bits")
     if rb <= 0 or rb % 32:
         raise ValueError(f"rb={rb}: must be a positive multiple of 32")
     live = valid != 0
+    n_col = xd.shape[0] if cols is None else cols[0].shape[0]
     if live.any() and (min(r0s[live].min(), c0s[live].min()) < 0 or
-                       max(r0s[live].max(), c0s[live].max()) + rb > n_pad):
-        raise ValueError(f"a tile of {rb} rows leaves the {n_pad} padded "
-                         "signatures")
+                       r0s[live].max() + rb > xd.shape[0] or
+                       c0s[live].max() + rb > n_col):
+        raise ValueError(f"a tile of {rb} rows leaves the {xd.shape[0]} / "
+                         f"{n_col} padded signatures")
+
+
+def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
+                  scalars, is_containment, bound, tri, counts, packs) -> None:
+    """One K1 launch (``csrc/filter_mask.cu::rtc_filter_mask``), counted
+    by the caller: ``rows``
+    and ``cols`` are (signatures, collisions, sizes) of each side (sizes
+    (2, n) under "minhash": the rows read row 0, the columns row 1);
+    ``gather`` None or the (row, column) int32 genome of each position
+    (K6); ``geo`` (3, k) int32 tile origins and validity on the card."""
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    (xr, cr, sr), (xc, cc, sc) = rows, cols
+    if bound == "minhash":
+        sr, sc = sr[0], sc[1]
+    jmin_num, jmin_den, c_min, radio = scalars
+    radio_i = int(radio) if bound == "mst" else 0
+    radio_f = float(radio) if bound == "greedy" else 0.0
+    gr, gc = (None, None) if gather is None else gather
+    dev = xr.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_filter_mask, xr.data_ptr(), xc.data_ptr(),
+                xr.shape[1] // 8, cr.data_ptr(), cc.data_ptr(),
+                sr.data_ptr(), sc.data_ptr(), _ptr(gr), _ptr(gc),
+                geo[0].data_ptr(), geo[1].data_ptr(), geo[2].data_ptr(), k,
+                n_rows, n_cols, row_words, ctypes.c_float(float(jmin_num)),
+                ctypes.c_float(float(jmin_den)),
+                ctypes.c_float(float(c_min)), radio_i,
+                ctypes.c_float(radio_f), int(bool(is_containment)),
+                BOUNDS[bound], int(bool(tri)), counts.data_ptr(),
+                packs.data_ptr(), stream)
 
 
 def batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den, c_min,
-                 radio, is_containment, rb, bound="mst"):
+                 radio, is_containment, rb, bound="mst", cols=None, tri=True,
+                 packs=None):
     """K1: ``batched_mask_plain``'s result.  ``r0s``, ``c0s`` and ``valid``
     are host int sequences of one length; the other arguments are those of
-    the JAX ``_batched_mask_fn`` (``sd`` is (2, n_pad) for "minhash")."""
+    the JAX ``_batched_mask_fn`` (``sd`` is (2, n_pad) for "minhash").
+    ``cols`` (signatures, collisions, sizes on the same device) gives the
+    columns their own signatures, as a mesh ring step reads a visiting
+    shard's; ``tri`` keeps column < row only.  ``packs``, when given, is
+    the (k, rb, rb // 8) uint8 output (on the card)."""
     if bound not in BOUNDS:
         raise ValueError(f"unknown bound {bound!r}")
     r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
@@ -285,29 +343,22 @@ def batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den, c_min,
     if xd.device.type == "cpu":
         return batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num,
                                   jmin_den, c_min, radio, is_containment,
-                                  rb, bound)
-    _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid)
-    from ..kernels._build import load_kernels
-    lib = load_kernels()
+                                  rb, bound, cols, tri)
+    _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid, cols)
     k = len(r0s)
     dev = xd.device
     idx = _upload(np.stack([r0s, c0s, valid != 0]), dev)
     counts = torch.zeros(k, dtype=torch.int32, device=dev)
-    packs = torch.empty((k, rb, rb // 8), dtype=torch.uint8, device=dev)
-    rows = sd[0] if bound == "minhash" else sd
-    cols = sd[1] if bound == "minhash" else sd
-    radio_i = int(radio) if bound == "mst" else 0
-    radio_f = float(radio) if bound == "greedy" else 0.0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.rtc_filter_mask, xd.data_ptr(), xd.shape[1] // 8,
-                cd.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                idx[0].data_ptr(), idx[1].data_ptr(), idx[2].data_ptr(), k,
-                rb, ctypes.c_float(float(jmin_num)),
-                ctypes.c_float(float(jmin_den)),
-                ctypes.c_float(float(c_min)), radio_i,
-                ctypes.c_float(radio_f), int(bool(is_containment)),
-                BOUNDS[bound], counts.data_ptr(), packs.data_ptr(), stream)
+    if packs is None:
+        packs = torch.empty((k, rb, rb // 8), dtype=torch.uint8, device=dev)
+    elif (packs.dtype != torch.uint8 or not packs.is_contiguous() or
+          tuple(packs.shape) != (k, rb, rb // 8) or packs.device != dev):
+        raise ValueError(f"packs must be a contiguous ({k}, {rb}, {rb // 8})"
+                         f" uint8 tensor on {dev}")
+    launch_filter((xd, cd, sd), (xd, cd, sd) if cols is None else cols,
+                  None, idx, k, rb, rb, rb // 32,
+                  (jmin_num, jmin_den, c_min, radio), is_containment, bound,
+                  tri, counts, packs)
     LAUNCHES["filter_mask"] += 1
     return counts, packs
 
@@ -437,6 +488,46 @@ def _compact_into(packs: torch.Tensor, src, base, code, out: torch.Tensor,
         _launch(lib.rtc_mask_compact, packs.data_ptr(), tiles.data_ptr(), m,
                 rb, seg.data_ptr(), limit, out.data_ptr(), stream)
     LAUNCHES["mask_compact"] += 1
+
+
+def compact_rows_into(packs: torch.Tensor, out_cols: int, out: torch.Tensor,
+                      limit: int) -> None:
+    """Launch K3 in its row form (``rtc_mask_compact_rows``), counted by
+    the caller: the set bits of the (rows, row_words) uint32 mask
+    ``packs`` (row_words a multiple of 4: whole 16-byte chunks), row-major,
+    as int32 ``r * out_cols + c`` from ``out[0]``, none at or past
+    ``out[limit]``."""
+    rows, row_words = packs.shape
+    if (packs.dtype != torch.int32 or not packs.is_contiguous()
+            or row_words % 4 or packs.data_ptr() % 16
+            or not 0 < out_cols <= 32 * row_words):
+        raise ValueError("packs must be a contiguous, 16-byte aligned "
+                         "(rows, 4 m) int32 tensor covering out_cols")
+    if out.dtype != torch.int32 or not out.is_contiguous() \
+            or out.device != packs.device or out.numel() < limit:
+        raise ValueError(f"out must be a contiguous int32 tensor of at least "
+                         f"{limit} entries on {packs.device}")
+    _check_flat_range(rows, 32 * row_words)
+    if limit == 0 or rows == 0:
+        return
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    dev = packs.device
+    seg = torch.empty(-(-rows * row_words // 4 // MASK_COMPACT_SEG),
+                      dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_mask_compact_rows, packs.data_ptr(), rows,
+                row_words // 4, out_cols, seg.data_ptr(), limit,
+                out.data_ptr(), stream)
+
+
+def _check_flat_range(rows: int, cols: int) -> None:
+    if rows * cols >= INDEX_LIMIT:
+        raise ValueError(
+            f"a {rows} x {cols} mask: flat pair indices r * {cols} + c reach "
+            f"{rows * cols}, past int32 (the JAX program's indices wrap "
+            "there); use fewer rows or columns")
 
 
 def compact_masks(packs: torch.Tensor, counts, sel) -> torch.Tensor:

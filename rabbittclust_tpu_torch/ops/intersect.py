@@ -80,25 +80,28 @@ def pair_counts_row(a0: torch.Tensor, b0: torch.Tensor,
     return pair_counts_plain(a0, b0, a1, b1)
 
 
-def _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb):
+def _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb, cols=None):
+    q0, q1 = (p0, p1) if cols is None else cols[:2]
     out = torch.zeros((len(r0s), rb, rb), dtype=torch.int32,
                       device=p0.device)
     for t, (r0, c0, ok) in enumerate(zip(r0s, c0s, valid)):
         if ok:
             out[t] = pair_counts_plain(
-                p0[r0:r0 + rb], p0[c0:c0 + rb],
+                p0[r0:r0 + rb], q0[c0:c0 + rb],
                 None if p1 is None else p1[r0:r0 + rb],
-                None if p1 is None else p1[c0:c0 + rb])
+                None if p1 is None else q1[c0:c0 + rb])
     return out
 
 
 def mask_epilogue(counts: torch.Tensor, sizes: torch.Tensor, r0s, c0s,
-                  valid, radio: int, start_index: int, n: int, rb: int):
+                  valid, radio: int, start_index: int, n: int, rb: int,
+                  sizes_c: Optional[torch.Tensor] = None, tri: bool = True):
     """The mask of ``_mst_batch_fn`` over (batch, rb, rb) counts, in torch:
-    ``counts > 0``, the int32 size-ratio gate, ``j < i``, ``i < n`` and
-    ``i >= start_index``, valid tiles only.  Returns per-tile candidate
-    counts (batch,) int32 and bit-packed masks (batch, rb, rb // 8)
-    uint8."""
+    ``counts > 0``, the int32 size-ratio gate (none for ``radio`` 0, as in
+    the JAX mesh rings), ``j < i`` (with ``tri``), ``i < n`` and
+    ``i >= start_index``, valid tiles only; column sizes from ``sizes_c``
+    when given.  Returns per-tile candidate counts (batch,) int32 and
+    bit-packed masks (batch, rb, rb // 8) uint8."""
     from .bitmap import pack_mask_u8
     dev = counts.device
     origin = _upload(np.stack([np.asarray(x, dtype=np.int64).reshape(-1)
@@ -107,22 +110,25 @@ def mask_epilogue(counts: torch.Tensor, sizes: torch.Tensor, r0s, c0s,
     rows = origin[0][:, None] + span  # (batch, rb) global row ids
     cols = origin[1][:, None] + span
     si = sizes[rows.long()][:, :, None]
-    sj = sizes[cols.long()][:, None, :]
+    sj = (sizes if sizes_c is None else sizes_c)[cols.long()][:, None, :]
     mn = torch.minimum(si, sj)
     mx = torch.maximum(si, sj)
-    m = (counts > 0) & (mn > 0) & (mx <= radio * mn)
-    m &= cols[:, None, :] < rows[:, :, None]
+    m = (counts > 0) & (mn > 0)
+    if radio:
+        m &= mx <= radio * mn
+    if tri:
+        m &= cols[:, None, :] < rows[:, :, None]
     m &= ((rows < n) & (rows >= start_index))[:, :, None]
     m &= (origin[2] > 0)[:, None, None]
     return m.sum((1, 2), dtype=torch.int32), pack_mask_u8(m)
 
 
 def pair_mask_tiles_plain(p0, p1, sizes, r0s, c0s, valid, radio,
-                          start_index, n, rb):
+                          start_index, n, rb, cols=None, tri=True):
     """The plain counts of every valid tile, then ``mask_epilogue``."""
-    counts = _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb)
+    counts = _pair_counts_tiles_plain(p0, p1, r0s, c0s, valid, rb, cols)
     return mask_epilogue(counts, sizes, r0s, c0s, valid, radio, start_index,
-                         n, rb)
+                         n, rb, None if cols is None else cols[2], tri)
 
 
 def _check_planes(p0: torch.Tensor, p1: Optional[torch.Tensor]) -> None:
@@ -159,30 +165,35 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _tiles(p0, r0s, c0s, valid, rb):
-    """The tile origins as int64 arrays, bounds-checked on live tiles."""
+def _tiles(p0, r0s, c0s, valid, rb, n_cols=None):
+    """The tile origins as int64 arrays, bounds-checked on live tiles
+    (columns against ``n_cols`` genomes, by default the rows')."""
     r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
                        for x in (r0s, c0s, valid))
     if not len(r0s) == len(c0s) == len(valid):
         raise ValueError("r0s, c0s and valid differ in length")
     live = valid != 0
+    n_cols = p0.shape[0] if n_cols is None else n_cols
     if live.any() and (min(r0s[live].min(), c0s[live].min()) < 0 or
-                       max(r0s[live].max(), c0s[live].max()) + rb
-                       > p0.shape[0]):
-        raise ValueError(f"a tile of {rb} rows leaves the {p0.shape[0]} "
-                         "packed genomes")
+                       r0s[live].max() + rb > p0.shape[0] or
+                       c0s[live].max() + rb > n_cols):
+        raise ValueError(f"a tile of {rb} rows leaves the {p0.shape[0]} / "
+                         f"{n_cols} packed genomes")
     return r0s, c0s, valid
 
 
-def tile_config(compact: CompactPlanes, two_plane: bool, mode: int):
+def tile_config(compact: CompactPlanes, two_plane: bool, mode: int,
+                col_compact: Optional[CompactPlanes] = None):
     """(wb, cap, shared bytes) of the tile kernel: the longest bucket
     window whose staging ring fits ``STAGE_BUDGET``, and the ring's
     capacity in entries per side (``csrc/pair_counts.cu::stage_layout``
-    computes the same bytes)."""
+    computes the same bytes), over the rows' form and the columns'."""
     planes = 2 if two_plane else 1
     acc = GROUP * GROUP * 4 if mode == COUNTS else GROUP * GROUP // 8
+    forms = [compact] if col_compact is None else [compact, col_compact]
     for wb in WINDOWS:
-        cap = (compact.window_max[wb] + 31) // 16 * 16  # + 15 of shift
+        most = max(f.window_max[wb] for f in forms)
+        cap = (most + 31) // 16 * 16  # + 15 of shift
         stage = 2 * cap * (4 * planes + 1) + 2 * ((4 * (wb + 1) + 15)
                                                   // 16 * 16)
         if 2 * stage <= STAGE_BUDGET:
@@ -195,10 +206,18 @@ def tile_config(compact: CompactPlanes, two_plane: bool, mode: int):
 
 
 def _launch_tiles(mode, p0, p1, r0s, c0s, valid, rb, out, sizes=None,
-                  tile_counts=None, radio=0, start_index=0, n=0):
+                  tile_counts=None, radio=0, start_index=0, n=0, cols=None,
+                  tri=True):
     """One launch of the tile kernel; ``sizes`` and ``tile_counts`` are
-    read and written in the mask mode only."""
+    read and written in the mask mode only, as are ``cols`` (the column
+    side's planes and sizes) and ``tri``."""
     _check_planes(p0, p1)
+    if cols is not None:
+        _check_planes(cols[0], cols[1])
+        if (cols[0].shape[1:] != p0.shape[1:] or cols[0].device != p0.device
+                or (cols[1] is None) != (p1 is None)):
+            raise ValueError("the column planes must match the row planes' "
+                             "width, buckets, planes and device")
     if rb % GROUP:
         raise ValueError(f"rb={rb}: must be a multiple of {GROUP}")
     live = valid != 0
@@ -209,17 +228,23 @@ def _launch_tiles(mode, p0, p1, r0s, c0s, valid, rb, out, sizes=None,
     from ..kernels._build import load_kernels
     lib = load_kernels()
     cf = compact_of(p0, p1)
-    wb, cap, _ = tile_config(cf, p1 is not None, mode)
+    cc = cf if cols is None else compact_of(cols[0], cols[1])
+    wb, cap, _ = tile_config(cf, p1 is not None, mode,
+                             None if cols is None else cc)
+    sizes_c = sizes if cols is None else cols[2]
     idx = _upload(np.stack([r0s, c0s, live]), p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
         _launch(lib.rtc_pair_tiles, cf.g0.data_ptr(),
                 (cf.g0 if cf.g1 is None else cf.g1).data_ptr(),
                 cf.gid.data_ptr(), cf.goff.data_ptr(), cf.start.data_ptr(),
-                cf.padsq.data_ptr(), _ptr(sizes), idx[0].data_ptr(),
-                idx[1].data_ptr(), idx[2].data_ptr(), out.data_ptr(),
-                _ptr(tile_counts), len(r0s), rb, p0.shape[2], wb, cap,
-                int(p1 is not None), mode, radio, start_index, n, stream)
+                cf.padsq.data_ptr(), _ptr(sizes), cc.g0.data_ptr(),
+                (cc.g0 if cc.g1 is None else cc.g1).data_ptr(),
+                cc.gid.data_ptr(), cc.goff.data_ptr(), cc.start.data_ptr(),
+                _ptr(sizes_c), idx[0].data_ptr(), idx[1].data_ptr(),
+                idx[2].data_ptr(), out.data_ptr(), _ptr(tile_counts),
+                len(r0s), rb, p0.shape[2], wb, cap, int(p1 is not None),
+                mode, radio, start_index, n, int(bool(tri)), stream)
 
 
 def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
@@ -242,39 +267,47 @@ def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
 
 def pair_mask_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
                     sizes: torch.Tensor, r0s, c0s, valid, radio: int,
-                    start_index: int, n: int, rb: int):
+                    start_index: int, n: int, rb: int, cols=None,
+                    tri: bool = True):
     """The dense engine's batch (``_mst_batch_fn``): per-tile candidate
     counts (batch,) int32 and bit-packed masks (batch, rb, rb // 8) uint8
     of the pairs with a common hash that pass ``mask_epilogue``'s gates.
-    ``sizes`` (n_pad,) int32 on the planes' device."""
-    r0s, c0s, valid = _tiles(p0, r0s, c0s, valid, rb)
+    ``sizes`` (n_pad,) int32 on the planes' device.  ``cols`` (plane0,
+    plane1, sizes) gives the columns their own planes, as a mesh ring step
+    reads a visiting shard's; ``tri`` keeps j < i only."""
+    n_cols = None if cols is None else cols[0].shape[0]
+    r0s, c0s, valid = _tiles(p0, r0s, c0s, valid, rb, n_cols)
     if p0.device.type == "cpu":
         return pair_mask_tiles_plain(p0, p1, sizes, r0s, c0s, valid, radio,
-                                     start_index, n, rb)
-    if sizes.dtype != torch.int32 or sizes.device != p0.device or \
-            sizes.shape != (p0.shape[0],) or not sizes.is_contiguous():
-        raise ValueError("sizes must be a contiguous (n_pad,) int32 tensor "
-                         "on the planes' device")
+                                     start_index, n, rb, cols, tri)
+    for t, m in ((sizes, p0.shape[0]), (None if cols is None else cols[2],
+                                        n_cols)):
+        if t is not None and (t.dtype != torch.int32 or t.device != p0.device
+                              or t.shape != (m,) or not t.is_contiguous()):
+            raise ValueError("sizes must be contiguous (n_pad,) int32 "
+                             "tensors on the planes' device")
     cnts = torch.zeros(len(r0s), dtype=torch.int32, device=p0.device)
     packs = torch.zeros((len(r0s), rb, rb // 8), dtype=torch.uint8,
                         device=p0.device)
     _launch_tiles(MASK, p0, p1, r0s, c0s, valid, rb, packs, sizes, cnts,
-                  radio, start_index, n)
+                  radio, start_index, n, cols, tri)
     LAUNCHES["pair_mask_tiles"] += 1
     return cnts, packs
 
 
 def pair_common_plain(p0: torch.Tensor, p1: Optional[torch.Tensor],
                       ii: torch.Tensor, jj: torch.Tensor,
-                      chunk: int = 2048) -> torch.Tensor:
+                      chunk: int = 2048, cols=None) -> torch.Tensor:
     """Exact common counts for explicit pairs (int tensors on the planes'
-    device), (q,) int32; the chunked gather of ``_pair_common_fn``."""
+    device), (q,) int32; the chunked gather of ``_pair_common_fn``; ``jj``
+    indexes ``cols`` (plane0, plane1) when given."""
+    q0, q1 = (p0, p1) if cols is None else cols[:2]
     out = []
     for s in range(0, ii.shape[0], chunk):
         ic, jc = ii[s:s + chunk].long(), jj[s:s + chunk].long()
-        eq = p0[ic][:, :, None, :] == p0[jc][:, None, :, :]
+        eq = p0[ic][:, :, None, :] == q0[jc][:, None, :, :]
         if p1 is not None:
-            eq &= p1[ic][:, :, None, :] == p1[jc][:, None, :, :]
+            eq &= p1[ic][:, :, None, :] == q1[jc][:, None, :, :]
         out.append(eq.sum((1, 2, 3), dtype=torch.int32))
     if not out:
         return torch.zeros(0, dtype=torch.int32, device=p0.device)
@@ -299,13 +332,20 @@ def pair_common(p0: torch.Tensor, p1: Optional[torch.Tensor],
 
 
 def pair_common_launch(p0: torch.Tensor, p1: Optional[torch.Tensor],
-                       pairs: torch.Tensor) -> torch.Tensor:
+                       pairs: torch.Tensor, cols=None) -> torch.Tensor:
     """``pair_common`` for a (2, q) int32 tensor of pair indices already on
-    the planes' device, each in [0, n_pad) (unchecked: what
-    ``pair_common`` checks and uploads): (q,) int32."""
+    the planes' device, each in range (unchecked: what ``pair_common``
+    checks and uploads): (q,) int32.  ``cols`` (plane0, plane1), when
+    given, are the planes the second row indexes (a visiting shard's)."""
     if p0.device.type == "cpu":
-        return pair_common_plain(p0, p1, pairs[0], pairs[1])
+        return pair_common_plain(p0, p1, pairs[0], pairs[1], cols=cols)
     _check_planes(p0, p1)
+    if cols is not None:
+        _check_planes(cols[0], cols[1])
+        if (cols[0].shape[1:] != p0.shape[1:] or cols[0].device != p0.device
+                or (cols[1] is None) != (p1 is None)):
+            raise ValueError("the column planes must match the row planes' "
+                             "width, buckets, planes and device")
     if pairs.dtype != torch.int32 or pairs.dim() != 2 or \
             pairs.shape[0] != 2 or not pairs.is_contiguous() or \
             pairs.device != p0.device:
@@ -314,6 +354,7 @@ def pair_common_launch(p0: torch.Tensor, p1: Optional[torch.Tensor],
     from ..kernels._build import load_kernels
     lib = load_kernels()
     cf = compact_of(p0, p1)
+    cb = cf if cols is None else compact_of(cols[0], cols[1])
     q = pairs.shape[1]
     out = torch.empty(q, dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
@@ -321,7 +362,10 @@ def pair_common_launch(p0: torch.Tensor, p1: Optional[torch.Tensor],
         _launch(lib.rtc_pair_common, cf.v0.data_ptr(),
                 (cf.v0 if cf.v1 is None else cf.v1).data_ptr(),
                 cf.occ.data_ptr(), cf.start.data_ptr(), cf.padsq.data_ptr(),
-                pairs[0].data_ptr(), pairs[1].data_ptr(), out.data_ptr(), q,
-                p0.shape[2], int(p1 is not None), stream)
+                cb.v0.data_ptr(),
+                (cb.v0 if cb.v1 is None else cb.v1).data_ptr(),
+                cb.occ.data_ptr(), cb.start.data_ptr(), pairs[0].data_ptr(),
+                pairs[1].data_ptr(), out.data_ptr(), q, p0.shape[2],
+                int(p1 is not None), stream)
     LAUNCHES["pair_common"] += 1
     return out

@@ -34,7 +34,7 @@ on the slot order.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import List, Optional
 
 import numpy as np
@@ -196,6 +196,14 @@ class CompactPlanes:
     def entries(self) -> int:
         return int(self.start[-1])
 
+    def to(self, device: torch.device) -> "CompactPlanes":
+        """The same form on ``device`` (itself when it is there)."""
+        moved = {f.name: getattr(self, f.name) for f in fields(self)}
+        for name, val in moved.items():
+            if isinstance(val, torch.Tensor):
+                moved[name] = val.to(device)
+        return CompactPlanes(**moved)
+
 
 def compact_planes(p0: torch.Tensor, p1: Optional[torch.Tensor],
                    chunk_groups: int = 8) -> CompactPlanes:
@@ -266,8 +274,16 @@ def compact_of(p0: torch.Tensor,
     kept = getattr(p0, "_rtc_compact", None)
     if kept is not None and kept[0][0] is p1 and kept[0][1:] == key[1:]:
         return kept[1]
-    form = compact_planes(p0, p1)
-    p0._rtc_compact = (key, form)
+    return keep_compact(p0, p1, compact_planes(p0, p1))
+
+
+def keep_compact(p0: torch.Tensor, p1: Optional[torch.Tensor],
+                 form: CompactPlanes) -> CompactPlanes:
+    """Record ``form`` as the compact form of ``(p0, p1)``, for
+    ``compact_of`` to return (a form copied with its planes to another
+    device, in place of building it again there)."""
+    p0._rtc_compact = ((p1, p0._version,
+                        None if p1 is None else p1._version), form)
     return form
 
 

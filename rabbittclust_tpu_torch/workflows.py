@@ -264,16 +264,48 @@ def _mst_consumers(opts: OutputOptions) -> bool:
             or opts.dedup_dist >= 0.0 or opts.reps_per_cluster > 0)
 
 
+def mesh_devices(device: torch.device) -> List[torch.device]:
+    """The mesh ``--device`` runs on: every visible CUDA device, or the
+    one CPU device the caller passed (the plain versions)."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+# Source: rabbittclust_tpu/workflows.py::_compute_mst_engine (the --device
+# branches)
 def _compute_mst_engine(ss: SketchSet, threshold: float, kmer_size: int,
                         is_containment: bool, opts: OutputOptions,
                         device: torch.device,
                         stats: Optional[dict] = None, start_index: int = 0,
                         pre_edges=None):
-    """The single-device branch of the JAX ``_compute_mst_engine``."""
+    """The mesh ring engine when more than one CUDA device is visible
+    (``RTC_MESH``: ``auto``, the default; ``1`` forces it, any other value
+    keeps one device), else the dense MST engine on ``device``."""
+    devices = mesh_devices(device)
+    mesh_pref = os.environ.get("RTC_MESH", "auto")
+    use_mesh = (mesh_pref == "1" or
+                (mesh_pref == "auto" and len(devices) > 1)) \
+        and start_index == 0 and pre_edges is None and not opts.dense
+    if use_mesh:
+        # ring-sharded pair tiles over the mesh (edge-partition MST
+        # theorem).  The bitmap ring suffices when the MST is only cut at
+        # <= threshold (plain -e cluster run); anything that persists or
+        # analyzes the MST (edge.mst reuse at other thresholds, trees,
+        # auto-threshold) needs the full exact ring.
+        from .parallel.dist_engine import distributed_mst, make_mesh
+        full = (not opts.no_save) or opts.newick_tree \
+            or opts.phylip_tree or opts.nexus_tree \
+            or opts.linkage_matrix or opts.auto_threshold \
+            or opts.stability
+        log(f"-----using the {len(devices)}-device mesh ring engine "
+            f"({'exact' if full else 'bitmap'})")
+        return distributed_mst(ss.hashes, threshold, kmer_size,
+                               is_containment=is_containment,
+                               mesh=make_mesh(devices=devices),
+                               full_mst=full)
     if device.type == "cuda":
-        if torch.cuda.device_count() > 1:
-            log(f"-----{torch.cuda.device_count()} GPUs visible: using "
-                f"{device} only (multi-GPU is not ported yet)")
         log(f"-----using the dense MST engine on {device} "
             f"({torch.cuda.get_device_name(device)})")
     else:

@@ -1,6 +1,6 @@
-"""Kernels K1 / K2 / K3 / K4 (counts and mask modes) / K5b / K7 / K8 and
-the port's engines on the card, against their plain torch versions and
-the native host engine.  Marked ``cuda``; every test skips inside itself when no GPU
+"""Kernels K1 / K2 / K3 / K4 (counts and mask modes) / K5b / K6 / K7 / K8,
+the mesh ring steps and the port's engines on the card, against their
+plain torch versions and the native host engine.  Marked ``cuda``; every test skips inside itself when no GPU
 is visible.  This file imports no JAX, so it also runs where JAX is
 absent:
 
@@ -790,3 +790,255 @@ def test_device_sketch_cli_on_card(gpu, tmp_path, monkeypatch):
         folders[mode] = {p.name: p.read_bytes() for p in run.iterdir()}
         folders[mode]["out.cluster"] = (wd / "out.cluster").read_bytes()
     assert folders["1"] == folders["0"]
+
+
+# ---------------------------------------------------------------------------
+# K6 (greedy_filter) and the batched greedy route
+
+def _k6_inputs(gpu, n=300, bits=1024, containment=False, seed=4):
+    from rabbittclust_tpu_torch.ops.greedy_device import pack_bitmaps_packed
+    hashes = (containment_sketches(n=n, seed=seed) if containment else
+              clustered_sketches(n=n, s=150, n_clusters=12, seed=seed))
+    xp, coll = pack_bitmaps_packed(hashes, bits=bits, pad_n_to=128)
+    sizes = np.zeros(xp.shape[0], dtype=np.int32)
+    sizes[:n] = [len(h) for h in hashes]
+    return (torch.from_numpy(xp).to(gpu), torch.from_numpy(coll).to(gpu),
+            torch.from_numpy(sizes).to(gpu), xp.shape[0])
+
+
+@pytest.mark.parametrize("containment", [False, True], ids=["mash", "aaf"])
+@pytest.mark.parametrize("triangular", [False, True], ids=["rect", "tri"])
+@pytest.mark.parametrize("b,r,cap", [(7, 1024, 4096), (64, 5, 512),
+                                     (200, 300, 100000), (200, 300, 50)],
+                         ids=["b7", "r5", "ragged", "overflow"])
+def test_k6_matches_plain(gpu, containment, triangular, b, r, cap):
+    """The whole fused buffer [count, flat (cap)], the -1 tail and a
+    count above cap included, on ragged batch and rep counts; pad slots
+    (the last padded row, size 0) among the indices."""
+    from rabbittclust_tpu_torch.ops import greedy_device as gd
+    x, coll, sizes, n_pad = _k6_inputs(gpu, containment=containment)
+    rng = np.random.default_rng(b + r)
+    bi = rng.integers(0, n_pad, b)
+    ri = rng.integers(0, n_pad, r)
+    bi[-1] = ri[-1] = n_pad - 1
+    if triangular:
+        ri = bi[:min(b, r)]
+    sc = bm.filter_scalars(0.05, 21, "greedy")
+    args = (x, bi, ri, coll, sizes, *sc, containment, cap, triangular)
+    before = gd.LAUNCHES["greedy_filter"]
+    got = gd.greedy_filter(*args)
+    assert gd.LAUNCHES["greedy_filter"] == before + 1
+    want = gd.greedy_filter_plain(
+        x, torch.from_numpy(bi).to(gpu, torch.int32),
+        torch.from_numpy(ri).to(gpu, torch.int32), coll, sizes, *sc,
+        containment, cap, triangular)
+    assert torch.equal(got, want), (int(got[0]), int(want[0]))
+
+
+@pytest.mark.parametrize("bs", [7, 64])
+@pytest.mark.parametrize("containment", [False, True], ids=["mash", "aaf"])
+def test_batched_greedy_on_card_matches_host(gpu, bs, containment):
+    from rabbittclust_tpu_torch.cluster.greedy import greedy_cluster_batched
+    from rabbittclust_tpu_torch.ops import greedy_device as gd
+    hashes = clustered_sketches(n=400, s=200, n_clusters=30, seed=8)
+    host = greedy_cluster_batched(hashes, 0.05, 21, batch_size=bs,
+                                  is_containment=containment)
+    gd.reset_launches()
+    dev = gd.greedy_cluster_device(hashes, 0.05, 21, batch_size=bs,
+                                   is_containment=containment,
+                                   conflict="batched", device=gpu)
+    assert gd.LAUNCHES["greedy_filter"] == -(-(len(hashes) - 1) // bs)
+    assert host.representatives == dev.representatives
+    assert host.clusters == dev.clusters
+
+
+# ---------------------------------------------------------------------------
+# The mesh rings over repeated card devices
+
+def _ring_corpus(n=300, use64=False):
+    return clustered_sketches(n=n, s=160, n_clusters=11, seed=21,
+                              dtype=np.uint64 if use64 else np.uint32,
+                              keep=0.8)
+
+
+def _ring_shards(kind, hashes, mesh, bits=1024):
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    n = len(hashes)
+    if kind == "edges":
+        p0, p1, sz = de._pack_rows_for_mesh(hashes, mesh)
+        return de._plane_shards(p0, p1, sz, mesh, p0.shape[0])
+    pad = mesh.size * 128 if kind == "masks" else mesh.size
+    xp, coll = bm.pack_bitmaps_packed(hashes, bits=bits, pad_n_to=pad)
+    sizes = np.zeros(xp.shape[0], dtype=np.int32)
+    sizes[:n] = [len(h) for h in hashes]
+    return de._bit_shards(xp, coll, sizes, mesh)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind,use64", [("edges", False), ("edges", True),
+                                        ("bitmap", False), ("masks", False)],
+                         ids=["edges-32bit", "edges-64bit", "bitmap",
+                              "masks"])
+def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
+    """Every (device, step) of each ring over [cuda:0] * n_dev: the
+    kernels (tile kinds self / full / none) against the plain step (the
+    JAX ownership mask on genome ids); shards padded to 128 rows.  The
+    bitmap rings hash 64-bit sketches into one plane like 32-bit ones."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    mesh = de.make_mesh(devices=[gpu] * n_dev)
+    hashes = _ring_corpus(n=300, use64=use64)
+    shards = _ring_shards(kind, hashes, mesh)
+    sc = bm.filter_scalars(0.05, 21)[:3]
+    radio = int(bm.filter_scalars(0.05, 21)[3])
+    kinds = set()
+    for d in range(n_dev):
+        for t in range(de._n_ring_steps(n_dev)):
+            loc, vis = shards[d], shards[(d - t) % n_dev]
+            kinds.add(de._step_kind(t, n_dev, loc.lo, vis.lo))
+            if kind == "edges":
+                got = de.ring_edges_step(loc, vis, t, n_dev, radio)
+                want = de.ring_edges_step_plain(loc, vis, t, n_dev, radio)
+                assert torch.equal(got[0], want[0]), (d, t)
+                assert torch.equal(got[1], want[1]), (d, t)
+            elif kind == "bitmap":
+                for cont, rd in ((False, radio), (True, 0)):
+                    got = de.ring_bitmap_step(loc, vis, t, n_dev, sc, rd,
+                                              cont)
+                    want = de.ring_bitmap_step_plain(loc, vis, t, n_dev, sc,
+                                                     rd, cont)
+                    assert torch.equal(got, want), (d, t, cont)
+            else:
+                rows = loc.xp.shape[0]
+                got = torch.zeros((1, rows, rows // 8), dtype=torch.uint8,
+                                  device=gpu)
+                de.ring_masks_step(loc, vis, t, n_dev, sc, radio, False, got)
+                want = bm.pack_mask_u8(de.ring_filter_mask_plain(
+                    loc, vis, t, n_dev, sc, radio, False))
+                assert torch.equal(got[0], want), (d, t)
+    assert kinds == ({"self"} if n_dev == 1 else
+                     {"self", "full"} if n_dev == 3 else
+                     {"self", "full", "none"})
+
+
+def test_dist_lp_round_on_card_matches_plain(gpu):
+    """One mesh LP round over 4 slabs on the card against the same round
+    on CPU copies, with a clear list whose (step, row, byte) targets
+    repeat."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = _ring_corpus(n=900)
+    mesh = de.make_mesh(devices=[gpu] * 4)
+    cpu_mesh = de.make_mesh(devices=[torch.device("cpu")] * 4)
+    sc = bm.filter_scalars(0.05, 21)[:3]
+    radio = int(bm.filter_scalars(0.05, 21)[3])
+    slabs = de.build_ring_masks(mesh, _ring_shards("masks", hashes, mesh),
+                                sc, radio, False)
+    cpu_slabs = de.build_ring_masks(
+        cpu_mesh, _ring_shards("masks", hashes, cpu_mesh), sc, radio, False)
+    for a, b in zip(slabs, cpu_slabs):
+        assert torch.equal(a.cpu(), b)
+    rng = np.random.default_rng(2)
+    clrs = [clear_list(s.cpu().numpy(), rng) for s in cpu_slabs]
+    n_pad = 4 * slabs[0].shape[1]
+    labels = rng.integers(0, 50, n_pad).astype(np.int32)
+    got = de.dist_lp_round(mesh, slabs, {gpu: torch.from_numpy(labels).to(
+        gpu)}, [torch.from_numpy(c).to(gpu) for c in clrs])
+    cpu = torch.device("cpu")
+    want = de.dist_lp_round(cpu_mesh, cpu_slabs,
+                            {cpu: torch.from_numpy(labels)},
+                            [torch.from_numpy(c) for c in clrs])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    for a, b in zip(slabs, cpu_slabs):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n_dev", [3, 4])
+def test_mesh_engines_on_card_match_cpu(gpu, n_dev):
+    """The mesh functions over [cuda:0] * n_dev (3: an odd ring, no
+    antipodal step) equal the same functions over CPU shards."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = _ring_corpus(n=420)
+    mesh = de.make_mesh(devices=[gpu] * n_dev)
+    cpu = de.make_mesh(devices=[torch.device("cpu")] * n_dev)
+    de.reset_launches()
+    for engine_name in ("exact", "bitmap"):
+        got = de.distributed_mst(hashes, 0.05, 21, mesh=mesh,
+                                 engine=engine_name, bits=2048)
+        want = de.distributed_mst(hashes, 0.05, 21, mesh=cpu,
+                                  engine=engine_name, bits=2048)
+        for a, b in zip(got.mst, want.mst):
+            assert np.array_equal(a, b), engine_name
+    assert de.distributed_threshold_clusters(
+        hashes, 0.05, 21, mesh=mesh, bits=2048) == \
+        de.distributed_threshold_clusters(hashes, 0.05, 21, mesh=cpu,
+                                          bits=2048)
+    for a, b in zip(de.distributed_similarity_graph(hashes, 0.05, 21,
+                                                    mesh=mesh, bits=2048),
+                    de.distributed_similarity_graph(hashes, 0.05, 21,
+                                                    mesh=cpu, bits=2048)):
+        assert np.array_equal(a, b)
+    assert de.distributed_threshold_clusters_lp(
+        hashes, 0.05, 21, mesh=mesh, bits=2048) == \
+        de.distributed_threshold_clusters_lp(hashes, 0.05, 21, mesh=cpu,
+                                             bits=2048)
+    steps = n_dev * de._n_ring_steps(n_dev) - (n_dev // 2 if n_dev % 2 == 0
+                                               else 0)
+    assert de.LAUNCHES["ring_edges"] == steps
+    assert de.LAUNCHES["ring_bitmap"] == 3 * steps
+    assert de.LAUNCHES["ring_masks"] == steps
+    assert de.LAUNCHES["dist_lp_round"] >= n_dev
+
+
+def test_shard_moved_to_the_card_carries_its_compact_form(gpu):
+    """``PlaneShard.to`` onto another device copies the compact form built
+    where the shard lives; K4's and K5b's wrappers then read that copy."""
+    from dataclasses import fields
+
+    from rabbittclust_tpu_torch.ops.pack import compact_of, compact_planes
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    _, pk, _ = _planes(300, 150, False, torch.device("cpu"))
+    shard = de.PlaneShard(torch.from_numpy(pk.plane0.view(np.int32)), None,
+                          torch.from_numpy(pk.sizes.astype(np.int32)), 0)
+    home = compact_of(shard.p0, None)
+    moved = shard.to(gpu)
+    form = compact_of(moved.p0, None)
+    fresh = compact_planes(moved.p0, None)
+    assert form is not home and form.g0.device == moved.p0.device
+    for f in fields(fresh):
+        a, b = getattr(form, f.name), getattr(fresh, f.name)
+        assert (a is None and b is None) or (
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+
+
+def test_mesh_rejects_a_shard_past_k2_before_the_build(gpu):
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = [np.arange(5, dtype=np.uint32)] * (lp.MAX_RB + 1)
+    with pytest.raises(ValueError, match="shard"):
+        de.distributed_threshold_clusters_lp(
+            hashes, 0.05, 21, mesh=de.make_mesh(devices=[gpu]), bits=128)
+
+
+def test_mesh_cli_on_card_equals_dense_engine(gpu, tmp_path, monkeypatch):
+    """RTC_MESH=1 clust-mst --fast --device --presketched on the card (a
+    1-shard exact ring: one device is visible) writes the edge.mst and
+    .cluster of the dense engine (RTC_MESH=0)."""
+    import os
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = _ring_corpus(n=400)
+    outs = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("RTC_MESH", mode)
+        wd = tmp_path / f"mesh{mode}"
+        wd.mkdir()
+        monkeypatch.chdir(wd)
+        folder, _ = _kssd_folder(wd, hashes)
+        de.reset_launches()
+        assert main(["--fast", "--device", "--presketched", folder, "-o",
+                     str(wd / "o.cluster")], device=gpu) == 0
+        assert (de.LAUNCHES["ring_edges"] > 0) == (mode == "1")
+        # a --presketched run saves edge.mst into its folder
+        outs[mode] = (wd / "o.cluster", os.path.join(folder, "edge.mst"))
+    for a, b in zip(outs["0"], outs["1"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), os.path.basename(a)

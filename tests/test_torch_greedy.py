@@ -1,8 +1,10 @@
 """The port's greedy engines on the CPU against the JAX package: the device
 sweeps (``ops/greedy_device.py``, plain K1 under its ``greedy`` and
-``minhash`` bounds), the native engines (``cluster/greedy.py``), the
-density probe and the greedy orderings, on the same seeded inputs.  Every
-comparison is exact: equal representative and cluster lists."""
+``minhash`` bounds), the batched route (plain K6, ``greedy_filter_plain``)
+and the copied ``greedy_cluster_batched``, the native engines
+(``cluster/greedy.py``), the density probe and the greedy orderings, on the
+same seeded inputs.  Every comparison is exact: equal representative and
+cluster lists, and K6's whole fused buffer."""
 
 import numpy as np
 import pytest
@@ -309,10 +311,90 @@ def test_greedy_orders_match_jax():
         pr.extend(port_base.SketchSet("kssd", None, True, True))
 
 
-def test_batched_conflict_names_k6():
-    with pytest.raises(NotImplementedError, match="K6"):
+def _batched_corpus():
+    """8 clusters of overlapping sketches of varied size and 10 singletons
+    (tests/test_device_engine.py: test_greedy_device_matches_host_batched)."""
+    rng = np.random.default_rng(5)
+    hashes = []
+    for c in range(8):
+        base = rng.choice(1 << 22, size=600, replace=False).astype(np.uint32)
+        for g in range(6):
+            keep = rng.random(len(base)) > 0.05 * g
+            extra = rng.choice(1 << 22, size=30 * g, replace=False)
+            hashes.append(np.unique(np.r_[base[keep],
+                                          extra.astype(np.uint32)]))
+    for _ in range(10):
+        hashes.append(np.unique(
+            rng.choice(1 << 22, size=400).astype(np.uint32)))
+    return hashes
+
+
+@pytest.mark.parametrize("cont", [False, True], ids=["mash", "aaf"])
+@pytest.mark.parametrize("bs", [7, 64])
+def test_batched_conflict_matches_jax(bs, cont):
+    """conflict="batched" (K6's route) equals the JAX device route and the
+    copied host engine, greedy_cluster_batched, at both batch sizes."""
+    hashes = _batched_corpus()
+    want = jax_greedy.greedy_cluster_batched(hashes, 0.05, 21, batch_size=bs,
+                                             is_containment=cont)
+    _same(want, jax_gd.greedy_cluster_device(
+        hashes, 0.05, 21, batch_size=bs, is_containment=cont,
+        conflict="batched"))
+    _same(want, port_greedy.greedy_cluster_batched(
+        hashes, 0.05, 21, batch_size=bs, is_containment=cont))
+    stats = {}
+    _same(want, port_gd.greedy_cluster_device(
+        hashes, 0.05, 21, batch_size=bs, is_containment=cont,
+        conflict="batched", device=CPU, stats=stats))
+    assert stats["sweep_s"] >= 0 and stats["replay_s"] >= 0
+
+
+@pytest.mark.parametrize("triangular", [False, True], ids=["rect", "tri"])
+@pytest.mark.parametrize("cont", [False, True], ids=["mash", "aaf"])
+@pytest.mark.parametrize("b,r,cap", [(7, 1024, 4096), (64, 40, 300),
+                                     (64, 40, 5)],
+                         ids=["b7", "b64", "past_cap"])
+def test_greedy_filter_plain_equals_jax(b, r, cap, cont, triangular):
+    """Plain K6 returns JAX's whole fused buffer [count, flat_idx (cap)],
+    the -1 tail and a count past cap included; pad slots point at the
+    zero-size padding row."""
+    import jax.numpy as jnp
+    hashes = _batched_corpus()
+    xp, coll = port_bm.pack_bitmaps_packed(hashes, bits=512, pad_n_to=128)
+    n_pad = xp.shape[0]
+    sizes = np.zeros(n_pad, dtype=np.int32)
+    sizes[:len(hashes)] = [len(h) for h in hashes]
+    rng = np.random.default_rng(b * r)
+    bi = rng.integers(0, n_pad, b).astype(np.int32)
+    ri = bi.copy() if triangular else \
+        rng.integers(0, n_pad, r).astype(np.int32)
+    ri[-1] = n_pad - 1
+    sc = port_bm.filter_scalars(0.05, 21, "greedy")
+    want = np.asarray(jax_gd._greedy_filter_fn(
+        jnp.asarray(xp), jnp.asarray(bi), jnp.asarray(ri), jnp.asarray(coll),
+        jnp.asarray(sizes), *(jnp.float32(v) for v in sc), cont, cap,
+        triangular))
+    got = port_gd.greedy_filter_plain(
+        torch.from_numpy(xp), torch.from_numpy(bi), torch.from_numpy(ri),
+        torch.from_numpy(coll), torch.from_numpy(sizes), *sc, cont, cap,
+        triangular)
+    assert np.array_equal(got.numpy(), want)
+    # the wrapper on CPU tensors takes the plain version
+    assert torch.equal(port_gd.greedy_filter(
+        torch.from_numpy(xp), bi, ri, torch.from_numpy(coll),
+        torch.from_numpy(sizes), *sc, cont, cap, triangular), got)
+
+
+def test_greedy_filter_rejects_indices_outside():
+    xp = torch.zeros((128, 64), dtype=torch.uint8)
+    z = torch.zeros(128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rep_idx"):
+        port_gd.greedy_filter(xp, [0, 1], [0, 128], z, z,
+                              *port_bm.filter_scalars(0.05, 21, "greedy"),
+                              False, 16)
+    with pytest.raises(ValueError, match="conflict"):
         port_gd.greedy_cluster_device(_serial_corpus(), 0.05, 21,
-                                      conflict="batched", device=CPU)
+                                      conflict="other", device=CPU)
 
 
 def test_batchloop_mode_runs_the_sweep(monkeypatch, capsys):

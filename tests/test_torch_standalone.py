@@ -5,7 +5,8 @@ copies of the host code it needs.
 
 (a) reads every source with ``ast``; (b) runs each of the port's clust-mst,
 clust-greedy, clust-dbscan and clust-leiden arms (the device sketcher's
-``RTC_DEVICE_SKETCH=1`` and ``--sketch-func WMH|OMH|HLL`` among them) on
+``RTC_DEVICE_SKETCH=1``, ``--sketch-func WMH|OMH|HLL`` and the mesh rings
+under ``RTC_MESH=1`` among them) on
 the CPU in a fresh process and lists what that process loaded;
 (c) the port copies none of the JAX package's NumPy fallbacks: its loader
 of the shared native library raises when the library cannot be had.
@@ -114,6 +115,9 @@ ARMS = {
                ("dbscan", _FRESH + ["--max-posting", "3"]),
                ("dbscan", ["--device", "--minhash", "-l", "-i", "{list}",
                            "-m", "1000", "-s", "300"])],
+    "mesh": [("mst", _FRESH, {"RTC_MESH": "1"}),
+             ("mst", _FRESH + ["-e"], {"RTC_MESH": "1",
+                                       "RTC_MST_CLUSTERS_FAST": "0"})],
     "device_sketch": [("mst", _FRESH, {"RTC_DEVICE_SKETCH": "1"}),
                       ("greedy", _FRESH, {"RTC_DEVICE_SKETCH": "1"})],
     "sketch_func": [("mst", ["--sketch-func", func, "-l", "-i", "{list}",
