@@ -8,7 +8,7 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K1 / K2 / K3 / K4 (both modes) / K5b / K7 / K8 from
+2. build kernels K1 / K2 / K3 / K4 (all three modes) / K5b / K7 / K8 from
    ``rabbittclust_tpu_torch/csrc`` with nvcc, one process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
@@ -101,7 +101,19 @@ Phases, one line or block each; any failure raises (non-zero exit):
    N = 32,768 on phases 8a's and 8b's corpora, equal to the copied
    ``greedy_cluster_batched`` (which runs in two worker processes at the
    lowest priority while the card runs phase 3); the device sweep and host
-   seconds.
+   seconds;
+17. the multi-process mesh (``parallel/multihost.py``) with two ranks that
+   share cuda:0, so the ring's hop goes through pinned host memory over
+   gloo: (a) two ``chip_smoke.py --mesh-child`` processes of 2 shards
+   each over phase 4's corpus, each passing its ``shard_bounds`` block:
+   the threshold clusters phase 4's host partition, the MST cut the native
+   host MST's edge for edge (weights to 1e-12 relative) and the dense
+   engine's byte for byte; per process the K9b steps, the bytes and
+   milliseconds of each hop, the transport and the wall; (b) ``clust-mst``
+   and ``clust-greedy --multihost`` with 2 processes (``parallel/
+   launch.py``) over phase 13's list, each ``.cluster`` byte-equal to the
+   single-process ``--device -t 2`` run; (c) ``dryrun_multichip(4)`` over
+   ``[cuda:0] * 4`` (the stats ring, then its own 2-process simulation).
 
 Phase 3d holds K3 (``compact_masks``, and K1 + K3 as ``batched_filter``)
 to its plain versions on batches of 16 tiles at rb 1024 and 4096 over the
@@ -119,8 +131,12 @@ product; phase 3h holds each step kind of the exact, bitmap and mask rings
 (self, interior, antipodal, and the antipodal step's empty tile) to the
 plain steps at 4 shards of N = 16,384 and 8 shards of N = 131,072, and one
 LP round over a shard's slab with a clear list of repeated targets.
+Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
+step) to the plain step on a band of 256 rows for each step kind at 4
+shards of N = 16,384, and times the whole steps beside their bounds and
+K4's counts mode: the count equal, the float32 minimum within 4 ulp.
 
-Each of phases 8-12 and 15-16 prints its kernels' launch counts on a line
+Each of phases 8-12 and 15-17 prints its kernels' launch counts on a line
 of its own.
 
 The line before the last is the kernels' JSON; the last line is
@@ -181,6 +197,9 @@ KERNELS = {
     # K2 over each shard's slab
     "dist_lp_round": ("rabbittclust_tpu_torch/csrc/labelprop_round.cu",
                       "rabbittclust_tpu/parallel/dist_engine.py:671"),
+    # K4's stats mode over two shards (the dry run's stats ring)
+    "ring_stats": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
+                   "rabbittclust_tpu/parallel/dist_engine.py:78"),
 }
 
 NATIVE_PROBE = r"""
@@ -532,7 +551,8 @@ def phase_kernels(hashes, dev):
             say(f"small ragged {'2plane' if use64 else '1plane'} "
                 f"W={pk.width} K={pk.k} N=300->{pk.n}: counts, masks and "
                 "pair counts exact")
-    if min(ix.LAUNCHES.values()) <= 0:
+    # the stats mode is phase 3i's
+    if min(v for k, v in ix.LAUNCHES.items() if k != "pair_stats_tiles") <= 0:
         raise AssertionError(f"launch counters did not move: {ix.LAUNCHES}")
     return rec
 
@@ -634,7 +654,7 @@ def phase_end_to_end(hashes, dev, tmp):
         f"{held} B of it held before the run); tiles {stats['tiles']}, "
         f"batches {stats['batches']}, candidates {stats['candidates']}; "
         f"launches {launches}")
-    return launches, want
+    return launches, want, ref.mst, mst
 
 
 def phase_from_fasta(tmp):
@@ -2213,18 +2233,20 @@ def exact_step_bound(loc, vis, kind, n_out):
                  + 8 * n_out, ring_compares(loc, vis, kind), CORE_OPS)
 
 
-def ring_compares(loc, vis, kind):
+def ring_compares(loc, vis, kind, row0=0):
     """The compares K4 needs for a ring step between two one-plane shards:
     for every block of 128 x 128 pairs it computes (all of them, or on the
     self step those with some j < i), its rows' real entries of each bucket
-    against its columns'."""
+    against its columns'.  ``row0``: where ``loc``'s rows start in the
+    visiting shard (a band of a self step's rows)."""
     from rabbittclust_tpu_torch.ops.pack import GROUP
     occ = [(s.p0 >= 0).sum(1, dtype=torch.int64).view(
         -1, GROUP, s.p0.shape[2]).sum(1).double() for s in (loc, vis)]
     need = occ[0] @ occ[1].T
     if kind == "self":
-        i0 = GROUP * torch.arange(need.shape[0], device=need.device)
-        need = need * (i0[None, :] < i0[:, None] + GROUP - 1)
+        i0 = row0 + GROUP * torch.arange(need.shape[0], device=need.device)
+        j0 = GROUP * torch.arange(need.shape[1], device=need.device)
+        need = need * (j0[None, :] < i0[:, None] + GROUP - 1)
     return int(need.sum())
 
 
@@ -2394,8 +2416,88 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
                 f" bound {b_ex[0]:.4f} ms ({b_ex[1]}), kernel at "
                 f"{b_ex[0] / ms:.3f} of it; planes packed in {pack_s:.3f} s"
                 f"; card {card}")
+        if n == N_GENOMES:
+            phase_stats_kernel(planes, cases, n_dev, rec, card)
         del planes, pk
         torch.cuda.empty_cache()
+
+
+def hold_stats(rec, got, want, what):
+    """A stats step (count, float32 bits of the minimum) against the plain
+    step: the count equal, the minimum within 4 float32 ulp (CUDA's logf
+    and torch's log may differ in the last place); ``max_abs_err`` keeps
+    the largest difference of the minima."""
+    entry = rec.setdefault("ring_stats", {"err": 0.0, "ms": [],
+                                          "plain_ms": [], "bound": []})
+    g, w = got.cpu(), want.cpu()
+    ulp = abs(int(g[1]) - int(w[1]))
+    low = [float(x[1:].view(torch.float32)) for x in (g, w)]
+    entry["err"] = max(entry["err"], abs(low[0] - low[1]),
+                       abs(int(g[0]) - int(w[0])))
+    if int(g[0]) != int(w[0]) or ulp > 4:
+        raise AssertionError(f"ring_stats {what}: kernel ({int(g[0])}, "
+                             f"{low[0]!r}) against plain ({int(w[0])}, "
+                             f"{low[1]!r}), {ulp} ulp")
+    return int(g[0]), low[0], ulp
+
+
+def phase_stats_kernel(planes, cases, n_dev, rec, card):
+    """3i: K4's stats mode alone (the stats ring's step) at 4 shards of
+    N = 16,384: each step kind over the whole 4096^2 tile, timed, beside
+    its bound and K4's counts mode over a 4096^2 tile; the kernel held to
+    the plain step on a band of 256 rows (16 tiles of 256^2 through
+    ``pair_stats_tiles``, whose ``tri`` compares positions in the shard),
+    both timed on that band."""
+    say("== phase 3i: K4's stats mode (the stats ring's steps) against the "
+        "plain step")
+    from rabbittclust_tpu_torch.ops import intersect as ix
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    k = kssd_params().kmer_size
+    radio = de.size_ratio_limit(THRESHOLD, k - 1)
+    band = 256
+    for label, d, t in cases:
+        loc, vis = planes[d], planes[(d - t) % n_dev]
+        kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
+        what = f"{n_dev} shards of N={N_GENOMES} {label} ({kind})"
+        got, ms = cuda_ms(lambda: de.ring_stats_step(
+            loc, vis, t, n_dev, THRESHOLD, k, radio), reps=3)
+        shard = loc.p0.shape[0]
+        r = shard // 2 - band // 2
+        live = int(kind != "none")
+        tiles = ([r] * (shard // band), list(range(0, shard, band)),
+                 [live] * (shard // band))
+        part, band_ms = cuda_ms(lambda: ix.pair_stats_tiles(
+            loc.p0, loc.sizes, *tiles, radio, THRESHOLD, k, band,
+            cols=(vis.p0, vis.sizes), tri=kind == "self"), reps=3)
+        want, plain_ms = cuda_ms(lambda: de.ring_stats_step_plain(
+            band_shard(loc, r, band), vis, t, n_dev, THRESHOLD, k, radio),
+            warmup=False)
+        count, low, ulp = hold_stats(rec, part, want,
+                                     f"{what} rows {r}..{r + band - 1}")
+        if kind == "none":
+            hold_stats(rec, got, want, what)
+            say(f"stats step {what}: nothing launched, empty on both: "
+                "exact")
+            continue
+        compares = ring_compares(band_shard(loc, r, band), vis, kind, r)
+        b_band = bound(8, compares, CORE_OPS)
+        b_step = bound(8, ring_compares(loc, vis, kind), CORE_OPS)
+        rec["ring_stats"]["ms"].append(band_ms)
+        rec["ring_stats"]["plain_ms"].append(plain_ms)
+        rec["ring_stats"]["bound"].append(b_band)
+        say(f"stats step {what}: whole step {int(got[0])} pairs <= "
+            f"{THRESHOLD}, min {float(got[1:].cpu().view(torch.float32))!r};"
+            f" kernel {ms:.3f} ms, bound {b_step[0]:.4f} ms ({b_step[1]}), "
+            f"at {b_step[0] / ms:.3f} of it; band rows {r}..{r + band - 1}:"
+            f" {count} pairs, min {low!r}, {ulp} ulp from the plain step; "
+            f"kernel {band_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_band[0]:.5f} ms; card {card}")
+        if kind == "self":
+            _, c_ms = cuda_ms(lambda: ix.pair_counts_tiles(
+                loc.p0, None, [0], [0], [1], shard), reps=3)
+            say(f"K4 counts mode over the shard's own 4096^2 tile (it "
+                f"takes no second form): {c_ms:.3f} ms beside the stats "
+                f"mode's full steps; card {card}")
 
 
 def phase_mesh(corpus, want, dev, tmp):
@@ -2581,12 +2683,227 @@ def phase_batched_greedy(corpora, oracles, dev):
     return launches
 
 
+def mesh_child(pid, port, corpus_path, out_path, device="cuda:0"):
+    """One of phase 17(a)'s two processes: 2 shards on cuda:0, this
+    process's ``shard_bounds`` block of the corpus, the threshold clusters
+    and the MST over the multi-process ring; its results and times go to
+    ``out_path``."""
+    import pickle
+    from rabbittclust_tpu_torch.cluster.mst import cut_forest
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    from rabbittclust_tpu_torch.parallel import multihost as mh
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    mesh = mh.init_multihost(f"127.0.0.1:{port}", 2, pid, [dev] * 2)
+    z = np.load(corpus_path)
+    flat, offs = z["flat"], z["offs"]
+    n = len(offs) - 1
+    lo, hi = mh.shard_bounds(n, 2, pid)
+    block = [flat[offs[g]:offs[g + 1]] for g in range(lo, hi)]
+    k = kssd_params().kmer_size
+    de.reset_launches()
+    out = {"pid": pid, "transport": mesh.transport, "rings": []}
+    t0 = time.perf_counter()
+    out["clusters"] = mh.multihost_threshold_clusters(block, n, THRESHOLD, k)
+    out["clusters_s"] = time.perf_counter() - t0
+    out["rings"].append(dict(mh.RING_LAST))
+    t0 = time.perf_counter()
+    res = mh.multihost_mst(block, n, THRESHOLD, k)
+    out["mst_s"] = time.perf_counter() - t0
+    out["rings"].append(dict(mh.RING_LAST))
+    out["cut"] = [a.tolist() for a in cut_forest(res.mst, THRESHOLD)]
+    out["launches"] = dict(de.LAUNCHES)
+    out["wall"] = time.perf_counter() - t_start
+    mh.shutdown_multihost()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_seconds(err, what):
+    """Each ``-----process i: <what> X s`` line of a rank's stderr."""
+    return [float(m.group(1)) for m in re.finditer(
+        rf"-----process \d+: {what} ([0-9.]+) s", err)]
+
+
+def phase_multiprocess(hashes, want, host_mst, dense_mst, dev, tmp, card,
+                       rec):
+    """17: the multi-process mesh (``parallel/multihost.py``) on the one
+    card: (a) 2 processes x 2 shards on cuda:0 over phase 4's corpus, each
+    passing its block: the threshold clusters against phase 4's host
+    partition; the MST cut edge for edge against the native host MST's,
+    its weights to phase 4's 1e-12 relative (the native library computes
+    distances in C++, whose log may differ from NumPy's in the last
+    place), and byte for byte against phase 4's dense-engine MST (NumPy
+    float64 distances, as the multi-process engine's); the ring's steps
+    and hops per process; (b)
+    ``clust-mst`` and ``clust-greedy --multihost`` with 2 processes over
+    phase 13's FASTA list through ``parallel/launch.py``, byte-equal to
+    the single-process ``--device -t 2`` runs (the MST cut's member order;
+    with ``-e`` the single process takes the MST-free engine, whose
+    forest orders members otherwise); (c) the port's dry run
+    over ``[cuda:0] * 4`` (the stats ring, held to the plain steps over
+    CPU shards at the same shapes, then its own 2-process simulation)."""
+    say("== phase 17: the multi-process mesh on the one card (ranks share "
+        "it: the ring's hop goes through host memory over gloo; no "
+        "multi-GPU time is claimed)")
+    import pickle
+    from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
+    from rabbittclust_tpu_torch.cluster.mst import cut_forest
+    from rabbittclust_tpu_torch.ops.pack import pack_sketches
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    from rabbittclust_tpu_torch.parallel import launch as pl
+    from rabbittclust_tpu_torch.parallel.dryrun import (dryrun_corpus,
+                                                        dryrun_multichip)
+    from rabbittclust_tpu_torch.parallel.multihost import free_port, run_ranks
+    torch.cuda.empty_cache()
+    launches = {}
+    # (a)
+    work = os.path.join(tmp, "mesh17")
+    os.makedirs(work)
+    corpus_path = os.path.join(work, "corpus.npz")
+    offs = np.zeros(len(hashes) + 1, dtype=np.int64)
+    np.cumsum([len(h) for h in hashes], out=offs[1:])
+    np.savez(corpus_path, flat=np.concatenate(hashes), offs=offs)
+    port = free_port()
+    outs = [os.path.join(work, f"proc{pid}.pkl") for pid in range(2)]
+    t0 = time.perf_counter()
+    rcs, _, errs = run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--mesh-child",
+          str(pid), str(port), corpus_path, outs[pid], str(dev)]
+         for pid in range(2)], timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        raise RuntimeError(f"17a: the processes returned {rcs}:\n"
+                           + "\n".join(e[-3000:] for e in errs))
+    res = []
+    for path in outs:
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    host_cut = cut_forest(host_mst, THRESHOLD)
+    dense_cut = [a.tolist() for a in cut_forest(dense_mst, THRESHOLD)]
+    n = len(hashes)
+    for r in res:
+        if partition(r["clusters"]) != want:
+            raise AssertionError(f"17a process {r['pid']}: threshold "
+                                 "clusters differ from phase 4's host "
+                                 "partition")
+        w, w_host = np.asarray(r["cut"][2]), host_cut[2]
+        rel = float(np.max(np.abs(w - w_host) / np.maximum(
+            np.abs(w_host), 1e-300))) if len(w) == len(w_host) and len(w) \
+            else 0.0
+        if r["cut"][:2] != [a.tolist() for a in host_cut[:2]] or \
+                len(w) != len(w_host) or rel > 1e-12:
+            raise AssertionError(f"17a process {r['pid']}: the MST cut at "
+                                 f"{THRESHOLD} differs from the host MST's "
+                                 f"(weights up to {rel:.3e} relative)")
+        if r["cut"] != dense_cut:
+            raise AssertionError(f"17a process {r['pid']}: the MST cut "
+                                 "differs from phase 4's dense engine's")
+        if r["launches"]["ring_bitmap"] <= 0:
+            raise AssertionError(f"17a process {r['pid']}: no K9b step "
+                                 f"launched ({r['launches']})")
+        ring = r["rings"][0]
+        say(f"17a process {r['pid']}/2 (2 shards on cuda:0, transport "
+            f"{r['transport']}): threshold clusters = phase 4's partition "
+            f"({r['clusters_s']:.3f} s), MST cut = the native host MST's "
+            f"edge for edge (weights within {rel:.3e} relative) and = the "
+            f"dense engine's byte for byte ({len(r['cut'][0])} edges; "
+            f"{r['mst_s']:.3f} s); K9b steps "
+            f"{r['launches']['ring_bitmap']}, ms "
+            f"{[round(x, 4) for x in ring['step_ms']]}; hops "
+            f"{ring['hop_bytes']} B in "
+            f"{[round(x, 3) for x in ring['hop_ms']]} ms "
+            f"({[round(b / ms / 1e6, 3) for b, ms in zip(ring['hop_bytes'], ring['hop_ms'])]}"
+            f" GB/s); process wall {r['wall']:.3f} s; card {card}")
+    say(f"17a N={n}: both processes' partition and MST cut equal to the "
+        f"host engine's; wall of the two processes {wall:.3f} s; a bitmap "
+        f"ring over 4 distinct cards would move per device "
+        f"{de.ring_comm_stats(n, 4, BITS // 8)} (analytic: the sizes, ids "
+        "and collisions of JAX's hop; the port's hop sends sizes, "
+        "collisions and the first id)")
+    launches["ring_bitmap_multiprocess"] = res[0]["launches"]["ring_bitmap"]
+    # (b)
+    lst = os.path.join(tmp, "sketch13", "genomes.list")
+    for module, main in (("mst", clust_mst.main),
+                         ("greedy", clust_greedy.main)):
+        single = os.path.join(work, f"single_{module}.cluster")
+        multi = os.path.join(work, f"multi_{module}.cluster")
+        back = os.getcwd()
+        os.chdir(work)  # the single-process run saves its folder here
+        try:
+            t0 = time.perf_counter()
+            rc = main(["--fast", "--device", "-l", "-i", lst, "-o", single,
+                       "-d", str(THRESHOLD), "-t", "2"], device=dev)
+            single_s = time.perf_counter() - t0
+        finally:
+            os.chdir(back)
+        if rc != 0:
+            raise RuntimeError(f"17b single-process clust-{module} failed")
+        t0 = time.perf_counter()
+        errs = []
+        rc = pl.launch(2, ["--fast", "-l", "-i", lst, "-o", multi, "-d",
+                           str(THRESHOLD), "-t", "4"], module=module,
+                       timeout=600, errs=errs)
+        multi_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"17b clust-{module} --multihost returned "
+                               f"{rc}")
+        if not same_file(single, multi):
+            raise AssertionError(f"17b clust-{module} --multihost: .cluster"
+                                 " differs from the single-process run")
+        ingest = [phase_seconds(e, "ingest\\+sketch\\+allgather")
+                  for e in errs]
+        phase = [phase_seconds(e, f"distributed {module} cluster phase")
+                 for e in errs]
+        say(f"17b clust-{module} --multihost, 2 processes on cuda:0, 128 "
+            f"genomes of 4 Mb (64 each): .cluster byte-equal to the "
+            f"single-process --device -t 2 run; per process ingest "
+            f"{ingest} s, cluster phase {phase} s; wall {multi_s:.3f} s "
+            f"(single process {single_s:.3f} s)")
+    # (c)
+    de.reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, devices=[dev] * 4)
+    dry_s = time.perf_counter() - t0
+    launches["ring_stats"] = de.LAUNCHES["ring_stats"]
+    if launches["ring_stats"] <= 0:
+        raise AssertionError("17c: the dry run launched no stats step")
+    # the stats ring at the dry run's own shapes against the plain steps
+    # over CPU shards: the count equal, the minimum within 4 float32 ulp
+    hashes_dry = dryrun_corpus(4)
+    n_dry = len(hashes_dry)
+    pk_dry = pack_sketches(hashes_dry, use64=False, pad_n_to=n_dry)
+    plain = de.distributed_candidate_stats(
+        pk_dry.plane0[:n_dry], pk_dry.sizes[:n_dry], threshold=0.05,
+        kmer_size=20, mesh=de.make_mesh(4, devices=[torch.device("cpu")] * 4))
+    ulp = abs(int(np.float32(dry["min_d"]).view(np.int32))
+              - int(np.float32(plain[1]).view(np.int32)))
+    if dry["total"] != plain[0] or ulp > 4:
+        raise AssertionError(f"17c: the stats ring ({dry['total']}, "
+                             f"{dry['min_d']!r}) against the plain steps "
+                             f"({plain[0]}, {plain[1]!r}), {ulp} ulp")
+    entry = rec["ring_stats"]
+    entry["err"] = max(entry["err"], abs(dry["min_d"] - plain[1]))
+    say(f"17c dryrun_multichip(4) over [cuda:0] * 4: {dry['total']} pairs "
+        f"<= 0.05, min {dry['min_d']!r} (the plain steps over CPU shards: "
+        f"{plain[0]}, {plain[1]!r}, {ulp} ulp); stats steps launched "
+        f"{launches['ring_stats']}; its simulation {dry['sim']}; "
+        f"{dry_s:.3f} s")
+    say("launches (phase 17): " + ", ".join(
+        f"{k_}={v}" for k_, v in launches.items()))
+    return {"ring_stats": launches["ring_stats"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
               "(torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     import rabbittclust_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--mesh-child"]:
+        mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                   sys.argv[5], sys.argv[6])
+        return 0
     dev = torch.device("cuda", 0)
     card = phase_identify()
     phase_build()
@@ -2662,7 +2979,8 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
         for (tag, _), o in zip(greedy_corpora, oracles)))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tmp",
                                      dir=ROOT) as tmp:
-        launches, want = phase_end_to_end(hashes, dev, tmp)
+        launches, want, host_mst, dense_mst = phase_end_to_end(hashes, dev,
+                                                               tmp)
         phase_from_fasta(tmp)
         launches.update(phase_slice(corpus, dev, tmp))
         phase_engines(hashes, want, dev)
@@ -2679,6 +2997,8 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
         launches.update(phase_mesh(corpus, want, dev, tmp))
         launches["greedy_filter"] = phase_batched_greedy(greedy_corpora,
                                                          oracles, dev)
+        launches.update(phase_multiprocess(hashes, want, host_mst,
+                                           dense_mst, dev, tmp, card, rec))
     return launches, rec
 
 

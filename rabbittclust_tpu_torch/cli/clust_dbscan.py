@@ -9,7 +9,8 @@ come from the device filter (``ops/bitmap.py::candidate_pairs_threshold``:
 K1, and K3 under ``RTC_PULL_MODE=idx``).  As in the JAX package, two arms
 run on the host even under ``--device``: ``--max-posting`` > 0 (native
 pair counts over the trimmed postings) and ``--minhash`` (the MinHash
-engine).  ``--multihost`` exits with status 1 (``common.NOT_PORTED``).
+engine).  ``--multihost`` runs one rank of the multi-process DBSCAN
+(``workflows_dist.py``; KSSD only, as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 from ..device import resolve_device
 from .. import workflows as wf
 from ..cluster.dbscan import dbscan_cluster, write_dbscan_result
-from .common import base_parser, refuse_unported, validate_common
+from .clust_mst import run_multihost
+from .common import base_parser, validate_common
 
 
 # Source: rabbittclust_tpu/cli/clust_dbscan.py::main
@@ -34,8 +36,15 @@ def main(argv=None, device: Optional[torch.device] = None,
     seconds of the clustering (``dbscan_s``)."""
     args = base_parser("dbscan").parse_args(argv)
     validate_common(args, "dbscan")
-    if refuse_unported(args, "dbscan"):
-        return 1
+    if args.multihost:
+        if args.minhash_dbscan:
+            # the library path exists (multihost_dbscan(minhash=True)); the
+            # CLI keeps MinHash sketching single-process, as the JAX CLI
+            print("ERROR: --multihost clust-dbscan requires --fast "
+                  "(KSSD); use parallel.multihost.multihost_dbscan("
+                  "minhash=True) from the API", file=sys.stderr)
+            return 1
+        return run_multihost(args, False, "dbscan", device)
     if not args.use_device:
         print("ERROR: rabbittclust_tpu_torch runs the device engine only: "
               "pass --device (the host engine is rabbittclust_tpu's "

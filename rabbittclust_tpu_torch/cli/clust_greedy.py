@@ -7,7 +7,9 @@ torch device (reference src/main.cpp:291-390 dispatch).
 KSSD (``--fast``) and MinHash, from genomes or ``--presketched``, run on
 the device sweep of ``ops/greedy_device.py`` (KSSD under
 ``RTC_GREEDY_DEVICE``: ``auto`` probes the corpus density and may take the
-native engine, ``native`` always does, ``force`` never).  The arms of
+native engine, ``native`` always does, ``force`` never).  ``--multihost``
+runs one rank of the multi-process greedy (``workflows_dist.py``).  The
+arms of
 ``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
 will port them.
 """
@@ -21,6 +23,7 @@ import torch
 
 from ..device import resolve_device
 from .. import workflows as wf
+from .clust_mst import run_multihost
 from .common import (
     base_parser,
     make_output_options,
@@ -47,6 +50,8 @@ def main(argv=None, device: Optional[torch.device] = None,
         print("can only support MinHash and KSSD with greedy incremental "
               "clust", file=sys.stderr)
         return 1
+    if args.multihost and not args.repdb_path:
+        return run_multihost(args, is_containment, module, device)
     if refuse_unported(args, module):
         return 1
     if not args.use_device:

@@ -10,8 +10,9 @@ package under ``--device``; ``RTC_LEIDEN_DEVICE=force`` takes them from the
 device filter (``ops/bitmap.py::candidate_pairs_threshold``: K1, and K3
 under ``RTC_PULL_MODE=idx``).  Both give the same graph.  ``--pregraph``
 re-clusters a saved graph on the host and, like clust-mst's
-``--premsted``, needs no ``--device``.  ``--multihost`` exits with status 1
-(``common.NOT_PORTED``).
+``--premsted``, needs no ``--device``.  ``--multihost`` runs one rank of
+the multi-process graph build (``workflows_dist.py``), after the kNN
+auto-selection.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 from ..device import resolve_device
 from ..cluster.leiden import cluster_graph, community_clusters, load_graph
 from ..state.cluster_io import write_cluster_file
-from .common import base_parser, refuse_unported, validate_common
+from .clust_mst import run_multihost
+from .common import base_parser, validate_common
 
 
 # Source: rabbittclust_tpu/cli/clust_leiden.py::main
@@ -52,8 +54,11 @@ def main(argv=None, device: Optional[torch.device] = None,
         print(f"WARNING: --knn value too small ({knn_k}), recommend at "
               f"least 50. Using 50.", file=sys.stderr)
         knn_k = 50
-    if refuse_unported(args, "leiden"):
-        return 1
+    if args.multihost:
+        # after the auto-kNN resolution: the multi-process graph prunes
+        # with the k the single-process run auto-selects
+        args.knn_k = knn_k
+        return run_multihost(args, False, "leiden", device)
 
     if args.pregraph:
         if os.path.isdir(args.pregraph):

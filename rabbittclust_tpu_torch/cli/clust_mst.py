@@ -7,9 +7,10 @@ torch device (reference src/main.cpp:524-651 dispatch).
 The flags are the reference's (``cli/common.py``, a copy of the JAX
 package's parser).  KSSD (``--fast``: fresh genomes, ``--presketched``,
 ``--premsted``, the classic ``--append``), MinHash (no ``--fast``: fresh
-genomes, ``--presketched``, ``--premsted``) and ``--sketch-func
+genomes, ``--presketched``, ``--premsted``), ``--sketch-func
 WMH|HLL|OMH`` (fresh genomes; WMH and OMH on the card with or without
-``--device``) run; the arms of
+``--device``) and ``--multihost`` (``run_multihost``: one rank of a
+multi-process run, ``workflows_dist.py``) run; the arms of
 ``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
 will port them.
 """
@@ -45,6 +46,8 @@ def main(argv=None, device: Optional[torch.device] = None,
 
     if args.sketch_func in ("WMH", "HLL", "OMH"):
         return _extra_sketch_arm(args, device, stats)
+    if args.multihost and not args.repdb_path:
+        return run_multihost(args, is_containment, "mst", device)
     if refuse_unported(args, "mst"):
         return 1
     if args.premsted and not args.append:
@@ -132,6 +135,44 @@ def _extra_sketch_arm(args, device: Optional[torch.device],
     clust_from_genomes_extra(
         args.input, args.output, args.sketch_by_file, args.sketch_func,
         args.kmer_size or 21, args.threshold, args.min_len, device, stats)
+    return 0
+
+
+# Source: rabbittclust_tpu/cli/clust_mst.py::run_multihost
+def run_multihost(args, is_containment: bool, module: str,
+                  device: Optional[torch.device] = None) -> int:
+    """Shared --multihost dispatch for clust-mst/clust-greedy/clust-leiden/
+    clust-dbscan (KSSD fresh-genome input): this process is one rank of
+    ``workflows_dist.clust_mst_multihost``.  Its shards: ``[device]`` when
+    the caller passes one, else ``parallel.multihost.local_devices`` (its
+    card, or ``RTC_VIRTUAL_CPU_DEVICES=M`` CPU shards)."""
+    if not args.is_fast:
+        print("ERROR: --multihost requires --fast (KSSD sketches)",
+              file=sys.stderr)
+        return 1
+    if not args.input:
+        print("ERROR: --multihost requires -i/--input genomes",
+              file=sys.stderr)
+        return 1
+    if args.presketched or getattr(args, "premsted", None) or args.append:
+        print("ERROR: --multihost supports fresh genome input only",
+              file=sys.stderr)
+        return 1
+    from ..workflows_dist import clust_mst_multihost, parse_multihost_spec
+    coord, n_proc, pid = parse_multihost_spec(args.multihost)
+    # clust-dbscan spells its distance threshold --eps
+    threshold = args.eps if module == "dbscan" else args.threshold
+    clust_mst_multihost(
+        args.input, args.output, coord, n_proc, pid,
+        sketch_by_file=args.sketch_by_file, is_containment=is_containment,
+        kmer_size=args.kmer_size, threshold=threshold,
+        drlevel=args.drlevel, min_len=args.min_len, threads=args.threads,
+        module=module, min_pts=getattr(args, "minpts", 5),
+        max_posting=getattr(args, "max_posting", 0),
+        resolution=getattr(args, "resolution", 1.0),
+        use_leiden=not getattr(args, "use_louvain", False),
+        knn_k=getattr(args, "knn_k", 0),
+        devices=None if device is None else [device])
     return 0
 
 

@@ -230,11 +230,10 @@ def _mst_state_append(a) -> bool:
 
 # The arms the port does not run yet: (modules, predicate on the parsed
 # args, what it is, ROADMAP Queue 1 item).  None of them falls back to the
-# JAX package.
+# JAX package.  ``--multihost`` dispatches before this table is read, but
+# after its ``--db`` row (the JAX CLIs' order).
 NOT_PORTED = [
     (("mst", "greedy"), lambda a: a.repdb_path, "--db (RepDB)", 10),
-    (("mst", "greedy", "leiden", "dbscan"), lambda a: a.multihost,
-     "--multihost", 11),
     (("mst",), lambda a: a.build_db, "--buildDB", 10),
     (("mst", "greedy"), lambda a: a.save_rep, "--save-rep state files", 10),
     (("mst",), lambda a: a.append and not a.is_fast,

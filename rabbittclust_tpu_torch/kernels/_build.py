@@ -6,12 +6,15 @@ started together; one more ``nvcc`` links them into
 ``build/librtc_kernels_<hash>.so``, keyed by a hash of the sources and
 flags, and the library is loaded with ``ctypes``.  Nothing runs at import
 time.  A missing ``nvcc`` or a failed build raises with the compiler's
-output; there is no fallback.
+output; there is no fallback.  Processes that start together (the ranks
+of a multi-process run) build one at a time under a file lock, and those
+that waited load the library the first one built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -25,6 +28,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# No --use_fast_math: K4's stats mode computes the float32 Mash distance
+# with the full-precision logf and IEEE-rounded division that the plain
+# version and the JAX program use (-prec-div, -prec-sqrt and -ftz=false are
+# nvcc's defaults without it).
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
@@ -60,14 +67,27 @@ def build() -> dict:
     built) and the compiler's ``-Xptxas -v`` report (registers, shared
     memory, spills per kernel)."""
     path = library_path()
-    log_path = path[:-3] + ".log"
     if os.path.exists(path):
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        return {"path": path, "seconds": 0.0, "log": log}
+        return _built(path)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(path):  # another process built it meanwhile
+            return _built(path)
+        return _compile(path)
+
+
+def _built(path: str) -> dict:
+    log_path = path[:-3] + ".log"
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+    return {"path": path, "seconds": 0.0, "log": log}
+
+
+def _compile(path: str) -> dict:
+    log_path = path[:-3] + ".log"
     cu = [s for s in _sources() if s.endswith(".cu")]
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
@@ -92,7 +112,7 @@ def build() -> dict:
     log = "".join(logs) + proc.stderr + proc.stdout
     with open(log_path, "w") as f:
         f.write(log)
-    os.replace(tmp, path)  # atomic: concurrent builders race harmlessly
+    os.replace(tmp, path)  # atomic: no reader sees a half-written library
     return {"path": path, "seconds": seconds, "log": log}
 
 
@@ -101,11 +121,11 @@ def load_kernels() -> ctypes.CDLL:
     """The built library with its entry points' signatures declared."""
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    cf = ctypes.c_float
     lib.rtc_pair_tiles.restype = ci
-    lib.rtc_pair_tiles.argtypes = [vp] * 18 + [ci] * 11 + [vp]
+    lib.rtc_pair_tiles.argtypes = [vp] * 18 + [ci] * 11 + [cf, cf, vp]
     lib.rtc_pair_common.restype = ci
     lib.rtc_pair_common.argtypes = [vp] * 12 + [ci] * 3 + [vp]
-    cf = ctypes.c_float
     lib.rtc_filter_mask.restype = ci
     lib.rtc_filter_mask.argtypes = [vp, vp, ci] + [vp] * 9 + [ci] * 4 + [
         cf, cf, cf, ci, cf, ci, ci, ci, vp, vp, vp]

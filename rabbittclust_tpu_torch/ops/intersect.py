@@ -11,6 +11,10 @@ plane set):
   engine's per-tile candidate counts and bit-packed masks
   (``rabbittclust_tpu/ops/engine.py::_mst_batch_fn``), without the counts
   ever reaching device memory.
+* ``pair_stats_tiles`` — the same kernel in its stats mode: one step of
+  the mesh's stats ring (``rabbittclust_tpu/parallel/dist_engine.py::
+  build_ring_fn``), the float32 Mash distance of every gated pair reduced
+  to a count at the threshold and a minimum, the counts kept on chip.
 * K5b ``pair_common`` — counts for explicit (ii, jj) pairs; replaces the
   jitted ``_pair_common_fn`` of the JAX engine.
 
@@ -31,10 +35,11 @@ import torch
 
 from .pack import GROUP, WINDOWS, CompactPlanes, compact_of
 
-LAUNCHES = {"pair_counts_tiles": 0, "pair_mask_tiles": 0, "pair_common": 0}
+LAUNCHES = {"pair_counts_tiles": 0, "pair_mask_tiles": 0, "pair_stats_tiles": 0,
+            "pair_common": 0}
 
 # the tile kernel's modes (csrc/pair_counts.cu::Mode)
-COUNTS, MASK = 0, 1
+COUNTS, MASK, STATS = 0, 1, 2
 # shared memory of the tile kernel's staging ring, both modes: beside a
 # block's counts (64 KB) two blocks an SM, beside its mask bits (2 KB)
 # four; longer windows cost blocks an SM, shorter ones more barriers
@@ -189,7 +194,7 @@ def tile_config(compact: CompactPlanes, two_plane: bool, mode: int,
     capacity in entries per side (``csrc/pair_counts.cu::stage_layout``
     computes the same bytes), over the rows' form and the columns'."""
     planes = 2 if two_plane else 1
-    acc = GROUP * GROUP * 4 if mode == COUNTS else GROUP * GROUP // 8
+    acc = GROUP * GROUP // 8 if mode == MASK else GROUP * GROUP * 4
     forms = [compact] if col_compact is None else [compact, col_compact]
     for wb in WINDOWS:
         most = max(f.window_max[wb] for f in forms)
@@ -207,10 +212,11 @@ def tile_config(compact: CompactPlanes, two_plane: bool, mode: int,
 
 def _launch_tiles(mode, p0, p1, r0s, c0s, valid, rb, out, sizes=None,
                   tile_counts=None, radio=0, start_index=0, n=0, cols=None,
-                  tri=True):
+                  tri=True, thr=0.0, nik=0.0):
     """One launch of the tile kernel; ``sizes`` and ``tile_counts`` are
-    read and written in the mask mode only, as are ``cols`` (the column
-    side's planes and sizes) and ``tri``."""
+    read and written in the mask and stats modes only, as are ``cols``
+    (the column side's planes and sizes) and ``tri``; ``thr`` and ``nik``
+    (float32 threshold and -(1/k)) in the stats mode only."""
     _check_planes(p0, p1)
     if cols is not None:
         _check_planes(cols[0], cols[1])
@@ -242,9 +248,10 @@ def _launch_tiles(mode, p0, p1, r0s, c0s, valid, rb, out, sizes=None,
                 (cc.g0 if cc.g1 is None else cc.g1).data_ptr(),
                 cc.gid.data_ptr(), cc.goff.data_ptr(), cc.start.data_ptr(),
                 _ptr(sizes_c), idx[0].data_ptr(), idx[1].data_ptr(),
-                idx[2].data_ptr(), out.data_ptr(), _ptr(tile_counts),
+                idx[2].data_ptr(), _ptr(out), _ptr(tile_counts),
                 len(r0s), rb, p0.shape[2], wb, cap, int(p1 is not None),
-                mode, radio, start_index, n, int(bool(tri)), stream)
+                mode, radio, start_index, n, int(bool(tri)), float(thr),
+                float(nik), stream)
 
 
 def pair_counts_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
@@ -293,6 +300,95 @@ def pair_mask_tiles(p0: torch.Tensor, p1: Optional[torch.Tensor],
                   radio, start_index, n, cols, tri)
     LAUNCHES["pair_mask_tiles"] += 1
     return cnts, packs
+
+
+def stats_epilogue(counts: torch.Tensor, s_rows: torch.Tensor,
+                   s_cols: torch.Tensor, ok: torch.Tensor, radio: int,
+                   threshold: float, kmer_size: int) -> torch.Tensor:
+    """``build_ring_fn``'s step after its counts, in float32 and in JAX's
+    order of operations: the gates ``counts > 0``, ``min > 0`` and
+    ``max <= radio * min`` (none for ``radio`` 0) and'ed with ``ok``;
+    ``j = common / max(denom, 1)`` where ``denom = s0 + s1 - common > 0``,
+    else 0; ``d`` 0 where ``j >= 1``, 1 where ``j <= 0``, else
+    ``-(1/k) * log(2j / (1 + j))``.  Returns (2,) int32: the count of
+    gated pairs with ``d <= threshold`` and the float32 bits of
+    ``min(where(ok, d, 1.0))`` (-0.0 read as +0.0, as the kernel keeps
+    it).  ``s_rows`` (rows, 1) and ``s_cols`` (1, cols) int sizes."""
+    f32 = torch.float32
+    s0, s1 = s_rows.to(f32), s_cols.to(f32)
+    mn, mx = torch.minimum(s0, s1), torch.maximum(s0, s1)
+    ok = ok & (counts > 0) & (mn > 0)
+    if radio:
+        ok &= mx <= radio * mn
+    common = counts.to(f32)
+    denom = s0 + s1 - common
+    one, zero = torch.ones((), dtype=f32), torch.zeros((), dtype=f32)
+    j = torch.where(denom > 0, common / torch.clamp(denom, min=1.0), zero)
+    nik = torch.tensor(np.float32(-(1.0 / kmer_size)))
+    d = torch.where(j >= 1.0, zero, torch.where(
+        j <= 0.0, one, nik * torch.log(2.0 * j / (1.0 + j))))
+    count = (ok & (d <= torch.tensor(np.float32(threshold)))).sum(
+        dtype=torch.int32)
+    low = torch.where(ok, d, one).min() + 0.0
+    return torch.stack([count, low.view(torch.int32)])
+
+
+def pair_stats_tiles_plain(p0, sizes, r0s, c0s, valid, radio, threshold,
+                           kmer_size, rb, cols=None, tri=True):
+    """The plain counts of every valid tile (plane 0), then
+    ``stats_epilogue`` with ``j < i`` (``tri``) on the tile positions,
+    summed and minimised over the tiles."""
+    q0, s_c = (p0, sizes) if cols is None else (cols[0], cols[1])
+    dev = p0.device
+    out = torch.tensor([0, int(np.float32(1.0).view(np.int32))],
+                       dtype=torch.int32, device=dev)
+    span = torch.arange(rb, device=dev)
+    for r0, c0, live in zip(r0s, c0s, valid):
+        if not live:
+            continue
+        counts = torch.cat([pair_counts_plain(p0[r:min(r + 512, r0 + rb)],
+                                              q0[c0:c0 + rb])
+                            for r in range(r0, r0 + rb, 512)])
+        ok = (c0 + span)[None, :] < (r0 + span)[:, None] if tri else \
+            torch.ones((rb, rb), dtype=torch.bool, device=dev)
+        st = stats_epilogue(counts, sizes[r0:r0 + rb, None],
+                            s_c[None, c0:c0 + rb], ok, radio, threshold,
+                            kmer_size)
+        out = torch.stack([out[0] + st[0], torch.minimum(out[1], st[1])])
+    return out
+
+
+def pair_stats_tiles(p0: torch.Tensor, sizes: torch.Tensor, r0s, c0s, valid,
+                     radio: int, threshold: float, kmer_size: int, rb: int,
+                     cols=None, tri: bool = True) -> torch.Tensor:
+    """One step of the stats ring over plane 0 (a 32-bit pack's plane:
+    the compact form takes a value with its top bit set for a pad): for
+    the pairs of each valid tile that pass ``stats_epilogue``'s gates
+    (and ``j < i`` with ``tri``), the count at ``threshold`` and the
+    minimum distance, as (2,) int32 [count, float32 bits of the minimum]
+    on the planes' device.  ``cols`` (plane0, sizes) gives the columns
+    their own planes (a visiting shard's).  On the card K4's stats mode:
+    the counts stay on chip and each block adds its count and minimum to
+    the two words with atomics."""
+    n_cols = None if cols is None else cols[0].shape[0]
+    r0s, c0s, valid = _tiles(p0, r0s, c0s, valid, rb, n_cols)
+    if p0.device.type == "cpu":
+        return pair_stats_tiles_plain(p0, sizes, r0s, c0s, valid, radio,
+                                      threshold, kmer_size, rb, cols, tri)
+    for t, m in ((sizes, p0.shape[0]), (None if cols is None else cols[1],
+                                        n_cols)):
+        if t is not None and (t.dtype != torch.int32 or t.device != p0.device
+                              or t.shape != (m,) or not t.is_contiguous()):
+            raise ValueError("sizes must be contiguous (n_pad,) int32 "
+                             "tensors on the planes' device")
+    stats = torch.tensor([0, int(np.float32(1.0).view(np.int32))],
+                         dtype=torch.int32, device=p0.device)
+    _launch_tiles(STATS, p0, None, r0s, c0s, valid, rb, None, sizes, stats,
+                  radio, 0, p0.shape[0],
+                  None if cols is None else (cols[0], None, cols[1]), tri,
+                  np.float32(threshold), np.float32(-(1.0 / kmer_size)))
+    LAUNCHES["pair_stats_tiles"] += 1
+    return stats
 
 
 def pair_common_plain(p0: torch.Tensor, p1: Optional[torch.Tensor],

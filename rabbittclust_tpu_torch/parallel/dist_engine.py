@@ -22,6 +22,10 @@ apply the JAX mask to the genome ids instead.
 Programs, each a wrapper that launches hand-written kernels on the card
 and runs its plain torch version on CPU tensors:
 
+* ``ring_stats_step`` (``build_ring_fn``, the stats ring of
+  ``distributed_candidate_stats``): K4's stats mode over (local shard,
+  visiting shard), plane 0: the float32 Mash distance of every gated pair,
+  reduced on the card to a count at the threshold and a minimum;
 * ``ring_edges_step`` (``build_ring_edges_fn``, exact ring): K4's mask
   mode over (local shard, visiting shard), K3 to compact, K5b for the
   exact common counts of the survivors;
@@ -38,9 +42,9 @@ in its order.  On the card each shard's buffers carry extra zero-size rows
 up to a multiple of 128 (K4 reads groups of 128 genomes); those rows never
 pass a gate and are dropped before any output.
 
-Left out: ``build_ring_fn`` / ``distributed_candidate_stats``, which only
-the JAX package's multi-chip dry run calls, and the multi-process ring of
-``multihost.py``.
+``_ring`` is the one ring driver; ``parallel/multihost.py`` runs it over
+a mesh of processes by giving it a shift that hands the last local shard
+to the next process.
 """
 
 from __future__ import annotations
@@ -62,13 +66,14 @@ from ..distance.mash import (aaf_distance, mash_distance,
 from ..ops import bitmap as bm
 from ..ops.cluster_fast import _gated_verify_block, gated_verify_merge
 from ..ops.intersect import (_upload, pair_common_launch, pair_counts_plain,
-                             pair_mask_tiles)
+                             pair_mask_tiles, pair_stats_tiles,
+                             stats_epilogue)
 from ..ops.labelprop import MAX_RB, SENT, _clear_quantum, lp_round
 from ..ops.pack import (GROUP, _to_device, compact_of, keep_compact,
                         pack_sketches)
 
-LAUNCHES = {"ring_edges": 0, "ring_bitmap": 0, "ring_masks": 0,
-            "dist_lp_round": 0}
+LAUNCHES = {"ring_stats": 0, "ring_edges": 0, "ring_bitmap": 0,
+            "ring_masks": 0, "dist_lp_round": 0}
 
 # last mesh-lp run's shape facts, for communication accounting; on the card
 # also the device milliseconds of the build and of each round
@@ -192,21 +197,28 @@ def _rows(shard: int, mesh: Mesh) -> int:
     return -(-shard // GROUP) * GROUP if mesh.cuda else shard
 
 
-def _ring(mesh: Mesh, shards: list, step) -> list:
-    """Run ``step(d, t, local, visiting)`` for every device d and ring step
-    t; returns out[d][t].  After each step every visiting shard moves to
-    the next device (the ``ppermute``): device d holds shard (d - t) mod n
-    at step t."""
-    n_dev = mesh.size
+def _ring(mesh: Mesh, shards: list, step, shift=None,
+          n_dev: Optional[int] = None) -> list:
+    """Run ``step(d, t, local, visiting)`` for every shard d of this
+    process and ring step t of a ring of ``n_dev`` shards (the mesh's by
+    default); returns out[d][t].  After each step ``shift(visiting)``
+    moves every visiting shard one place along the ring (the
+    ``ppermute``): by default to the next device of the mesh, so device d
+    holds shard (d - t) mod n at step t.  ``parallel/multihost.py`` passes
+    a shift that sends the last local shard to the next process."""
+    n_dev = mesh.size if n_dev is None else n_dev
     n_steps = _n_ring_steps(n_dev)
-    out = [[None] * n_steps for _ in range(n_dev)]
+    if shift is None:
+        def shift(vis):
+            return [vis[(d - 1) % len(vis)].to(mesh.devices[d])
+                    for d in range(len(vis))]
+    out = [[None] * n_steps for _ in shards]
     vis = list(shards)
     for t in range(n_steps):
-        for d in range(n_dev):
+        for d in range(len(shards)):
             out[d][t] = step(d, t, shards[d], vis[d])
         if t + 1 < n_steps:
-            vis = [vis[(d - 1) % n_dev].to(mesh.devices[d])
-                   for d in range(n_dev)]
+            vis = shift(vis)
     return out
 
 
@@ -218,6 +230,47 @@ def _ids(shard) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Ring steps: plain versions and wrappers
+
+def ring_stats_step_plain(local: PlaneShard, visiting: PlaneShard, t: int,
+                          n_dev: int, threshold: float, kmer_size: int,
+                          radio: int) -> torch.Tensor:
+    """One step of ``build_ring_fn``, the JAX step: ``_counts_block`` over
+    plane 0 (512 rows at a time), the gates, ``_ownership_mask`` and the
+    float32 distance (``ops/intersect.py::stats_epilogue``).  Returns (2,)
+    int32: the step's count at ``threshold`` and the float32 bits of its
+    minimum distance (1.0 when no pair passes)."""
+    counts = torch.cat([pair_counts_plain(local.p0[r:r + 512], visiting.p0)
+                        for r in range(0, local.p0.shape[0], 512)])
+    return stats_epilogue(
+        counts, local.sizes[:, None], visiting.sizes[None, :],
+        _ownership_mask(t, n_dev, _ids(local), _ids(visiting)), radio,
+        threshold, kmer_size)
+
+
+def ring_stats_step(local: PlaneShard, visiting: PlaneShard, t: int,
+                    n_dev: int, threshold: float, kmer_size: int,
+                    radio: int) -> torch.Tensor:
+    """One step of ``build_ring_fn``: (2,) int32 [count at ``threshold``,
+    float32 bits of the minimum distance] of (local rows, visiting
+    columns) on the local shard's device.  On the card one launch of K4's
+    stats mode over the two shards' compact forms (plane 0), the tile kind
+    taking the place of the ownership mask; nothing for the antipodal
+    step's lower shard."""
+    rows = local.p0.shape[0]
+    if local.p0.device.type == "cpu":
+        return ring_stats_step_plain(local, visiting, t, n_dev, threshold,
+                                     kmer_size, radio)
+    kind = _step_kind(t, n_dev, local.lo, visiting.lo)
+    if kind == "none":
+        return torch.tensor([0, int(np.float32(1.0).view(np.int32))],
+                            dtype=torch.int32, device=local.p0.device)
+    out = pair_stats_tiles(local.p0, local.sizes, [0], [0], [1], radio,
+                           threshold, kmer_size, rows,
+                           cols=(visiting.p0, visiting.sizes),
+                           tri=kind == "self")
+    LAUNCHES["ring_stats"] += 1
+    return out
+
 
 def ring_filter_mask_plain(local: BitShard, visiting: BitShard, t: int,
                            n_dev: int, scalars, radio: int,
@@ -373,7 +426,10 @@ def dist_lp_round(mesh: Mesh, slabs: List[torch.Tensor], labels, clrs):
 # Shards of the packed inputs, one per device
 
 def _bit_shards(xp: np.ndarray, coll: np.ndarray, sizes: np.ndarray,
-                mesh: Mesh) -> List[BitShard]:
+                mesh: Mesh, first_id: int = 0) -> List[BitShard]:
+    """One shard of the rows a device; shard d's genomes are ids
+    ``first_id + d * shard``, ... (a process's block in a multi-process
+    mesh starts at its first genome)."""
     n_dev = mesh.size
     shard = xp.shape[0] // n_dev
     rows = _rows(shard, mesh)
@@ -385,7 +441,7 @@ def _bit_shards(xp: np.ndarray, coll: np.ndarray, sizes: np.ndarray,
         s = np.zeros(rows, dtype=np.int32)
         x[:shard], c[:shard], s[:shard] = xp[sl], coll[sl], sizes[sl]
         out.append(BitShard(_to_device(x, dev), _to_device(c, dev),
-                            _to_device(s, dev), d * shard))
+                            _to_device(s, dev), first_id + d * shard))
     return out
 
 
@@ -431,6 +487,39 @@ def _decode(out, shard: int, rows: int, n_dev: int):
         e = np.empty(0, dtype=np.int64)
         return e, e.copy()
     return np.concatenate(ii_all), np.concatenate(jj_all)
+
+
+# ---------------------------------------------------------------------------
+# Stats ring
+
+# Source: rabbittclust_tpu/parallel/dist_engine.py::distributed_candidate_stats
+def distributed_candidate_stats(packed_plane0: np.ndarray, sizes: np.ndarray,
+                                threshold: float, kmer_size: int,
+                                mesh: Optional[Mesh] = None
+                                ) -> Tuple[int, float]:
+    """Run the full stats ring over a mesh; returns (# pairs with dist <=
+    threshold, min pair distance), the distance in float32 as the JAX
+    program computes it (a dry-run statistic: outputs written to files use
+    float64 distances from exact counts).  ``packed_plane0`` (n, W, K)
+    uint32 is a 32-bit pack's plane 0."""
+    if mesh is None:
+        mesh = make_mesh()
+    n_dev = mesh.size
+    n = packed_plane0.shape[0]
+    if n % n_dev != 0:
+        raise ValueError(
+            f"packed rows ({n}) must be a multiple of the mesh size "
+            f"({n_dev}); pad with pack_sketches(pad_n_to=n_dev)")
+    radio = size_ratio_limit(threshold, kmer_size - 1)
+    shards = _plane_shards(packed_plane0, None, np.asarray(sizes), mesh,
+                           first_pad_id=n)
+    out = _ring(mesh, shards, lambda d, t, loc, vis: ring_stats_step(
+        loc, vis, t, n_dev, threshold, kmer_size, radio))
+    steps = np.stack([s.cpu().numpy() for o in out for s in o])
+    total = int(steps[:, 0].astype(np.int64).sum())  # psum
+    low = np.ascontiguousarray(steps[:, 1]).view(np.float32).min(
+        initial=np.float32(1.0))  # pmin
+    return total, float(low)
 
 
 # ---------------------------------------------------------------------------

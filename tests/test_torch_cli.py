@@ -309,14 +309,18 @@ def test_classic_append_preserves_source_folder(synthetic_genomes, tmp_path,
 ], ids=["append", "save-rep", "buildDB", "db", "sketch-func", "multihost"])
 def test_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
     """Arms not ported yet exit 1 naming their ROADMAP item; ``append`` is
-    the MinHash --append (no --fast).  The extra sketches are ported, and
-    ``--fast --sketch-func`` exits 1 with the JAX CLI's error: they take
-    fresh genome input only."""
+    the MinHash --append (no --fast).  The extra sketches and --multihost
+    are ported: ``--fast --sketch-func`` exits 1 with the JAX CLI's error
+    (fresh genome input only), and ``--multihost`` without ``-i`` with the
+    JAX CLI's ``run_multihost`` refusal."""
     argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
     assert port_main(argv, device=CPU) == 1
     err = capsys.readouterr().err
     if "--sketch-func" in extra:
         assert "supports fresh genome input only" in err
+        assert "not ported" not in err
+    elif "--multihost" in extra:
+        assert "--multihost requires -i/--input genomes" in err
         assert "not ported" not in err
     else:
         assert "not ported" in err and "ROADMAP Queue 1 item" in err
@@ -331,11 +335,70 @@ def test_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
     ["--fast", "--multihost", "localhost:1,1,0"],
 ], ids=["append", "minhash-append", "save-rep", "db", "multihost"])
 def test_greedy_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
+    """As clust-mst's: ``--multihost`` (ported) without ``-i`` exits 1 with
+    the JAX CLI's refusal."""
     argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
     assert port_greedy_main(argv, device=CPU) == 1
     err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP Queue 1 item 1" in err
+    if "--multihost" in extra:
+        assert "--multihost requires -i/--input genomes" in err
+        assert "not ported" not in err
+    else:
+        assert "not ported" in err and "ROADMAP Queue 1 item 1" in err
     assert not (tmp_path / "o.cluster").exists()
+
+
+MULTIHOST = ["--multihost", "localhost:1,1,0"]
+
+
+@pytest.mark.parametrize("module,argv,message", [
+    ("mst", ["-l", "-i", "x.list"], "--multihost requires --fast"),
+    ("greedy", ["-l", "-i", "x.list"], "--multihost requires --fast"),
+    ("leiden", ["-l", "-i", "x.list"], "--multihost requires --fast"),
+    ("dbscan", ["-l", "-i", "x.list"], "--multihost requires --fast"),
+    ("mst", ["--fast"], "--multihost requires -i/--input"),
+    ("leiden", ["--fast"], "--multihost requires -i/--input"),
+    ("mst", ["--fast", "-i", "x.list", "--presketched", "dir"],
+     "--multihost supports fresh genome input only"),
+    ("greedy", ["--fast", "-i", "x.list", "--presketched", "dir"],
+     "--multihost supports fresh genome input only"),
+    ("mst", ["--fast", "-i", "x.list", "--premsted", "dir"],
+     "--multihost supports fresh genome input only"),
+    ("dbscan", ["--minhash", "-l", "-i", "x.list"],
+     "--multihost clust-dbscan requires --fast"),
+], ids=["mst-no-fast", "greedy-no-fast", "leiden-no-fast", "dbscan-no-fast",
+        "mst-no-input", "leiden-no-input", "mst-presketched",
+        "greedy-presketched", "mst-premsted", "dbscan-minhash"])
+def test_cli_multihost_refusals_match_jax(module, argv, message, tmp_path,
+                                          capsys):
+    """The port's ``--multihost`` refuses what the JAX CLIs refuse, with
+    their exit code and message, before any process group is joined."""
+    out = str(tmp_path / "o.cluster")
+    jax_fn = jax_main if module == "mst" else MAINS[module][0]
+    port_fn = port_main if module == "mst" else MAINS[module][1]
+    args = argv + ["-o", out] + MULTIHOST
+    assert jax_fn(args) == 1
+    jax_err = capsys.readouterr().err
+    assert port_fn(args, device=CPU) == 1
+    port_err = capsys.readouterr().err
+    assert message in jax_err and message in port_err
+    assert port_err.strip().splitlines()[-1] == \
+        jax_err.strip().splitlines()[-1]
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("module", ["mst", "greedy"])
+def test_cli_db_multihost_waits_for_repdb(module, tmp_path, capsys):
+    """``--db ... --multihost`` (the RepDB serving path) stays unported: it
+    exits 1 under the ``--db`` row, ROADMAP Queue 1 item 10."""
+    out = str(tmp_path / "o.cluster")
+    port_fn = port_main if module == "mst" else port_greedy_main
+    assert port_fn(["--fast", "-l", "-i", "x.list", "--db", "rep.db",
+                    "--query", "-o", out] + MULTIHOST, device=CPU) == 1
+    err = capsys.readouterr().err
+    assert "--db (RepDB) is not ported" in err
+    assert "ROADMAP Queue 1 item 10" in err
+    assert not os.path.exists(out)
 
 
 def test_cli_mst_state_append_exits_1(tmp_path, capsys):
@@ -495,13 +558,14 @@ def test_cli_leiden_presketched_no_save_byte_equal(kssd_folder, tmp_path,
 @pytest.mark.parametrize("main_fn", [port_dbscan_main, port_leiden_main],
                          ids=["dbscan", "leiden"])
 def test_cli_dbscan_leiden_refusals(main_fn, tmp_path, capsys):
-    """--multihost exits 1 naming its ROADMAP item; without --device the
-    port's clust-dbscan and clust-leiden exit 1 too."""
+    """--multihost (ported) without -i exits 1 with the JAX CLI's refusal;
+    without --device the port's clust-dbscan and clust-leiden exit 1."""
     out = str(tmp_path / "o.cluster")
     assert main_fn(["--fast", "--device", "--multihost", "localhost:1,1,0",
                     "-o", out], device=CPU) == 1
     err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP Queue 1 item 11" in err
+    assert "--multihost requires -i/--input genomes" in err
+    assert "not ported" not in err
     assert main_fn(["--fast", "-l", "-i", "x", "-o", out], device=CPU) == 1
     assert "pass --device" in capsys.readouterr().err
     assert not (tmp_path / "o.cluster").exists()

@@ -1042,3 +1042,95 @@ def test_mesh_cli_on_card_equals_dense_engine(gpu, tmp_path, monkeypatch):
     for a, b in zip(outs["0"], outs["1"]):
         with open(a, "rb") as fa, open(b, "rb") as fb:
             assert fa.read() == fb.read(), os.path.basename(a)
+
+
+def _ulp_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The two stats' minima, float32 bits as int32, apart in ulp."""
+    return abs(int(a[1]) - int(b[1]))
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4])
+def test_ring_stats_steps_match_plain(gpu, n_dev):
+    """Every (device, step) of the stats ring over [cuda:0] * n_dev: K4's
+    stats mode (tile kinds self / full / none) against the plain step (the
+    JAX ownership mask on genome ids): the count equal, the float32
+    minimum within 4 ulp; then distributed_candidate_stats against CPU
+    shards."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    mesh = de.make_mesh(devices=[gpu] * n_dev)
+    hashes = _ring_corpus(n=300)
+    shards = _ring_shards("edges", hashes, mesh)
+    radio = de.size_ratio_limit(0.05, 20)
+    kinds = set()
+    before = de.LAUNCHES["ring_stats"]
+    for d in range(n_dev):
+        for t in range(de._n_ring_steps(n_dev)):
+            loc, vis = shards[d], shards[(d - t) % n_dev]
+            kinds.add(de._step_kind(t, n_dev, loc.lo, vis.lo))
+            got = de.ring_stats_step(loc, vis, t, n_dev, 0.05, 21, radio)
+            want = de.ring_stats_step_plain(loc, vis, t, n_dev, 0.05, 21,
+                                            radio)
+            assert int(got[0]) == int(want[0]), (d, t)
+            assert _ulp_apart(got, want) <= 4, (d, t)
+    assert kinds == ({"self"} if n_dev == 1 else
+                     {"self", "full"} if n_dev == 3 else
+                     {"self", "full", "none"})
+    assert de.LAUNCHES["ring_stats"] - before == n_dev * de._n_ring_steps(
+        n_dev) - (n_dev // 2 if n_dev % 2 == 0 else 0)
+    p0, _, sz = de._pack_rows_for_mesh(hashes, mesh)
+    got = de.distributed_candidate_stats(p0, sz, 0.05, 21, mesh=mesh)
+    want = de.distributed_candidate_stats(
+        p0, sz, 0.05, 21, mesh=de.make_mesh(devices=[torch.device("cpu")] *
+                                            n_dev))
+    assert got[0] == want[0]
+    assert abs(int(np.float32(got[1]).view(np.int32)) -
+               int(np.float32(want[1]).view(np.int32))) <= 4
+
+
+@pytest.mark.parametrize("rows", [96, 160, 4096])
+def test_stats_mode_matches_plain(gpu, rows):
+    """K4's stats mode on two shards of ``rows`` genomes each (padded on the
+    card to a multiple of 128 with size-0 rows): the self tile (rows
+    against themselves, j < i), the full tile (columns from the other
+    shard's compact form) and the antipodal step's empty tile, against
+    ``pair_stats_tiles_plain`` and the plain ring step."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    mesh = de.make_mesh(devices=[gpu] * 2)
+    hashes = _ring_corpus(n=2 * rows)
+    shards = _ring_shards("edges", hashes, mesh)
+    lo_shard, hi_shard = shards
+    assert lo_shard.p0.shape[0] % 128 == 0
+    assert int(lo_shard.sizes[rows:].abs().sum()) == 0
+    radio = de.size_ratio_limit(0.05, 20)
+    for loc, vis, t in ((hi_shard, hi_shard, 0), (hi_shard, lo_shard, 1),
+                        (lo_shard, hi_shard, 1)):
+        kind = de._step_kind(t, 2, loc.lo, vis.lo)
+        n_rows = loc.p0.shape[0]
+        got = ix.pair_stats_tiles(loc.p0, loc.sizes, [0], [0],
+                                  [int(kind != "none")], radio, 0.05, 21,
+                                  n_rows, cols=(vis.p0, vis.sizes),
+                                  tri=kind == "self")
+        want = ix.pair_stats_tiles_plain(
+            loc.p0, loc.sizes, [0], [0], [int(kind != "none")], radio, 0.05,
+            21, n_rows, cols=(vis.p0, vis.sizes), tri=kind == "self")
+        step = de.ring_stats_step_plain(loc, vis, t, 2, 0.05, 21, radio)
+        assert int(got[0]) == int(want[0]) == int(step[0]), kind
+        assert _ulp_apart(got, want) <= 4 and _ulp_apart(got, step) <= 4
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ix.pair_stats_tiles(lo_shard.p0, lo_shard.sizes, [0], [0], [1],
+                            radio, 0.05, 21, 96)
+
+
+def test_two_process_sim_on_the_card():
+    """Two processes of two shards each on cuda:0: the ranks share the
+    card, so the ring's hop is staged through host memory over gloo; each
+    child holds its results to the port's single-process engines."""
+    from rabbittclust_tpu_torch.parallel.multihost import launch_local_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    outs = launch_local_sim(2, 2, 48, device="cuda", timeout=600)
+    assert all(o.startswith("OK proc=") and "transport=gloo-staged" in o
+               for o in outs), outs
+    assert len({o.split("digest=")[1] for o in outs}) == 1
+    assert all(int(o.split("ring_launches=")[1].split()[0]) > 0
+               for o in outs)

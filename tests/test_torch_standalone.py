@@ -195,3 +195,50 @@ def test_native_library_is_required(monkeypatch, tmp_path):
             native.load_native()
     finally:
         native.load_native.cache_clear()
+
+
+# The multi-process arms: every rank is a process of its own, and each
+# checks what it loaded.  ``{coord}`` is the ranks' coordinator address,
+# ``{pid}`` the rank.
+_RANK_RUNNER = r"""
+import sys
+import torch
+arm, coord, pid, list_file = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    sys.argv[4]
+if arm in ("mst", "greedy"):
+    from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
+    main = clust_mst.main if arm == "mst" else clust_greedy.main
+    assert main(["--fast", "-l", "-i", list_file, "-m", "1000", "-d",
+                 "0.05", "-o", "out.cluster", "--multihost",
+                 f"{coord},2,{pid}"]) == 0
+elif arm == "sim":
+    from rabbittclust_tpu_torch.parallel.multihost import _sim_child
+    _sim_child(pid, 2, int(coord.split(":")[1]), 2, 20)
+else:
+    from rabbittclust_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(2, devices=[torch.device("cpu")] * 2)
+bad = [m for m in sys.modules if m in ("rabbittclust_tpu", "jax", "jaxlib")
+       or m.startswith(("rabbittclust_tpu.", "jax.", "jaxlib."))]
+print("loaded:", bad)
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("arm", ["mst", "greedy", "sim", "dryrun"])
+def test_multihost_ranks_load_no_jax_package(arm, synthetic_genomes,
+                                             tmp_path):
+    """Each rank of a ``--multihost`` CLI run and of the simulation, and the
+    dry run (whose own simulation's children run ``_sim_child``), load
+    nothing of JAX or the JAX package."""
+    from rabbittclust_tpu_torch.parallel.multihost import free_port, run_ranks
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=REPO, RTC_VIRTUAL_CPU_DEVICES="2")
+    coord = f"127.0.0.1:{free_port()}"
+    ranks = 1 if arm == "dryrun" else 2
+    rcs, outs, errs = run_ranks(
+        [[sys.executable, "-c", _RANK_RUNNER, arm, coord, str(pid),
+          synthetic_genomes.list_file] for pid in range(ranks)],
+        env=env, timeout=300, cwd=str(tmp_path))
+    for rc, out, err in zip(rcs, outs, errs):
+        assert rc == 0, err[-3000:]
+        assert "loaded: []" in out
