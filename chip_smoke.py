@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``rabbittclust_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one line or block each; any failure raises (non-zero exit):
 
@@ -127,10 +127,19 @@ the WMH (50 x 4 words) and OMH (64 x 6) shapes.  Phase 3g holds K6
 (``greedy_filter``) to its plain version at B = 2,048 against R = 1,024
 and 16,384 reps, triangular, and a ragged B = 7, over phases 8a's and 8b's
 resident signatures, beside a bfloat16 ``torch.mm`` of the gathered
-product; phase 3h holds each step kind of the exact, bitmap and mask rings
-(self, interior, antipodal, and the antipodal step's empty tile) to the
-plain steps at 4 shards of N = 16,384 and 8 shards of N = 131,072, and one
-LP round over a shard's slab with a clear list of repeated targets.
+product; phase 3h
+holds each step kind of the exact, bitmap and mask rings (self, interior,
+antipodal, and the antipodal step's empty tile) to the plain steps at 4
+shards of N = 16,384 and 8 shards of N = 131,072, times the whole bitmap
+ring at both shapes, and one LP round over a shard's slab with a clear
+list of repeated targets.  Phases 3g and 3h give each case's kernel time
+(``device_ms``: the durations of its kernels and memsets from
+``torch.profiler`` over 20 calls, the copies apart) and its call's time
+(CUDA events), and the same two times of the ``torch.mm``.
+``python3 chip_smoke.py --parent DIR`` (DIR holding the parent
+commit's ``rabbittclust_tpu_torch/``) also builds that package from its
+own sources and times its K6, bitmap ring step and ring in turns with
+this tree's, equal outputs required.
 Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
 step) to the plain step on a band of 256 rows for each step kind at 4
 shards of N = 16,384, and times the whole steps beside their bounds and
@@ -189,7 +198,8 @@ KERNELS = {
     # K4's mask mode over two shards, K3, K5b
     "ring_edges": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
                    "rabbittclust_tpu/parallel/dist_engine.py:168"),
-    # K1 over two shards, then K3
+    # K1 over two shards into the slab a step (its launches: the steps);
+    # the ring's close, K3 once a shard, is timed as its close_ms
     "ring_bitmap": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
                     "rabbittclust_tpu/parallel/dist_engine.py:296"),
     "ring_masks": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
@@ -250,6 +260,101 @@ def cuda_ms(fn, reps=1, warmup=True):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop) / reps
+
+
+# which timer gave each device time of device_ms: the profiler's device
+# activity, or CUDA events where the profiler showed none
+DEVICE_TIMER = {"profiler": 0, "events": 0}
+
+
+def device_ms(fn, reps=20):
+    """(last result, kernel ms, call ms, parts) per call of ``fn``: the
+    kernel time is the sum of the durations of the kernels and memsets in
+    ``torch.profiler``'s ``key_averages()`` over ``reps`` calls (a memset
+    and a fill kernel do the same work, so both count); the call's time is
+    CUDA events around as many calls; ``parts`` the ms a call of each
+    kernel (short name), of the memsets and of the copies.  Where the
+    profiler shows no device activity, the events' time stands for the
+    kernels' (``DEVICE_TIMER`` counts which)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        key = ("copies" if e.key.startswith("Memcpy") else
+               "memsets" if e.key.startswith("Memset") else
+               re.sub(r"^.*?(\w+(<[^()]*>)?)\(.*$", r"\1", e.key))
+        parts[key] = parts.get(key, 0.0) + us / 1e3 / reps
+    kern = sum(v for k, v in parts.items() if k != "copies")
+    out, call = cuda_ms(fn, reps=reps, warmup=False)
+    if parts:
+        DEVICE_TIMER["profiler"] += 1
+        return out, kern, call, parts
+    DEVICE_TIMER["events"] += 1
+    return out, call, call, parts
+
+
+def fmt_parts(parts):
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        parts.items(), key=lambda kv: -kv[1]))
+
+
+# the parent commit's port package when the script runs with --parent DIR
+# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3g and 3h
+# then time its K6 and its bitmap ring step in the same call
+PARENT = {}
+
+
+def load_parent(root):
+    """Import ``root/rabbittclust_tpu_torch`` as ``rtc_parent`` and build
+    its kernels from its own sources (into its own build directory)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "rabbittclust_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "rtc_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["rtc_parent"] = mod
+    spec.loader.exec_module(mod)
+    built = importlib.import_module("rtc_parent.kernels._build").build()
+    PARENT.update(
+        gd=importlib.import_module("rtc_parent.ops.greedy_device"),
+        de=importlib.import_module("rtc_parent.parallel.dist_engine"))
+    say(f"the parent's port package from {pkg}: its kernels built in "
+        f"{built['seconds']:.1f} s")
+
+
+def ab_times(change, parent=None, reps=20):
+    """``device_ms`` of ``change`` and, when given, of ``parent``, in turns
+    parent, change, change, parent: {who: (last result, [kernel ms], [call
+    ms], parts of the last)}."""
+    order = ["change"] if parent is None else ["parent", "change", "change",
+                                                "parent"]
+    fns = {"change": change, "parent": parent}
+    res = {}
+    for who in order:
+        out, dev, call, parts = device_ms(fns[who], reps)
+        r = res.setdefault(who, [None, [], [], None])
+        r[0] = out
+        r[1].append(dev)
+        r[2].append(call)
+        r[3] = parts
+    return res
+
+
+def fmt_ms(xs):
+    return " / ".join(f"{x:.4f}" for x in xs)
 
 
 def make_corpus(n, s, n_clusters, seed, dtype=np.uint32):
@@ -2089,13 +2194,14 @@ def phase_extra_sketch(tmp, dev, n_bases=32, per_base=4, length=20_000):
 def unpack_product_ms(bm, xa, xb):
     """The shared-bit product of two signature row sets alone, as one
     bfloat16 ``torch.mm`` with a float32 result (exact for 0/1 operands):
-    milliseconds."""
+    (kernel ms, call ms) from ``device_ms``, as the kernels beside it are
+    timed."""
     ua = bm.unpack_bits(xa, torch.bfloat16)
     ub = bm.unpack_bits(xb, torch.bfloat16)
-    _, ms = cuda_ms(lambda: torch.mm(ua, ub.T, out_dtype=torch.float32),
-                    reps=3)
+    _, kern, call, _ = device_ms(
+        lambda: torch.mm(ua, ub.T, out_dtype=torch.float32))
     del ua, ub
-    return ms
+    return kern, call
 
 
 def greedy_resident(hashes, dev):
@@ -2130,48 +2236,22 @@ def pair_bound(rows, cols, tri, out_bytes, b1_ops, extra=8):
     return bound(read + out_bytes, 2 * pairs * BITS, b1_ops)
 
 
-def k6_launch_ms(x, coll, sizes, bi, ri, sc, cap, tri, want, dev):
-    """K6's two launches alone (K1's gathered form, K3's row form) on
-    indices already on the card, milliseconds per call; the fused output
-    must equal ``want``."""
-    from rabbittclust_tpu_torch.ops import bitmap as bm
-    b, r = len(bi), len(ri)
-    row_words = 4 * -(-r // 128)
-    gather = torch.from_numpy(np.concatenate([bi, ri]).astype(np.int32)).to(
-        dev)
-    geo = torch.tensor([[0], [0], [1]], dtype=torch.int32, device=dev)
-    counts = torch.zeros(1, dtype=torch.int32, device=dev)
-    packs = torch.empty((b, row_words), dtype=torch.int32, device=dev)
-    out = torch.full((1 + cap,), -1, dtype=torch.int32, device=dev)
-
-    def run():
-        counts.zero_()
-        bm.launch_filter((x, coll, sizes), (x, coll, sizes),
-                         (gather[:b], gather[b:]), geo, 1, b, r, row_words,
-                         sc, False, "greedy", tri, counts, packs)
-        out[:1] = counts
-        bm.compact_rows_into(packs, r, out[1:], cap)
-        return out
-
-    got, ms = cuda_ms(run, reps=20)
-    if not torch.equal(got, want):
-        raise AssertionError("K6's launches alone differ from its wrapper")
-    return ms
-
-
 def phase_greedy_filter_kernel(corpora, dev, rec, card, b1_ops):
     """K6 against ``greedy_filter_plain`` at the batched greedy's shapes:
     a batch of B = 2,048 genomes against R = 1,024 and 16,384 reps (the
     rep list padded with the padding row, as rep_cap pads it), the batch
     against itself (triangular), and a ragged B = 7, over the resident
     N = 32,768 signatures of phases 8a and 8b; cap 262,144 (the JAX
-    route's), so a dense case runs past it.  Beside it one bfloat16
-    ``torch.mm`` of the same gathered 0/1 product."""
+    route's), so a dense case runs past it.  Each case: the device time
+    and the call's time over 20 calls (``device_ms``; with --parent the
+    parent's K6 in turns), and one bfloat16 ``torch.mm`` of the same
+    gathered 0/1 product."""
     say("== phase 3g: K6 (greedy_filter) against greedy_filter_plain")
     from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import greedy_device as gd
     sc = bm.filter_scalars(THRESHOLD, kssd_params().kmer_size, "greedy")
     cap = max(1 << 18, 2048 * 64)
+    pgd = PARENT.get("gd")
     for tag, hashes in corpora:
         x, coll, sizes = greedy_resident(hashes, dev)
         pad = x.shape[0] - 1
@@ -2186,31 +2266,47 @@ def phase_greedy_filter_kernel(corpora, dev, rec, card, b1_ops):
                 ("B=2048 triangular", batch, batch, True),
                 ("B=7 R=1024", batch[:7], reps[1024], False)):
             args = (x, bi, ri, coll, sizes, *sc, False, cap, tri)
-            got, call_ms = cuda_ms(lambda: gd.greedy_filter(*args), reps=5)
-            ms = k6_launch_ms(x, coll, sizes, bi, ri, sc, cap, tri, got, dev)
+            t = ab_times(lambda: gd.greedy_filter(*args),
+                         pgd and (lambda: pgd.greedy_filter(*args)))
+            got, devs, calls, parts = t["change"]
             want, plain_ms = cuda_ms(lambda: gd.greedy_filter_plain(
                 x, torch.from_numpy(bi).to(dev, torch.int32),
                 torch.from_numpy(ri).to(dev, torch.int32), coll, sizes, *sc,
                 False, cap, tri), warmup=False)
             what = f"{tag} {label}"
             hold_exact(rec, "greedy_filter", got, want, what)
-            lib_ms = unpack_product_ms(bm, x[torch.from_numpy(bi).to(dev)],
-                                       x[torch.from_numpy(ri).to(dev)])
+            parent = ""
+            if pgd:
+                if not torch.equal(t["parent"][0], got):
+                    raise AssertionError(f"K6 {what}: the parent's buffer "
+                                         "differs")
+                parent = (f"; the parent's K6 kernels and fills "
+                          f"{fmt_ms(t['parent'][1])} ms, call {fmt_ms(t['parent'][2])} ms (in turns"
+                          f" parent, this, this, parent; "
+                          f"{fmt_parts(t['parent'][3])})")
+            lib_ms, lib_call = unpack_product_ms(
+                bm, x[torch.from_numpy(bi).to(dev)],
+                x[torch.from_numpy(ri).to(dev)])
             b, r = len(bi), len(ri)
             k6_bound = pair_bound(b, r, tri, 4 * (1 + cap), b1_ops, 12)
             entry = rec["greedy_filter"]
-            entry["ms"].append(ms)
+            entry["ms"].append(devs[0])
             entry["plain_ms"].append(plain_ms)
             entry["bound"].append(k6_bound)
+            entry.setdefault("call_ms", calls[0])
             entry.setdefault("library_ms", lib_ms)
+            entry.setdefault("library_call_ms", lib_call)
             count = int(got[0])
             past = " (past cap)" if count > cap else ""
-            say(f"K6 {what}: count {count}{past}: whole buffer exact; kernel {ms:.4f} ms (its launches "
-                f"alone; the wrapper's call with its index uploads "
-                f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-                f"bfloat16 torch.mm of the gathered product {lib_ms:.4f} "
-                f"ms; bound {k6_bound[0]:.4f} ms ({k6_bound[1]}), kernel at "
-                f"{k6_bound[0] / ms:.3f} of it; card {card}")
+            say(f"K6 {what}: count {count}{past}: whole buffer exact; "
+                f"kernels and memsets {fmt_ms(devs)} ms ({fmt_parts(parts)})"
+                f", call {fmt_ms(calls)} ms{parent}; plain {plain_ms:.3f} "
+                f"ms; bfloat16 torch.mm of the gathered product: kernel "
+                f"{lib_ms:.4f} ms ({'above' if devs[0] < lib_ms else 'below'}"
+                f" K6's), call {lib_call:.4f} ms "
+                f"({'above' if calls[0] < lib_call else 'below'} K6's); "
+                f"bound {k6_bound[0]:.4f} ms ({k6_bound[1]}), kernels at "
+                f"{k6_bound[0] / devs[0]:.3f} of it; card {card}")
         del x, coll, sizes
         torch.cuda.empty_cache()
 
@@ -2256,7 +2352,13 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
     empty tile on the lower one) at 4 shards of N = 16,384 and 8 shards of
     N = 131,072, against the plain steps (the JAX ownership mask on the
     genome ids); the exact ring's plain step on a band of rows; then one
-    LP round over a shard's slab with a clear list of repeated targets."""
+    LP round over a shard's slab with a clear list of repeated targets.
+    The bitmap ring's step is the mask ring's slab step (K1, its count on
+    the card) with the ring's close (counts pulled, K3, positions pulled)
+    over that one step; each is timed by ``device_ms`` (device and call
+    times over 20 calls), the step with its close in turns with the
+    parent's step under --parent, and the whole bitmap ring at each shape
+    (every step, then each shard's close) beside the parent's ring."""
     say("== phase 3h: the mesh ring steps against their plain versions "
         "(logical shards on one card)")
     from rabbittclust_tpu_torch.ops import bitmap as bm
@@ -2278,55 +2380,157 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
         sizes = np.array([len(h) for h in hashes], dtype=np.int32)
         shards = de._bit_shards(xp, coll, sizes, mesh)
         del xp
+        pde = PARENT.get("de")
         for label, d, t in cases:
             loc, vis = shards[d], shards[(d - t) % n_dev]
             kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
             what = f"{n_dev} shards of N={n} {label} ({kind})"
-            got, ms = cuda_ms(lambda: de.ring_bitmap_step(
-                loc, vis, t, n_dev, sc, radio, False), reps=3)
+            rows = loc.xp.shape[0]
+            out = torch.zeros((1, rows, rows // 8), dtype=torch.uint8,
+                              device=dev)
+            count = torch.zeros(1, dtype=torch.int32, device=dev)
+            los = [(loc.lo, vis.lo)]
+
+            def step():
+                count.zero_()  # a ring zeroes its counts once
+                de.ring_masks_step(loc, vis, t, n_dev, sc, radio, False, out,
+                                   count)
+
+            def close():
+                return de.ring_positions(out, count, los)
+
+            def bitmap_step():
+                step()
+                return close()
+
+            def parent_step():
+                # the step, then its pull and decode as the parent's
+                # _decode does them after its ring
+                f = pde.ring_bitmap_step(loc, vis, t, n_dev, sc, radio,
+                                         False).cpu().numpy().astype(np.int64)
+                return loc.lo + f // rows, vis.lo + f % rows
+
+            timed = kind != "none"
+            if timed:
+                _, s_dev, s_call, s_parts = ab_times(step)["change"]
+                _, c_dev, c_call, c_parts = ab_times(close)["change"]
+                ab = ab_times(bitmap_step, pde and parent_step)
+                (ii, jj), b_dev, b_call, b_parts = ab["change"]
+            else:
+                ii, jj = bitmap_step()
+            got = torch.from_numpy((ii - loc.lo) * rows + (jj - vis.lo)).to(
+                torch.int32)
             want, plain_ms = cuda_ms(lambda: de.ring_bitmap_step_plain(
                 loc, vis, t, n_dev, sc, radio, False), warmup=False)
-            hold_exact(rec, "ring_bitmap", got, want, what)
-            out = torch.zeros((1, shard, shard // 8), dtype=torch.uint8,
-                              device=dev)
-            _, mms = cuda_ms(lambda: de.ring_masks_step(
-                loc, vis, t, n_dev, sc, radio, False, out), reps=3)
-            want_m, mplain_ms = cuda_ms(lambda: bm.pack_mask_u8(
-                de.ring_filter_mask_plain(loc, vis, t, n_dev, sc, radio,
-                                          False)), warmup=False)
-            hold_exact(rec, "ring_masks", out[0], want_m, what)
-            del want_m
-            if kind == "none":
+            hold_exact(rec, "ring_bitmap", got, want.cpu(), what)
+            ok, mplain_ms = cuda_ms(lambda: de.ring_filter_mask_plain(
+                loc, vis, t, n_dev, sc, radio, False), warmup=False)
+            hold_exact(rec, "ring_masks", out[0], bm.pack_mask_u8(ok), what)
+            hold_exact(rec, "ring_masks", count, ok.sum(dtype=torch.int32)
+                       .view(1), f"{what} count")
+            del ok
+            parent = ""
+            if pde and timed:
+                pi, pj = ab["parent"][0]
+                if not (np.array_equal(pi, ii) and np.array_equal(pj, jj)):
+                    raise AssertionError(f"ring step {what}: the parent's "
+                                         "step differs")
+                parent = (f"; the parent's step (K1, its count pulled, K3, "
+                          f"the positions pulled and decoded) kernels "
+                          f"{fmt_ms(ab['parent'][1])} ms, call "
+                          f"{fmt_ms(ab['parent'][2])} ms (in turns parent, "
+                          f"this, this, parent; {fmt_parts(ab['parent'][3])})")
+            if not timed:
                 say(f"ring step {what}: empty on both: exact")
                 continue
-            lib_ms = unpack_product_ms(bm, loc.xp, vis.xp)
-            count = got.numel()
-            b_bm = pair_bound(shard, shard, kind == "self", 4 * count,
+            lib_ms, lib_call = unpack_product_ms(bm, loc.xp, vis.xp)
+            b_bm = pair_bound(shard, shard, kind == "self", 4 * len(ii),
                               b1_ops)
             b_mk = pair_bound(shard, shard, kind == "self",
                               shard * shard // 8, b1_ops)
-            for name, t_ms, p_ms, bnd in (("ring_bitmap", ms, plain_ms, b_bm),
-                                          ("ring_masks", mms, mplain_ms,
-                                           b_mk)):
-                rec[name]["ms"].append(t_ms)
-                rec[name]["plain_ms"].append(p_ms)
-                rec[name]["bound"].append(bnd)
+            # both rings' step is the slab step (its plain version the
+            # plain mask); the bitmap ring's entry also keeps its close over
+            # that step
+            for name in ("ring_bitmap", "ring_masks"):
+                rec[name]["ms"].append(s_dev[0])
+                rec[name]["plain_ms"].append(mplain_ms)
+                rec[name]["bound"].append(b_mk)
+                rec[name].setdefault("call_ms", s_call[0])
                 rec[name].setdefault("library_ms", lib_ms)
-            say(f"ring step {what}: bitmap ring {count} candidates, mask "
-                f"ring's slab step: exact; bitmap {ms:.4f} ms (plain "
-                f"{plain_ms:.3f}), masks {mms:.4f} ms (plain "
-                f"{mplain_ms:.3f}), bfloat16 torch.mm of the product "
-                f"{lib_ms:.4f} ms; bounds {b_bm[0]:.4f} / {b_mk[0]:.4f} ms "
-                f"({b_bm[1]}); card {card}")
+                rec[name].setdefault("library_call_ms", lib_call)
+            rec["ring_bitmap"].setdefault("close_ms", c_dev[0])
+            rec["ring_bitmap"].setdefault("close_call_ms", c_call[0])
+            say(f"ring step {what}: {len(ii)} candidates, slab step, count "
+                f"and positions exact; the slab step (K1 and the count's "
+                f"zeroing) kernels {fmt_ms(s_dev)} ms ({fmt_parts(s_parts)})"
+                f", call {fmt_ms(s_call)} ms; its close "
+                f"alone (count pull, K3, positions pull and decode) kernels "
+                f"{fmt_ms(c_dev)} ms, call {fmt_ms(c_call)} ms "
+                f"({fmt_parts(c_parts)}); the step with its close kernels "
+                f"{fmt_ms(b_dev)} ms, call {fmt_ms(b_call)} ms{parent}; "
+                f"plain {plain_ms:.3f} / {mplain_ms:.3f} ms; bfloat16 "
+                f"torch.mm of the product: kernel {lib_ms:.4f} ms "
+                f"({'above' if s_dev[0] < lib_ms else 'below'} the step's, "
+                f"{'above' if b_dev[0] < lib_ms else 'below'} the step with "
+                f"its close), call {lib_call:.4f} ms "
+                f"({'above' if s_call[0] < lib_call else 'below'} the "
+                f"step's, {'above' if b_call[0] < lib_call else 'below'} "
+                f"the step with its close); bounds {b_mk[0]:.4f} / "
+                f"{b_bm[0]:.4f} ms ({b_mk[1]}; the step, the step with its "
+                f"close), kernels at {b_mk[0] / s_dev[0]:.3f} / "
+                f"{b_bm[0] / b_dev[0]:.3f} of them; card {card}")
+        # the whole bitmap ring: every step into the slabs, then each
+        # shard's close, against the parent's ring (each step's K1, its
+        # count pulled and K3, then every step's positions pulled)
+        launched = sum(de._step_kind(t, n_dev, d * shard,
+                                     ((d - t) % n_dev) * shard) != "none"
+                       for d in range(n_dev)
+                       for t in range(de._n_ring_steps(n_dev)))
+
+        def ring_new():
+            slabs, counts, los = de.ring_slabs(mesh, shards, sc, radio, False)
+            return [de.ring_positions(slabs[d], counts[d], los[d])
+                    for d in range(n_dev)]
+
+        def ring_parent():
+            out = pde._ring(mesh, shards, lambda d, t, loc, vis:
+                            pde.ring_bitmap_step(loc, vis, t, n_dev, sc,
+                                                 radio, False))
+            return pde._decode(out, shard, shards[0].xp.shape[0], n_dev)
+
+        ab = ab_times(ring_new, pde and ring_parent, reps=3)
+        parent = ""
+        if pde:
+            ii = np.concatenate([p[0] for p in ab["change"][0]])
+            jj = np.concatenate([p[1] for p in ab["change"][0]])
+            if not (np.array_equal(ab["parent"][0][0], ii) and
+                    np.array_equal(ab["parent"][0][1], jj)):
+                raise AssertionError(f"the bitmap ring over {n_dev} shards "
+                                     "differs from the parent's ring")
+            parent = (f"; the parent's ring kernels "
+                      f"{fmt_ms(ab['parent'][1])} ms, call "
+                      f"{fmt_ms(ab['parent'][2])} ms ("
+                      f"{fmt_parts(ab['parent'][3])})")
+        say(f"bitmap ring over {n_dev} shards of N={n} ({launched} steps "
+            f"launched; positions pulled and decoded to genome ids): equal "
+            f"to the parent's ring where run; kernels "
+            f"{fmt_ms(ab['change'][1])} ms, call "
+            f"{fmt_ms(ab['change'][2])} ms a ring ("
+            f"{ab['change'][1][0] / launched:.4f} / "
+            f"{ab['change'][2][0] / launched:.4f} ms a launched step; "
+            f"{fmt_parts(ab['change'][3])}){parent}; card {card}")
+        del ab
         if n == N_SLICE:
             # one slab of the mesh LP engine (shard 7: steps 0..4) and one
             # round of it with a clear list of repeated targets
             rng = np.random.default_rng(6)
             slab = torch.zeros((de._n_ring_steps(n_dev), shard, shard // 8),
                                dtype=torch.uint8, device=dev)
+            cnt = torch.zeros(slab.shape[0], dtype=torch.int32, device=dev)
             for t in range(slab.shape[0]):
                 de.ring_masks_step(shards[top], shards[(top - t) % n_dev], t,
-                                   n_dev, sc, radio, False, slab[t:t + 1])
+                                   n_dev, sc, radio, False, slab[t:t + 1],
+                                   cnt[t:t + 1])
             geo = torch.tensor([[top * shard] * slab.shape[0],
                                 [((top - t) % n_dev) * shard
                                  for t in range(slab.shape[0])],
@@ -2513,6 +2717,7 @@ def phase_mesh(corpus, want, dev, tmp):
     from rabbittclust_tpu_torch.cluster.leiden import build_similarity_graph
     from rabbittclust_tpu_torch.cluster.mst import (clusters_from_forest,
                                                     cut_forest)
+    from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.parallel import dist_engine as de
     from rabbittclust_tpu_torch.state import sketch_io
     k = kssd_params().kmer_size
@@ -2552,16 +2757,23 @@ def phase_mesh(corpus, want, dev, tmp):
     dense_mst = sketch_io.load_mst(dense_folder)
     for engine in ("exact", "bitmap"):
         de.reset_launches()
+        k3 = bm.LAUNCHES["mask_compact"]
         t0 = time.perf_counter()
         res = de.distributed_mst(hashes, THRESHOLD, k, mesh=mesh4,
                                  engine=engine)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        # each ring launches its step's kernels a step (the exact ring's K3
+        # among them); the bitmap ring then K3 once a shard at its close
         key = "ring_edges" if engine == "exact" else "ring_bitmap"
         launches[key] = de.LAUNCHES[key]
         if launches[key] != 10:
             raise AssertionError(f"{engine} ring over 4 shards: "
                                  f"{launches[key]} step launches, not 10")
+        k3 = bm.LAUNCHES["mask_compact"] - k3
+        if engine == "bitmap" and k3 != 4:
+            raise AssertionError(f"bitmap ring over 4 shards: {k3} closing "
+                                 "K3 launches, not one a shard")
         got = partition(clusters_from_forest(cut_forest(res.mst, THRESHOLD),
                                              n))
         if got != want:
@@ -2575,7 +2787,8 @@ def phase_mesh(corpus, want, dev, tmp):
             f" {len(res.mst[0])} MST edges"
             f"{' = the dense engine edge.mst' if engine == 'exact' else ''}"
             f", partition at {THRESHOLD} = phase 4's; {secs:.3f} s (4 "
-            f"logical shards on one card); step launches {launches[key]}")
+            f"logical shards on one card); launches {dict(de.LAUNCHES)}, "
+            f"K3 {k3}")
     # the copies a mesh of distinct cards would make, which logical shards
     # on one card do not (the dist_engine module's analytic volume)
     say(f"15b a bitmap ring over 4 distinct cards would move per device "
@@ -2610,6 +2823,7 @@ def phase_mesh(corpus, want, dev, tmp):
         "(analytic, not measured)")
 
     de.reset_launches()
+    k3 = bm.LAUNCHES["mask_compact"]
     t0 = time.perf_counter()
     tc = de.distributed_threshold_clusters(hashes, THRESHOLD, k, mesh=mesh4)
     tc_s = time.perf_counter() - t0
@@ -2635,7 +2849,8 @@ def phase_mesh(corpus, want, dev, tmp):
     say(f"15d over [cuda:0] * 4, N={n}: distributed_threshold_clusters = "
         f"phase 4's partition ({tc_s:.3f} s), distributed_similarity_graph "
         f"= build_similarity_graph's {len(frm)} edges and weights "
-        f"({g_s:.3f} s); bitmap step launches {de.LAUNCHES['ring_bitmap']}")
+        f"({g_s:.3f} s); bitmap ring steps {de.LAUNCHES['ring_bitmap']}, "
+        f"closing K3s {bm.LAUNCHES['mask_compact'] - k3}")
     say("launches (phase 15): " + ", ".join(
         f"{k_}={v}" for k_, v in launches.items()))
     return launches
@@ -2690,6 +2905,7 @@ def mesh_child(pid, port, corpus_path, out_path, device="cuda:0"):
     ``out_path``."""
     import pickle
     from rabbittclust_tpu_torch.cluster.mst import cut_forest
+    from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.parallel import dist_engine as de
     from rabbittclust_tpu_torch.parallel import multihost as mh
     t_start = time.perf_counter()
@@ -2702,6 +2918,7 @@ def mesh_child(pid, port, corpus_path, out_path, device="cuda:0"):
     block = [flat[offs[g]:offs[g + 1]] for g in range(lo, hi)]
     k = kssd_params().kmer_size
     de.reset_launches()
+    bm.reset_launches()
     out = {"pid": pid, "transport": mesh.transport, "rings": []}
     t0 = time.perf_counter()
     out["clusters"] = mh.multihost_threshold_clusters(block, n, THRESHOLD, k)
@@ -2712,7 +2929,7 @@ def mesh_child(pid, port, corpus_path, out_path, device="cuda:0"):
     out["mst_s"] = time.perf_counter() - t0
     out["rings"].append(dict(mh.RING_LAST))
     out["cut"] = [a.tolist() for a in cut_forest(res.mst, THRESHOLD)]
-    out["launches"] = dict(de.LAUNCHES)
+    out["launches"] = dict(de.LAUNCHES, closes=bm.LAUNCHES["mask_compact"])
     out["wall"] = time.perf_counter() - t_start
     mh.shutdown_multihost()
     with open(out_path, "wb") as f:
@@ -2799,9 +3016,9 @@ def phase_multiprocess(hashes, want, host_mst, dense_mst, dev, tmp, card,
         if r["cut"] != dense_cut:
             raise AssertionError(f"17a process {r['pid']}: the MST cut "
                                  "differs from phase 4's dense engine's")
-        if r["launches"]["ring_bitmap"] <= 0:
-            raise AssertionError(f"17a process {r['pid']}: no K9b step "
-                                 f"launched ({r['launches']})")
+        if r["launches"]["ring_bitmap"] <= 0 or r["launches"]["closes"] <= 0:
+            raise AssertionError(f"17a process {r['pid']}: no K9b step or "
+                                 f"close launched ({r['launches']})")
         ring = r["rings"][0]
         say(f"17a process {r['pid']}/2 (2 shards on cuda:0, transport "
             f"{r['transport']}): threshold clusters = phase 4's partition "
@@ -2810,7 +3027,9 @@ def phase_multiprocess(hashes, want, host_mst, dense_mst, dev, tmp, card,
             f"dense engine's byte for byte ({len(r['cut'][0])} edges; "
             f"{r['mst_s']:.3f} s); K9b steps "
             f"{r['launches']['ring_bitmap']}, ms "
-            f"{[round(x, 4) for x in ring['step_ms']]}; hops "
+            f"{[round(x, 4) for x in ring['step_ms']]}, closes (one K3 a "
+            f"shard) {r['launches']['closes']}, ms (pulls and K3) "
+            f"{[round(x, 4) for x in ring['compact_ms']]}; hops "
             f"{ring['hop_bytes']} B in "
             f"{[round(x, 3) for x in ring['hop_ms']]} ms "
             f"({[round(b / ms / 1e6, 3) for b, ms in zip(ring['hop_bytes'], ring['hop_ms'])]}"
@@ -2907,6 +3126,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_identify()
     phase_build()
+    if sys.argv[1:2] == ["--parent"]:
+        load_parent(sys.argv[2])
     t0 = time.perf_counter()
     # one rng drawn in order: the first 16,384 genomes of the 131,072 are
     # make_corpus(16384, ...)
@@ -2947,15 +3168,20 @@ def main() -> int:
     # kernel (K4's counts mode is on no path: the dense engine takes its
     # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
     # first device run, K8's from phase 14's WMH run, K6's from phase 16's
-    # 8a run, the rings' from phase 15)
+    # 8a run, the rings' from phase 15).  K6's and the ring steps' ms and
+    # library_ms are kernel times (device_ms); their call times, and the
+    # bitmap ring's close, ride along as extra keys
+    extra = ("call_ms", "library_call_ms", "close_ms", "close_call_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],
                 "ms": rec[name]["ms"][0], "plain_ms": rec[name]["plain_ms"][0],
                 "bound_ms": rec[name]["bound"][0][0],
                 "bound_by": rec[name]["bound"][0][1],
-                "library_ms": rec[name].get("library_ms")}
+                "library_ms": rec[name].get("library_ms"),
+                **{k_: rec[name][k_] for k_ in extra if k_ in rec[name]}}
                for name, (src, replaces) in KERNELS.items()]
+    say(f"device times by timer: {DEVICE_TIMER}")
     say(f"script seconds: {time.perf_counter() - T_START:.1f}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -28,7 +28,14 @@
 //     memory once), a rows x cols rectangle with ragged edges, the greedy
 //     bound, and the triangle on positions in its triangular mode.  K3's
 //     row form (mask_compact.cu) then writes the set positions b * R + r
-//     in order.
+//     in order; rtc_greedy_filter launches both, and writes the count into
+//     the output's first word, on the stream.
+//
+// filter_pair_kernel's triangular grid (a ring's self step, K6's
+// triangular mode; tile origins equal) is a 1-D grid over only the
+// 128 x 128 blocks with some j < i (bx <= by, tri_block), so a 4096^2 self
+// step launches 528 of its 1,024 blocks; the blocks above are never
+// written, and the caller hands in a zeroed mask.
 //
 // Bound: the shared-bit counts are a 0/1 matrix product, rb^2 * bits
 // bit multiply-adds per tile.  A 4096^2 tile at 8192 bits is 1.37e11 of
@@ -87,7 +94,14 @@
 // returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+// K3's row form (mask_compact.cu), launched by rtc_greedy_filter
+extern "C" int rtc_mask_compact_rows(const void* packs, int rows,
+                                     int row_chunks, int out_cols,
+                                     void* seg_counts, int limit, void* out,
+                                     void* stream);
 
 namespace {
 
@@ -383,7 +397,36 @@ struct FilterArgs {
   int words, rows, cols, row_words;
   float jmin_num, jmin_den, c_min, radio_f;
   int radio_i, containment, bound, tri;
+  // blocks of the tile along columns and rows; tri_grid: the grid's x
+  // enumerates the lower-triangle blocks (tri_block) instead of columns
+  int nbx, nby, tri_grid;
 };
+
+// Block (by, bx) of the k-th block with bx <= by, row by row, of a tile of
+// nby x nbx blocks: the blocks of a triangle on positions (column < row,
+// equal origins) that hold some j < i.  The first min(nbx, nby) rows hold
+// by + 1 blocks each, later rows all nbx.  ops/bitmap.py::tri_block is the
+// same map on the host.
+__host__ __device__ inline int tri_count(int nbx, int nby) {
+  const int m = nbx < nby ? nbx : nby;
+  return m * (m + 1) / 2 + (nby - m) * nbx;
+}
+
+__device__ __forceinline__ void tri_block(int k, int nbx, int nby, int& by,
+                                          int& bx) {
+  const int m = min(nbx, nby);
+  const int head = m * (m + 1) / 2;
+  if (k < head) {
+    int y = (int)((sqrtf(8.0f * (float)k + 1.0f) - 1.0f) * 0.5f);
+    while (y * (y + 1) / 2 > k) --y;  // float rounding, either way
+    while ((y + 1) * (y + 2) / 2 <= k) ++y;
+    by = y;
+    bx = k - y * (y + 1) / 2;
+  } else {
+    by = m + (k - head) / nbx;
+    bx = (k - head) % nbx;
+  }
+}
 
 // load_chunk for filter_pair_kernel: rows from sig_r, columns from sig_c,
 // the genomes gr[0, rows_left) and gc[...] under GATHER.
@@ -462,9 +505,11 @@ filter_pair_kernel(const FilterArgs A) {
   __shared__ int block_count;
   // the block's genomes under GATHER
   __shared__ int64_t gr[GATHER ? BM : 1], gc[GATHER ? BN : 1];
+  int by = blockIdx.y, bx = blockIdx.x;
+  if (A.tri_grid) tri_block(blockIdx.x, A.nbx, A.nby, by, bx);
   const int t = blockIdx.z;
-  const int tile_row = blockIdx.y * BM;
-  const int tile_col = blockIdx.x * BN;
+  const int tile_row = by * BM;
+  const int tile_col = bx * BN;
   const int64_t row_words = A.row_words;
   uint32_t* out = A.packs + (int64_t)t * A.rows * row_words;
   if (!A.valid[t]) {  // a padding slot: zeros, count 0
@@ -628,67 +673,48 @@ __global__ void mma_b1_peak_kernel(int iters, int* __restrict__ out) {
   out[id] = s;
 }
 
-}  // namespace
-
-extern "C" {
-
-// sig_r/sig_c: (n, words) uint64 (the packed uint8 signatures) of the
-// rows and of the columns; coll_*, size_*: int32 per genome of each (size_r
-// and size_c of one set differ for the "minhash" bound only); gat_r/gat_c:
-// null, or int32 genome of each row/column position (K6); r0s/c0s/valid:
-// (batch,) int32 tile origins in positions; counts: (batch,) int32, zeroed
-// by the caller; packs: (batch, rows, row_words) uint32.  A tile is rows x
-// cols pairs; ceil(cols / 32) <= row_words <= 4 ceil(cols / 128) (every
-// word of a row is written).  tri: keep only column position < row
-// position.
-int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
-                    const void* coll_r, const void* coll_c,
-                    const void* size_r, const void* size_c,
-                    const void* gat_r, const void* gat_c, const void* r0s,
-                    const void* c0s, const void* valid, int batch, int rows,
-                    int cols, int row_words, float jmin_num, float jmin_den,
-                    float c_min, int radio_i, float radio_f, int containment,
-                    int bound, int tri, void* counts, void* packs,
-                    void* stream) {
-  if (batch == 0) return 0;
-  if (rows <= 0 || cols <= 0 || words <= 0 || batch > 65535 ||
-      row_words < (cols + 31) / 32 || row_words > 4 * ((cols + BN - 1) / BN) ||
-      (gat_r == nullptr) != (gat_c == nullptr))
-    return (int)cudaErrorInvalidValue;
-  // the square sweep (one set of signatures, square tiles, the triangle,
-  // the ratio gate) takes filter_mask_kernel; the rest filter_pair_kernel
-  const bool sweep = gat_r == nullptr && sig_c == sig_r &&
-                     coll_c == coll_r && tri && rows == cols &&
-                     row_words * 32 == cols && cols % 32 == 0 &&
-                     (bound != kMst || radio_i != 0);
-  const int mode = sweep ? 2 : gat_r != nullptr ? kGather : kRing;
-  const void* kernels[3] = {(const void*)filter_pair_kernel<kRing>,
-                            (const void*)filter_pair_kernel<kGather>,
-                            (const void*)filter_mask_kernel};
-  // past 48 KB of dynamic shared memory: raise the kernel's limit once per
-  // device, before its first launch there
-  static bool smem_set[3][64] = {};
+// Past 48 KB of dynamic shared memory: raise kernel `slot`'s limit once
+// per device, before its first launch there.  Slots: filter_pair_kernel
+// <MODE> MODE, filter_mask_kernel 2.
+cudaError_t allow_smem(const void* kernel, int slot) {
+  static bool done[3][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[mode][dev]) {
-    err = cudaFuncSetAttribute(kernels[mode],
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[slot][dev]) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[mode][dev] = true;
+    if (err != cudaSuccess) return err;
+    done[slot][dev] = true;
   }
-  const dim3 grid((cols + BN - 1) / BN, (rows + BM - 1) / BM, batch);
-  if (sweep) {
-    filter_mask_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        (const uint64_t*)sig_r, words, (const int*)coll_r,
-        (const int*)size_r, (const int*)size_c, (const int*)r0s,
-        (const int*)c0s, (const int*)valid, rows, jmin_num, jmin_den, c_min,
-        radio_i, radio_f, containment, bound, (int*)counts,
-        (uint32_t*)packs);
-    return (int)cudaGetLastError();
-  }
+  return cudaSuccess;
+}
+
+// One launch of filter_pair_kernel<MODE> over A (nbx, nby and tri_grid
+// set): x covers the column blocks, or under tri_grid the lower-triangle
+// blocks; y the row blocks (1 under tri_grid); z the batch.
+template <int MODE>
+cudaError_t launch_pair(const FilterArgs& A, int batch, cudaStream_t st) {
+  const cudaError_t err =
+      allow_smem((const void*)filter_pair_kernel<MODE>, MODE);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(A.tri_grid ? tri_count(A.nbx, A.nby) : A.nbx,
+                  A.tri_grid ? 1 : A.nby, batch);
+  filter_pair_kernel<MODE><<<grid, THREADS, SMEM_BYTES, st>>>(A);
+  return cudaGetLastError();
+}
+
+FilterArgs filter_args(const void* sig_r, const void* sig_c, int words,
+                       const void* coll_r, const void* coll_c,
+                       const void* size_r, const void* size_c,
+                       const void* gat_r, const void* gat_c,
+                       const void* r0s, const void* c0s, const void* valid,
+                       int rows, int cols, int row_words, float jmin_num,
+                       float jmin_den, float c_min, int radio_i,
+                       float radio_f, int containment, int bound, int tri,
+                       void* counts, void* packs) {
   FilterArgs A;
   A.sig_r = (const uint64_t*)sig_r;
   A.sig_c = (const uint64_t*)sig_c;
@@ -714,14 +740,110 @@ int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
   A.radio_i = radio_i;
   A.containment = containment;
   A.bound = bound;
-  A.tri = tri;
-  if (mode == kGather)
-    filter_pair_kernel<kGather>
-        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(A);
-  else
-    filter_pair_kernel<kRing>
-        <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(A);
-  return (int)cudaGetLastError();
+  A.tri = tri != 0;
+  A.nbx = (cols + BN - 1) / BN;
+  A.nby = (rows + BM - 1) / BM;
+  A.tri_grid = 0;
+  return A;
+}
+
+}  // namespace
+
+extern "C" {
+
+// sig_r/sig_c: (n, words) uint64 (the packed uint8 signatures) of the
+// rows and of the columns; coll_*, size_*: int32 per genome of each (size_r
+// and size_c of one set differ for the "minhash" bound only); gat_r/gat_c:
+// null, or int32 genome of each row/column position (K6); r0s/c0s/valid:
+// (batch,) int32 tile origins in positions; counts: (batch,) int32, zeroed
+// by the caller; packs: (batch, rows, row_words) uint32.  A tile is rows x
+// cols pairs; ceil(cols / 32) <= row_words <= 4 ceil(cols / 128) (every
+// word of a row is written).  tri: 0 every pair; 1 keep only column
+// position < row position; 2 the same on tiles whose origins are equal
+// (r0s[t] == c0s[t], a ring's self step), launching only the blocks with
+// some j < i: the words of the blocks above are not written (zero them).
+int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
+                    const void* coll_r, const void* coll_c,
+                    const void* size_r, const void* size_c,
+                    const void* gat_r, const void* gat_c, const void* r0s,
+                    const void* c0s, const void* valid, int batch, int rows,
+                    int cols, int row_words, float jmin_num, float jmin_den,
+                    float c_min, int radio_i, float radio_f, int containment,
+                    int bound, int tri, void* counts, void* packs,
+                    void* stream) {
+  if (batch == 0) return 0;
+  if (rows <= 0 || cols <= 0 || words <= 0 || batch > 65535 ||
+      tri < 0 || tri > 2 ||
+      row_words < (cols + 31) / 32 || row_words > 4 * ((cols + BN - 1) / BN) ||
+      (gat_r == nullptr) != (gat_c == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the square sweep (one set of signatures, square tiles, the triangle,
+  // the ratio gate) takes filter_mask_kernel; the rest filter_pair_kernel
+  const bool sweep = gat_r == nullptr && sig_c == sig_r &&
+                     coll_c == coll_r && tri == 1 && rows == cols &&
+                     row_words * 32 == cols && cols % 32 == 0 &&
+                     (bound != kMst || radio_i != 0);
+  if (sweep) {
+    const cudaError_t err = allow_smem((const void*)filter_mask_kernel, 2);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((cols + BN - 1) / BN, (rows + BM - 1) / BM, batch);
+    filter_mask_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+        (const uint64_t*)sig_r, words, (const int*)coll_r,
+        (const int*)size_r, (const int*)size_c, (const int*)r0s,
+        (const int*)c0s, (const int*)valid, rows, jmin_num, jmin_den, c_min,
+        radio_i, radio_f, containment, bound, (int*)counts,
+        (uint32_t*)packs);
+    return (int)cudaGetLastError();
+  }
+  FilterArgs A = filter_args(sig_r, sig_c, words, coll_r, coll_c, size_r,
+                             size_c, gat_r, gat_c, r0s, c0s, valid, rows,
+                             cols, row_words, jmin_num, jmin_den, c_min,
+                             radio_i, radio_f, containment, bound, tri,
+                             counts, packs);
+  A.tri_grid = tri == 2;
+  return (int)(gat_r != nullptr ? launch_pair<kGather>(A, batch, st)
+                                : launch_pair<kRing>(A, batch, st));
+}
+
+// K6 (rabbittclust_tpu/ops/greedy_device.py::_greedy_filter_fn) whole, on
+// the stream: the fused int32 out = [count, b_local * R + r_local (cap)],
+// -1 padded.  sig (n, words) uint64, coll and size (n,) int32 resident;
+// gather (b + r,) int32: the batch's genomes, then the reps'; geo (3, 1)
+// int32 = 0, 0, 1 (one tile at the origin); packs: scratch of (b,
+// row_words) uint32, row_words = 4 ceil(r / 128); seg_counts: scratch of
+// ceil(b * row_words / 4 / 1024) int32 (K3's segments); tri: keep column
+// position < row position (a triangular grid of the blocks with some
+// j < i).
+// The count goes straight from K1's atomics into out[0].
+int rtc_greedy_filter(const void* sig, int words, const void* coll,
+                      const void* size, const void* gather, const void* geo,
+                      int b, int r, int row_words, float jmin_num,
+                      float jmin_den, float c_min, float radio_f,
+                      int containment, int tri, void* packs,
+                      void* seg_counts, int cap, void* out, void* stream) {
+  if (b <= 0 || r <= 0 || words <= 0 || cap < 0 ||
+      row_words != 4 * ((r + BN - 1) / BN))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* o = (int*)out;
+  cudaError_t err = cudaMemsetAsync(o, 0, sizeof(int), st);  // the count
+  if (err == cudaSuccess)  // -1 past the written positions
+    err = cudaMemsetAsync(o + 1, 0xff, (size_t)cap * sizeof(int), st);
+  if (err == cudaSuccess && tri)  // the blocks above are not launched
+    err = cudaMemsetAsync(packs, 0, (size_t)b * row_words * 4, st);
+  if (err != cudaSuccess) return (int)err;
+  const int* gi = (const int*)gather;
+  const int* g = (const int*)geo;
+  FilterArgs A = filter_args(sig, sig, words, coll, coll, size, size, gi,
+                             gi + b, g, g + 1, g + 2, b, r, row_words,
+                             jmin_num, jmin_den, c_min, 0, radio_f,
+                             containment, kGreedy, tri, o, packs);
+  A.tri_grid = tri != 0;
+  err = launch_pair<kGather>(A, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  return rtc_mask_compact_rows(packs, b, row_words / 4, r, seg_counts, cap,
+                               o + 1, stream);
 }
 
 // The rate probe: blocks x threads threads (threads a multiple of 32), each

@@ -129,6 +129,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_filter_mask.restype = ci
     lib.rtc_filter_mask.argtypes = [vp, vp, ci] + [vp] * 9 + [ci] * 4 + [
         cf, cf, cf, ci, cf, ci, ci, ci, vp, vp, vp]
+    lib.rtc_greedy_filter.restype = ci
+    lib.rtc_greedy_filter.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci,
+                                      cf, cf, cf, cf, ci, ci, vp, vp, ci,
+                                      vp, vp]
     lib.rtc_mma_b1_peak.restype = ci
     lib.rtc_mma_b1_peak.argtypes = [ci, ci, ci, ci, vp, vp]
     lib.rtc_lp_round.restype = ci

@@ -15,9 +15,11 @@ never drops a pair that can reach the threshold.
 * K3 ``compact_masks`` — the set bits of chosen tiles of K1's packed
   masks as ordered flat indices ``t * rb^2 + r * rb + c``; with K1 in
   front, ``batched_filter`` returns what the jitted ``_batched_filter_fn``
-  over ``compact_mask_two_level`` returns.  Kernel in
-  ``csrc/mask_compact.cu``; ``compact_masks_plain``, ``batched_filter_plain``
-  and ``compact_mask_two_level_plain`` are the plain torch versions.
+  over ``compact_mask_two_level`` returns.  ``compact_steps`` numbers each
+  tile's bits ``r * rb + c`` (a mesh ring's slab, in one launch).  Kernel
+  in ``csrc/mask_compact.cu``; ``compact_masks_plain``,
+  ``batched_filter_plain`` and ``compact_mask_two_level_plain`` are the
+  plain torch versions.
 * ``candidate_pair_blocks`` — the stream engine's batched generator: batch
   b+1's K1 is queued before batch b's pairs are decoded on the host.
   ``RTC_PULL_MODE`` picks the pull: ``mask`` and ``auto`` (the default)
@@ -59,6 +61,15 @@ INDEX_LIMIT = 1 << 31
 # 16-byte chunks of a tile that one K3 block covers (``csrc/mask_compact.cu``
 # SEG); the wrapper sizes K3's per-segment scratch with it
 MASK_COMPACT_SEG = 1024
+# K1's ``tri`` argument: keep column < row on tiles whose origins are equal,
+# launching only the 128 x 128 blocks with bx <= by (``tri_block``)
+TRI_DIAGONAL = 2
+# K1's block of pairs (``csrc/filter_mask.cu`` BM = BN)
+BLOCK = 128
+
+# the (3, 1) int32 tile geometry [0], [0], [1] (one valid tile at the
+# origin) on each device, uploaded once
+_GEOMETRY: dict = {}
 
 # device-to-host bytes and pulls of the filter (reset_pull_stats() zeroes)
 PULL_STATS = {"bytes": 0, "pulls": 0}
@@ -239,8 +250,7 @@ def tile_mask_plain(xd, cd, sd, r0, c0, rb, jmin_num, jmin_den, c_min,
 
 
 def batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den,
-                       c_min, radio, is_containment, rb, bound="mst",
-                       cols=None, tri=True):
+                       c_min, radio, is_containment, rb, bound="mst"):
     """Plain K1: per-tile counts (k,) int32 and packed masks
     (k, rb, rb // 8) uint8; tiles with ``valid == 0`` give 0 and zeros."""
     k = len(r0s)
@@ -251,7 +261,7 @@ def batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den,
         if ok:
             m = tile_mask_plain(xd, cd, sd, int(r0), int(c0), rb, jmin_num,
                                 jmin_den, c_min, radio, is_containment,
-                                bound, cols, tri)
+                                bound)
             counts[t] = m.sum(dtype=torch.int32)
             packs[t] = pack_mask_u8(m)
     return counts, packs
@@ -273,23 +283,48 @@ def _check_signatures(xd, cd, sd, bound, dev):
                              f"tensor on {dev}")
 
 
-def _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid, cols):
+def _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid):
     if xd.device.type != "cuda":
         raise ValueError(f"signatures on {xd.device}: expected cuda or cpu")
     _check_signatures(xd, cd, sd, bound, xd.device)
-    if cols is not None:
-        _check_signatures(*cols, bound, xd.device)
-        if cols[0].shape[1] != xd.shape[1]:
-            raise ValueError("row and column signatures differ in bits")
     if rb <= 0 or rb % 32:
         raise ValueError(f"rb={rb}: must be a positive multiple of 32")
     live = valid != 0
-    n_col = xd.shape[0] if cols is None else cols[0].shape[0]
     if live.any() and (min(r0s[live].min(), c0s[live].min()) < 0 or
-                       r0s[live].max() + rb > xd.shape[0] or
-                       c0s[live].max() + rb > n_col):
-        raise ValueError(f"a tile of {rb} rows leaves the {xd.shape[0]} / "
-                         f"{n_col} padded signatures")
+                       max(r0s[live].max(), c0s[live].max()) + rb
+                       > xd.shape[0]):
+        raise ValueError(f"a tile of {rb} rows leaves the {xd.shape[0]} "
+                         "padded signatures")
+
+
+def tri_count(nbx: int, nby: int) -> int:
+    """Blocks of a tile of ``nby`` x ``nbx`` blocks of 128² pairs that
+    ``tri_block`` enumerates: those with bx <= by."""
+    m = min(nbx, nby)
+    return m * (m + 1) // 2 + (nby - m) * nbx
+
+
+def tri_block(k: int, nbx: int, nby: int) -> Tuple[int, int]:
+    """(by, bx) of the k-th block with bx <= by, row by row: the map K1's
+    triangular grid applies to its 1-D block index (``csrc/filter_mask.cu
+    ::tri_block``); the first min(nbx, nby) rows hold by + 1 blocks, later
+    rows all nbx."""
+    m = min(nbx, nby)
+    head = m * (m + 1) // 2
+    if k < head:
+        y = (math.isqrt(8 * k + 1) - 1) // 2
+        return y, k - y * (y + 1) // 2
+    return m + (k - head) // nbx, (k - head) % nbx
+
+
+def tile_geometry(device: torch.device) -> torch.Tensor:
+    """The (3, 1) int32 geometry of one valid tile at the origin on
+    ``device`` (K1's r0s, c0s, valid), uploaded at the first call a
+    device."""
+    geo = _GEOMETRY.get(device)
+    if geo is None:
+        geo = _GEOMETRY[device] = _upload(np.array([[0], [0], [1]]), device)
+    return geo
 
 
 def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
@@ -299,7 +334,8 @@ def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
     and ``cols`` are (signatures, collisions, sizes) of each side (sizes
     (2, n) under "minhash": the rows read row 0, the columns row 1);
     ``gather`` None or the (row, column) int32 genome of each position
-    (K6); ``geo`` (3, k) int32 tile origins and validity on the card."""
+    (K6); ``geo`` (3, k) int32 tile origins and validity on the card;
+    ``tri`` 0 or False, 1 or True, or ``TRI_DIAGONAL``."""
     from ..kernels._build import load_kernels
     lib = load_kernels()
     (xr, cr, sr), (xc, cc, sc) = rows, cols
@@ -320,20 +356,15 @@ def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
                 ctypes.c_float(float(jmin_den)),
                 ctypes.c_float(float(c_min)), radio_i,
                 ctypes.c_float(radio_f), int(bool(is_containment)),
-                BOUNDS[bound], int(bool(tri)), counts.data_ptr(),
+                BOUNDS[bound], int(tri), counts.data_ptr(),
                 packs.data_ptr(), stream)
 
 
 def batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den, c_min,
-                 radio, is_containment, rb, bound="mst", cols=None, tri=True,
-                 packs=None):
+                 radio, is_containment, rb, bound="mst"):
     """K1: ``batched_mask_plain``'s result.  ``r0s``, ``c0s`` and ``valid``
     are host int sequences of one length; the other arguments are those of
-    the JAX ``_batched_mask_fn`` (``sd`` is (2, n_pad) for "minhash").
-    ``cols`` (signatures, collisions, sizes on the same device) gives the
-    columns their own signatures, as a mesh ring step reads a visiting
-    shard's; ``tri`` keeps column < row only.  ``packs``, when given, is
-    the (k, rb, rb // 8) uint8 output (on the card)."""
+    the JAX ``_batched_mask_fn`` (``sd`` is (2, n_pad) for "minhash")."""
     if bound not in BOUNDS:
         raise ValueError(f"unknown bound {bound!r}")
     r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
@@ -343,22 +374,16 @@ def batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num, jmin_den, c_min,
     if xd.device.type == "cpu":
         return batched_mask_plain(xd, cd, sd, r0s, c0s, valid, jmin_num,
                                   jmin_den, c_min, radio, is_containment,
-                                  rb, bound, cols, tri)
-    _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid, cols)
+                                  rb, bound)
+    _check_filter_inputs(xd, cd, sd, bound, rb, r0s, c0s, valid)
     k = len(r0s)
     dev = xd.device
     idx = _upload(np.stack([r0s, c0s, valid != 0]), dev)
     counts = torch.zeros(k, dtype=torch.int32, device=dev)
-    if packs is None:
-        packs = torch.empty((k, rb, rb // 8), dtype=torch.uint8, device=dev)
-    elif (packs.dtype != torch.uint8 or not packs.is_contiguous() or
-          tuple(packs.shape) != (k, rb, rb // 8) or packs.device != dev):
-        raise ValueError(f"packs must be a contiguous ({k}, {rb}, {rb // 8})"
-                         f" uint8 tensor on {dev}")
-    launch_filter((xd, cd, sd), (xd, cd, sd) if cols is None else cols,
-                  None, idx, k, rb, rb, rb // 32,
+    packs = torch.empty((k, rb, rb // 8), dtype=torch.uint8, device=dev)
+    launch_filter((xd, cd, sd), (xd, cd, sd), None, idx, k, rb, rb, rb // 32,
                   (jmin_num, jmin_den, c_min, radio), is_containment, bound,
-                  tri, counts, packs)
+                  True, counts, packs)
     LAUNCHES["filter_mask"] += 1
     return counts, packs
 
@@ -490,38 +515,6 @@ def _compact_into(packs: torch.Tensor, src, base, code, out: torch.Tensor,
     LAUNCHES["mask_compact"] += 1
 
 
-def compact_rows_into(packs: torch.Tensor, out_cols: int, out: torch.Tensor,
-                      limit: int) -> None:
-    """Launch K3 in its row form (``rtc_mask_compact_rows``), counted by
-    the caller: the set bits of the (rows, row_words) uint32 mask
-    ``packs`` (row_words a multiple of 4: whole 16-byte chunks), row-major,
-    as int32 ``r * out_cols + c`` from ``out[0]``, none at or past
-    ``out[limit]``."""
-    rows, row_words = packs.shape
-    if (packs.dtype != torch.int32 or not packs.is_contiguous()
-            or row_words % 4 or packs.data_ptr() % 16
-            or not 0 < out_cols <= 32 * row_words):
-        raise ValueError("packs must be a contiguous, 16-byte aligned "
-                         "(rows, 4 m) int32 tensor covering out_cols")
-    if out.dtype != torch.int32 or not out.is_contiguous() \
-            or out.device != packs.device or out.numel() < limit:
-        raise ValueError(f"out must be a contiguous int32 tensor of at least "
-                         f"{limit} entries on {packs.device}")
-    _check_flat_range(rows, 32 * row_words)
-    if limit == 0 or rows == 0:
-        return
-    from ..kernels._build import load_kernels
-    lib = load_kernels()
-    dev = packs.device
-    seg = torch.empty(-(-rows * row_words // 4 // MASK_COMPACT_SEG),
-                      dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.rtc_mask_compact_rows, packs.data_ptr(), rows,
-                row_words // 4, out_cols, seg.data_ptr(), limit,
-                out.data_ptr(), stream)
-
-
 def _check_flat_range(rows: int, cols: int) -> None:
     if rows * cols >= INDEX_LIMIT:
         raise ValueError(
@@ -546,6 +539,31 @@ def compact_masks(packs: torch.Tensor, counts, sel) -> torch.Tensor:
     total = int(cnt.sum())
     out = torch.empty(total, dtype=torch.int32, device=packs.device)
     _compact_into(packs, sel, base, np.arange(len(sel)), out, total)
+    return out
+
+
+def compact_steps(packs: torch.Tensor, counts) -> torch.Tensor:
+    """K3 over every tile of ``packs`` (k, rb, rb // 8) uint8 (a mesh
+    ring's slab of steps) in one launch: the set bits of each tile as its
+    local position ``r * rb + c`` (int32), tile after tile, row-major
+    within a tile.  ``counts``: K1's exact per-tile counts on the host;
+    tiles with none are skipped."""
+    k, rb = packs.shape[0], packs.shape[1]
+    cnt = np.asarray(counts, dtype=np.int64).reshape(-1)
+    if len(cnt) != k:
+        raise ValueError(f"{len(cnt)} counts for {k} tiles")
+    _check_index_range(1, rb)
+    sel = np.flatnonzero(cnt)
+    if packs.device.type == "cpu":
+        parts = [compact_masks_plain(packs, [t]) for t in sel]
+        return torch.cat(parts) if parts else \
+            torch.empty(0, dtype=torch.int32)
+    if packs.device.type != "cuda":
+        raise ValueError(f"packs on {packs.device}: expected cuda or cpu")
+    total = int(cnt.sum())
+    out = torch.empty(total, dtype=torch.int32, device=packs.device)
+    _compact_into(packs, sel, np.cumsum(cnt[sel]) - cnt[sel],
+                  np.zeros(len(sel), dtype=np.int64), out, total)
     return out
 
 

@@ -21,6 +21,7 @@ not ported: it runs the sweep, which gives the same clusters.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import sys
@@ -33,11 +34,11 @@ import torch
 from ..cluster.greedy import GreedyResult, minhash_greedy_parity
 from ..distance.mash import aaf_distance, mash_distance, \
     min_jaccard_for_threshold
-from .bitmap import (CsrSketches, _check_flat_range, _check_signatures,
+from .bitmap import (BLOCK, MASK_COMPACT_SEG, CsrSketches,
+                     _check_flat_range, _check_signatures,
                      candidate_pair_blocks, compact_mask_two_level_plain,
-                     compact_rows_into, launch_filter, pack_bitmaps_packed,
-                     unpack_bits)
-from .intersect import _upload
+                     pack_bitmaps_packed, tile_geometry, unpack_bits)
+from .intersect import _launch, _upload
 from .pack import _to_device
 
 LAUNCHES = {"greedy_filter": 0}
@@ -392,11 +393,12 @@ def greedy_filter(x_all, batch_idx, rep_idx, coll, sizes, jmin_num,
                   triangular=False) -> torch.Tensor:
     """K6: ``greedy_filter_plain``'s fused buffer.  ``x_all`` (n, bits // 8)
     uint8, ``coll`` and ``sizes`` (n,) int32 are resident; ``batch_idx`` and
-    ``rep_idx`` are host int arrays of genomes in [0, n).  On the card one
-    K1 launch gathers the rows and columns through the two index lists in
-    its loads and writes the (B, R) mask packed, then K3's row form writes
-    the first ``cap`` set positions in row-major order; the count is K1's,
-    so no host synchronisation is needed."""
+    ``rep_idx`` are host int arrays of genomes in [0, n).  On the card the
+    two index lists go up in one copy and one C call
+    (``rtc_greedy_filter``) queues K1's gathered form, which writes the
+    (B, R) mask packed and its count into ``out[0]``, then K3's row form,
+    which writes the first ``cap`` set positions in row-major order: no
+    host synchronisation."""
     batch_idx = np.asarray(batch_idx, dtype=np.int64).reshape(-1)
     rep_idx = np.asarray(rep_idx, dtype=np.int64).reshape(-1)
     n = x_all.shape[0]
@@ -415,22 +417,28 @@ def greedy_filter(x_all, batch_idx, rep_idx, coll, sizes, jmin_num,
                          "cpu")
     _check_signatures(x_all, coll, sizes, "greedy", x_all.device)
     dev = x_all.device
-    out = torch.full((1 + cap,), -1, dtype=torch.int32, device=dev)
     if b == 0 or r == 0:
+        out = torch.full((1 + cap,), -1, dtype=torch.int32, device=dev)
         out[0] = 0
         return out
-    row_words = 4 * -(-r // 128)  # whole 16-byte chunks a row
+    row_words = 4 * -(-r // BLOCK)  # whole 16-byte chunks a row
     _check_flat_range(b, 32 * row_words)
-    counts = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((1 + cap,), dtype=torch.int32, device=dev)
     packs = torch.empty((b, row_words), dtype=torch.int32, device=dev)
+    seg = torch.empty(-(-b * row_words // 4 // MASK_COMPACT_SEG),
+                      dtype=torch.int32, device=dev)
     gather = _upload(np.concatenate([batch_idx, rep_idx]), dev)
-    geo = _upload(np.array([[0], [0], [1]]), dev)
-    launch_filter((x_all, coll, sizes), (x_all, coll, sizes),
-                  (gather[:b], gather[b:]), geo, 1, b, r, row_words,
-                  (jmin_num, jmin_den, c_min, radio_f), is_containment,
-                  "greedy", triangular, counts, packs)
-    out[:1] = counts
-    compact_rows_into(packs, r, out[1:], cap)
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_greedy_filter, x_all.data_ptr(), x_all.shape[1] // 8,
+                coll.data_ptr(), sizes.data_ptr(), gather.data_ptr(),
+                tile_geometry(dev).data_ptr(), b, r, row_words,
+                *(ctypes.c_float(float(v))
+                  for v in (jmin_num, jmin_den, c_min, radio_f)),
+                int(bool(is_containment)), int(bool(triangular)),
+                packs.data_ptr(), seg.data_ptr(), cap, out.data_ptr(), stream)
     LAUNCHES["greedy_filter"] += 1
     return out
 

@@ -29,10 +29,13 @@ and runs its plain torch version on CPU tensors:
 * ``ring_edges_step`` (``build_ring_edges_fn``, exact ring): K4's mask
   mode over (local shard, visiting shard), K3 to compact, K5b for the
   exact common counts of the survivors;
-* ``ring_bitmap_step`` (``build_ring_bitmap_fn``): K1 over the two shards'
-  signatures, then K3;
-* ``ring_masks_step`` (``build_ring_masks_fn``): K1 into the shard's
-  resident mask slab;
+* ``ring_masks_step`` (``build_ring_masks_fn``, and the step of
+  ``build_ring_bitmap_fn``): K1 over the two shards' signatures into the
+  shard's resident mask slab, its count into the slab's counts on the
+  device; the self step launches only its lower-triangle blocks;
+* ``ring_positions`` (the rest of ``build_ring_bitmap_fn``): after the
+  ring, one pull of a shard's counts, one K3 launch over its slab (counted
+  as ``ops/bitmap.py``'s), one pull of its candidates' positions;
 * ``dist_lp_round`` (``dist_lp_round_fn``): K2 over each shard's slab,
   then the minimum and sum over the shards.
 
@@ -42,9 +45,10 @@ in its order.  On the card each shard's buffers carry extra zero-size rows
 up to a multiple of 128 (K4 reads groups of 128 genomes); those rows never
 pass a gate and are dropped before any output.
 
-``_ring`` is the one ring driver; ``parallel/multihost.py`` runs it over
-a mesh of processes by giving it a shift that hands the last local shard
-to the next process.
+``_ring`` is the one ring driver, ``ring_slabs`` the bitmap and mask
+rings' sweep over it (nothing goes to the host between its first step and
+its last); ``parallel/multihost.py`` runs it over a mesh of processes by
+giving it a shift that hands the last local shard to the next process.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ from ..ops.labelprop import MAX_RB, SENT, _clear_quantum, lp_round
 from ..ops.pack import (GROUP, _to_device, compact_of, keep_compact,
                         pack_sketches)
 
+# K1 launches of the bitmap ring's steps count as "ring_bitmap", of the mask
+# ring's as "ring_masks"; the bitmap ring's closing K3 counts in
+# ops/bitmap.py's LAUNCHES["mask_compact"]
 LAUNCHES = {"ring_stats": 0, "ring_edges": 0, "ring_bitmap": 0,
             "ring_masks": 0, "dist_lp_round": 0}
 
@@ -191,10 +198,12 @@ class PlaneShard:
         return moved
 
 
-def _rows(shard: int, mesh: Mesh) -> int:
+def _rows(shard: int, mesh: Mesh, cpu_quantum: int = 1) -> int:
     """Rows of a shard's buffers: the logical shard, padded on the card to
-    a multiple of 128 (K4's groups; K1, K2 and K3 take it too)."""
-    return -(-shard // GROUP) * GROUP if mesh.cuda else shard
+    a multiple of 128 (K4's groups; K1, K2 and K3 take it too), on the CPU
+    to a multiple of ``cpu_quantum``."""
+    q = GROUP if mesh.cuda else cpu_quantum
+    return -(-shard // q) * q
 
 
 def _ring(mesh: Mesh, shards: list, step, shift=None,
@@ -288,57 +297,109 @@ def ring_filter_mask_plain(local: BitShard, visiting: BitShard, t: int,
 
 def ring_masks_step(local: BitShard, visiting: BitShard, t: int, n_dev: int,
                     scalars, radio: int, is_containment: bool,
-                    out: torch.Tensor) -> None:
-    """One step of ``build_ring_masks_fn``: the packed candidate mask of
-    (local rows, visiting columns) into ``out`` (1, rows, rows // 8) uint8
-    (a step of the shard's slab, zeros on entry on the card).  On the card
-    one K1 launch over the two shards' signatures, the tile kind taking the
-    place of the ownership mask."""
+                    out: torch.Tensor, count: torch.Tensor,
+                    counter: str = "ring_masks") -> None:
+    """One step of ``build_ring_masks_fn`` and of ``build_ring_bitmap_fn``:
+    the packed candidate mask of (local rows, visiting columns) into
+    ``out`` (1, rows, rows // 8) uint8 (a step of the shard's slab, zeros
+    on entry on the card) and its number of set bits added into ``count``
+    (1,) int32 (zero on entry).  On the card one K1 launch over the two
+    shards' signatures, the tile kind taking the place of the ownership
+    mask; the self step launches only the 128² blocks with some j < i (the
+    words above the diagonal keep their zeros).  Nothing is pulled.  The
+    launch counts in ``LAUNCHES[counter]``."""
     rows = local.xp.shape[0]
     if local.xp.device.type == "cpu":
-        out[0] = bm.pack_mask_u8(ring_filter_mask_plain(
-            local, visiting, t, n_dev, scalars, radio, is_containment))
+        ok = ring_filter_mask_plain(local, visiting, t, n_dev, scalars,
+                                    radio, is_containment)
+        out[0] = bm.pack_mask_u8(ok)
+        count += ok.sum(dtype=torch.int32)
         return
     kind = _step_kind(t, n_dev, local.lo, visiting.lo)
     if kind == "none":
         return
-    bm.batched_mask(local.xp, local.coll, local.sizes, [0], [0], [1],
-                    *scalars, radio, is_containment, rows, "mst",
-                    cols=(visiting.xp, visiting.coll, visiting.sizes),
-                    tri=kind == "self", packs=out)
-    LAUNCHES["ring_masks"] += 1
+    dev = local.xp.device
+    for side in (local, visiting):
+        bm._check_signatures(side.xp, side.coll, side.sizes, "mst", dev)
+    if (out.dtype != torch.uint8 or not out.is_contiguous()
+            or tuple(out.shape) != (1, rows, rows // 8) or out.device != dev
+            or rows % 32 or visiting.xp.shape[0] != rows
+            or count.dtype != torch.int32 or count.numel() != 1
+            or count.device != dev):
+        raise ValueError(f"out must be a contiguous (1, {rows}, {rows // 8})"
+                         f" uint8 step and count a (1,) int32 tensor on "
+                         f"{dev}, rows a multiple of 32 on both shards")
+    bm.launch_filter((local.xp, local.coll, local.sizes),
+                     (visiting.xp, visiting.coll, visiting.sizes), None,
+                     bm.tile_geometry(dev), 1, rows, rows, rows // 32,
+                     (*scalars, radio), is_containment,
+                     "mst", bm.TRI_DIAGONAL if kind == "self" else 0, count,
+                     out)
+    LAUNCHES[counter] += 1
 
 
 def ring_bitmap_step_plain(local: BitShard, visiting: BitShard, t: int,
                            n_dev: int, scalars, radio: int,
                            is_containment: bool) -> torch.Tensor:
-    """Plain ``ring_bitmap_step``: the set positions of the step's mask."""
+    """Plain bitmap ring step: the set positions of the step's mask."""
     ok = ring_filter_mask_plain(local, visiting, t, n_dev, scalars, radio,
                                 is_containment)
     return torch.nonzero(ok.reshape(-1)).reshape(-1).to(torch.int32)
 
 
-def ring_bitmap_step(local: BitShard, visiting: BitShard, t: int,
-                     n_dev: int, scalars, radio: int,
-                     is_containment: bool) -> torch.Tensor:
-    """One step of ``build_ring_bitmap_fn``: the candidate positions
-    ``li * rows + vj`` (int32, row-major) of (local rows, visiting
-    columns).  On the card K1 over the two shards' signatures, one pull of
-    its count, then K3; the JAX program's cap is not needed."""
-    rows = local.xp.shape[0]
-    if local.xp.device.type == "cpu":
-        return ring_bitmap_step_plain(local, visiting, t, n_dev, scalars,
-                                      radio, is_containment)
-    kind = _step_kind(t, n_dev, local.lo, visiting.lo)
-    if kind == "none":
-        return torch.empty(0, dtype=torch.int32, device=local.xp.device)
-    counts, packs = bm.batched_mask(
-        local.xp, local.coll, local.sizes, [0], [0], [1], *scalars, radio,
-        is_containment, rows, "mst",
-        cols=(visiting.xp, visiting.coll, visiting.sizes),
-        tri=kind == "self")
-    LAUNCHES["ring_bitmap"] += 1
-    return bm.compact_masks(packs, counts.cpu().numpy(), [0])
+def ring_slabs(mesh: Mesh, shards: List[BitShard], scalars, radio: int,
+               is_containment: bool, shift=None, n_dev: Optional[int] = None,
+               wrap=None, counter: str = "ring_masks"):
+    """The sweep of ``build_ring_masks_fn`` (and of ``build_ring_bitmap_fn``
+    before its compaction) over ``_ring``: every local shard's resident
+    slab (n_steps, rows, rows // 8) uint8, zeroed once, and its counts
+    (n_steps,) int32, both on its device, and for every step the (row
+    shard's, visiting shard's) first genome id.  ``shift`` and ``n_dev``
+    go to ``_ring``; ``wrap(step)``, when given, returns the step function
+    to run (a timer); ``counter`` names the steps' launch count.  No step
+    reads anything back."""
+    n_dev = mesh.size if n_dev is None else n_dev
+    n_steps = _n_ring_steps(n_dev)
+    rows = shards[0].xp.shape[0]
+    slabs = [torch.zeros((n_steps, rows, rows // 8), dtype=torch.uint8,
+                         device=dev) for dev in mesh.devices]
+    counts = [torch.zeros(n_steps, dtype=torch.int32, device=dev)
+              for dev in mesh.devices]
+    for dev in mesh.devices:
+        if dev.type == "cuda":
+            bm.tile_geometry(dev)  # its one upload, before the first step
+
+    def step(d, t, loc, vis):
+        ring_masks_step(loc, vis, t, n_dev, scalars, radio, is_containment,
+                        slabs[d][t:t + 1], counts[d][t:t + 1], counter)
+        return loc.lo, vis.lo
+
+    los = _ring(mesh, shards, step if wrap is None else wrap(step), shift,
+                n_dev)
+    return slabs, counts, los
+
+
+def ring_positions(slab: torch.Tensor, counts: torch.Tensor, los,
+                   record: Optional[dict] = None):
+    """The close of ``build_ring_bitmap_fn`` on one shard: one pull of its
+    slab's step counts, then (on the card) one K3 launch over the slab's
+    non-empty steps, which writes each step's positions ``li * rows + vj``
+    in order, step after step, then one pull of them.  ``los``: each
+    step's (row shard's, visiting shard's) first genome id.  Returns the
+    global (ii, jj) int64 of every candidate, step after step.  ``record``,
+    when given, gets the milliseconds of it all appended to
+    ``compact_ms``."""
+    t0 = time.perf_counter()
+    rows = slab.shape[1]
+    cnt = counts.cpu().numpy().astype(np.int64)
+    bm.account_pull(4 * len(cnt))
+    f = bm.compact_steps(slab, cnt).cpu().numpy()
+    bm.account_pull(4 * len(f))
+    if record is not None:
+        record["compact_ms"].append(1e3 * (time.perf_counter() - t0))
+    li, vj = np.divmod(f, rows)
+    row_lo, vis_lo = np.asarray(los, dtype=np.int64).reshape(-1, 2).T
+    return np.repeat(row_lo, cnt) + li, np.repeat(vis_lo, cnt) + vj
 
 
 def ring_edges_step_plain(local: PlaneShard, visiting: PlaneShard, t: int,
@@ -432,7 +493,7 @@ def _bit_shards(xp: np.ndarray, coll: np.ndarray, sizes: np.ndarray,
     mesh starts at its first genome)."""
     n_dev = mesh.size
     shard = xp.shape[0] // n_dev
-    rows = _rows(shard, mesh)
+    rows = _rows(shard, mesh, 8)  # whole bytes of a slab's mask rows
     out = []
     for d, dev in enumerate(mesh.devices):
         sl = slice(d * shard, (d + 1) * shard)
@@ -594,7 +655,9 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
     the JAX ring's order: no false negatives for pairs reachable at
     distance <= threshold (and passing the size-ratio prefilter), so
     downstream exact verification reproduces host results bit-exactly.
-    Each step's output is sized from K1's exact count (no ``cap``)."""
+    The ring's steps fill each shard's slab on its device; after the last
+    step one pull of a shard's counts sizes its output exactly (no
+    ``cap``) and one K3 launch a shard compacts it."""
     if mesh is None:
         mesh = make_mesh()
     n_dev = mesh.size
@@ -608,11 +671,13 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
     if radio is None:
         radio = size_ratio_limit(threshold, kmer_size - 1)
     scalars = (np.float32(j_min), np.float32(1.0 + j_min), np.float32(c_min))
-    shard = n_pad // n_dev
-    shards = _bit_shards(xp, coll, sizes, mesh)
-    out = _ring(mesh, shards, lambda d, t, loc, vis: ring_bitmap_step(
-        loc, vis, t, n_dev, scalars, radio, is_containment))
-    ii, jj = _decode(out, shard, _rows(shard, mesh), n_dev)
+    slabs, counts, los = ring_slabs(mesh, _bit_shards(xp, coll, sizes, mesh),
+                                    scalars, radio, is_containment,
+                                    counter="ring_bitmap")
+    parts = [ring_positions(slabs[d], counts[d], los[d])
+             for d in range(n_dev)]
+    ii = np.concatenate([p[0] for p in parts])
+    jj = np.concatenate([p[1] for p in parts])
     # canonical host orientation (i > j): interior triangular-ring steps
     # emit row-id-first pairs where the row id may be the smaller one
     ii, jj = np.maximum(ii, jj), np.minimum(ii, jj)
@@ -747,15 +812,7 @@ def build_ring_masks(mesh: Mesh, shards: List[BitShard], scalars,
     """``build_ring_masks_fn``: one ring sweep writing each shard's
     resident (n_steps, rows, rows // 8) uint8 slab, every unordered pair
     once (ownership as ``_ownership_mask``)."""
-    n_dev = mesh.size
-    n_steps = _n_ring_steps(n_dev)
-    rows = shards[0].xp.shape[0]
-    slabs = [torch.zeros((n_steps, rows, rows // 8), dtype=torch.uint8,
-                         device=dev) for dev in mesh.devices]
-    _ring(mesh, shards, lambda d, t, loc, vis: ring_masks_step(
-        loc, vis, t, n_dev, scalars, radio, is_containment,
-        slabs[d][t:t + 1]))
-    return slabs
+    return ring_slabs(mesh, shards, scalars, radio, is_containment)[0]
 
 
 # Source: rabbittclust_tpu/parallel/dist_engine.py::_dist_lp_clear

@@ -18,8 +18,11 @@ one 1-D "data" mesh spans every chip of every process, the ring's
 * the ring is ``dist_engine._ring``, the single-process driver, with a
   shift that moves each local shard one place and sends the last one to
   rank + 1 while it receives rank - 1's last one, both in one
-  ``batch_isend_irecv`` (no pair of ranks can deadlock).  Each step is
-  ``dist_engine.ring_bitmap_step`` (K1's pair kernel, its count, then K3).
+  ``batch_isend_irecv`` (no pair of ranks can deadlock).  The ring is
+  ``dist_engine.ring_slabs`` (K1's pair kernel into each local shard's
+  slab, its count on the device), closed by ``dist_engine.ring_positions``
+  (one pull of the counts, one K3 launch, one pull of the positions a
+  shard).
 * host data (sketches, metadata, edge forests) moves by an allgather of
   uint8 CPU tensors over a gloo group: float64 and uint64 payloads arrive
   bit-exact.
@@ -82,7 +85,8 @@ from . import dist_engine as de
 TIMEOUT_S = 600.0
 
 # the last multi-process ring of this process: its transport, the bytes and
-# milliseconds of each hop (staging included) and of each ring step
+# milliseconds of each hop (staging included), of each ring step (K1 into
+# the slab) and of each local shard's close (its pulls and K3)
 RING_LAST: dict = {}
 
 
@@ -371,7 +375,7 @@ def multihost_candidate_pairs_bitmap(
     candidate pairs (global ids, i > j, unverified) whose owning row shard
     lives on this process.  Union over processes = the exact single-host
     candidate set (dist_engine.distributed_candidate_pairs_bitmap).  Each
-    step's output is sized from K1's count (no ``cap``)."""
+    shard's output is sized from K1's counts (no ``cap``)."""
     if mesh is None:
         mesh = global_mesh()
     n_proc, pid = mesh.world, mesh.rank
@@ -406,41 +410,38 @@ def multihost_candidate_pairs_bitmap(
     n_dev = mesh.size
     local = de.Mesh(mesh.devices)
     shards = de._bit_shards(xp_l, coll_l, sizes_l, local, first_id=lo)
-    rows = shards[0].xp.shape[0]
     record = {"transport": mesh.transport, "hop_bytes": [], "hop_ms": [],
-              "step_ms": []}
+              "step_ms": [], "compact_ms": []}
     events = []
 
-    def step(d, t, loc, vis):
-        if mesh.cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        else:
-            t0 = time.perf_counter()
-        flat = de.ring_bitmap_step(loc, vis, t, n_dev, scalars, radio,
-                                   is_containment)
-        if mesh.cuda:
-            ev[1].record()
-            events.append(ev)
-        else:
-            record["step_ms"].append(1e3 * (time.perf_counter() - t0))
-        return flat, loc.lo, vis.lo
+    def wrap(step):
+        def timed(d, t, loc, vis):
+            if mesh.cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            else:
+                t0 = time.perf_counter()
+            out = step(d, t, loc, vis)
+            if mesh.cuda:
+                ev[1].record()
+                events.append(ev)
+            else:
+                record["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
 
-    out = de._ring(local, shards, step, shift=_process_shift(mesh, record),
-                   n_dev=n_dev)
+    slabs, counts, los = de.ring_slabs(
+        local, shards, scalars, radio, is_containment,
+        shift=_process_shift(mesh, record), n_dev=n_dev, wrap=wrap,
+        counter="ring_bitmap")
     ii_all, jj_all = [], []
-    for per_shard in out:
-        for flat, row_lo, vis_lo in per_shard:
-            f = flat.cpu().numpy().astype(np.int64)
-            bm.account_pull(4 * len(f))
-            ii_all.append(row_lo + f // rows)
-            jj_all.append(vis_lo + f % rows)
+    for d in range(len(shards)):
+        ii, jj = de.ring_positions(slabs[d], counts[d], los[d], record)
+        ii_all.append(ii)
+        jj_all.append(jj)
     record["step_ms"].extend(a.elapsed_time(z) for a, z in events)
     RING_LAST.clear()
     RING_LAST.update(record, n_dev=n_dev)
-    if not ii_all:
-        e = np.empty(0, dtype=np.int64)
-        return e, e.copy()
     ii = np.concatenate(ii_all)
     jj = np.concatenate(jj_all)
     # canonical host orientation (i > j) — see the dist_engine ring decode

@@ -874,7 +874,7 @@ def _ring_shards(kind, hashes, mesh, bits=1024):
     return de._bit_shards(xp, coll, sizes, mesh)
 
 
-@pytest.mark.parametrize("n_dev", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("kind,use64", [("edges", False), ("edges", True),
                                         ("bitmap", False), ("masks", False)],
                          ids=["edges-32bit", "edges-64bit", "bitmap",
@@ -883,7 +883,10 @@ def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
     """Every (device, step) of each ring over [cuda:0] * n_dev: the
     kernels (tile kinds self / full / none) against the plain step (the
     JAX ownership mask on genome ids); shards padded to 128 rows.  The
-    bitmap rings hash 64-bit sketches into one plane like 32-bit ones."""
+    bitmap ring runs whole in its slab form: each shard's slab and counts
+    against the plain steps' masks, then its closing compaction against
+    the plain steps' positions, step after step.  The bitmap rings hash
+    64-bit sketches into one plane like 32-bit ones."""
     from rabbittclust_tpu_torch.parallel import dist_engine as de
     mesh = de.make_mesh(devices=[gpu] * n_dev)
     hashes = _ring_corpus(n=300, use64=use64)
@@ -891,8 +894,30 @@ def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
     sc = bm.filter_scalars(0.05, 21)[:3]
     radio = int(bm.filter_scalars(0.05, 21)[3])
     kinds = set()
-    for d in range(n_dev):
-        for t in range(de._n_ring_steps(n_dev)):
+    steps = de._n_ring_steps(n_dev)
+    if kind == "bitmap":
+        rows = shards[0].xp.shape[0]
+        for cont, rd in ((False, radio), (True, 0)):
+            slabs, counts, los = de.ring_slabs(mesh, shards, sc, rd, cont)
+            for d in range(n_dev):
+                ii, jj = de.ring_positions(slabs[d], counts[d], los[d])
+                want_i, want_j = [], []
+                for t in range(steps):
+                    loc, vis = shards[d], shards[(d - t) % n_dev]
+                    kinds.add(de._step_kind(t, n_dev, loc.lo, vis.lo))
+                    ok = de.ring_filter_mask_plain(loc, vis, t, n_dev, sc,
+                                                   rd, cont)
+                    assert torch.equal(slabs[d][t],
+                                       bm.pack_mask_u8(ok)), (d, t, cont)
+                    assert int(counts[d][t]) == int(ok.sum()), (d, t, cont)
+                    f = de.ring_bitmap_step_plain(
+                        loc, vis, t, n_dev, sc, rd, cont).long().cpu().numpy()
+                    want_i.append(loc.lo + f // rows)
+                    want_j.append(vis.lo + f % rows)
+                assert np.array_equal(ii, np.concatenate(want_i)), (d, cont)
+                assert np.array_equal(jj, np.concatenate(want_j)), (d, cont)
+    for d in range(n_dev if kind != "bitmap" else 0):
+        for t in range(steps):
             loc, vis = shards[d], shards[(d - t) % n_dev]
             kinds.add(de._step_kind(t, n_dev, loc.lo, vis.lo))
             if kind == "edges":
@@ -900,24 +925,65 @@ def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
                 want = de.ring_edges_step_plain(loc, vis, t, n_dev, radio)
                 assert torch.equal(got[0], want[0]), (d, t)
                 assert torch.equal(got[1], want[1]), (d, t)
-            elif kind == "bitmap":
-                for cont, rd in ((False, radio), (True, 0)):
-                    got = de.ring_bitmap_step(loc, vis, t, n_dev, sc, rd,
-                                              cont)
-                    want = de.ring_bitmap_step_plain(loc, vis, t, n_dev, sc,
-                                                     rd, cont)
-                    assert torch.equal(got, want), (d, t, cont)
             else:
                 rows = loc.xp.shape[0]
                 got = torch.zeros((1, rows, rows // 8), dtype=torch.uint8,
                                   device=gpu)
-                de.ring_masks_step(loc, vis, t, n_dev, sc, radio, False, got)
-                want = bm.pack_mask_u8(de.ring_filter_mask_plain(
-                    loc, vis, t, n_dev, sc, radio, False))
-                assert torch.equal(got[0], want), (d, t)
+                count = torch.zeros(1, dtype=torch.int32, device=gpu)
+                de.ring_masks_step(loc, vis, t, n_dev, sc, radio, False, got,
+                                   count)
+                ok = de.ring_filter_mask_plain(loc, vis, t, n_dev, sc, radio,
+                                               False)
+                assert torch.equal(got[0], bm.pack_mask_u8(ok)), (d, t)
+                assert int(count) == int(ok.sum()), (d, t)
     assert kinds == ({"self"} if n_dev == 1 else
                      {"self", "full"} if n_dev == 3 else
                      {"self", "full", "none"})
+
+
+def test_bitmap_ring_syncs_only_at_its_close(gpu, monkeypatch):
+    """``distributed_candidate_pairs_bitmap`` over [cuda:0] * 4 makes no
+    host synchronisation from its first step until the closing pull
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and
+    launches K3 once a shard, not once a step; its pairs equal the ring
+    over CPU shards."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = _ring_corpus(n=600)
+    step, close = de.ring_masks_step, de.ring_positions
+    started = []
+
+    def first_step(*args, **kwargs):
+        if not started:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            started.append(True)
+        step(*args, **kwargs)
+
+    def closing_pull(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode(0)
+        return close(*args, **kwargs)
+
+    monkeypatch.setattr(de, "ring_masks_step", first_step)
+    monkeypatch.setattr(de, "ring_positions", closing_pull)
+    mesh = de.make_mesh(devices=[gpu] * 4)
+    bm.reset_launches()
+    de.reset_launches()
+    try:
+        got = de.distributed_candidate_pairs_bitmap(hashes, 0.05, 21,
+                                                    mesh=mesh, bits=2048)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert started
+    assert de.LAUNCHES["ring_bitmap"] == 4 * de._n_ring_steps(4) - 2
+    assert bm.LAUNCHES["mask_compact"] == 4
+    assert de.LAUNCHES["ring_masks"] == 0
+    monkeypatch.undo()
+    want = de.distributed_candidate_pairs_bitmap(
+        hashes, 0.05, 21, mesh=de.make_mesh(devices=[torch.device("cpu")] * 4),
+        bits=2048)
+    assert len(got[0]) > 0
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 def test_dist_lp_round_on_card_matches_plain(gpu):
