@@ -8,15 +8,17 @@ Phases, one line or block each; any failure raises (non-zero exit):
 
 1. identify the card, the host CPU, and that the shared native library runs
    on this host (rebuilt with g++ if it faults);
-2. build kernels K1 / K2 / K3 / K4 (all three modes) / K5b / K7 / K8 from
-   ``rabbittclust_tpu_torch/csrc`` with nvcc, one process per source;
+2. build kernels K1 / K2 / K3 / K4 (all three modes) / K5b / K7 / K8 and
+   the ring step from ``rabbittclust_tpu_torch/csrc`` with nvcc, one
+   process per source;
 3. each kernel against its plain torch version on the card, at the paths'
    shapes and on small ragged inputs: exactly equal, timed with CUDA
    events, beside the least time the card could take for the same work
    (its bound: bytes over 3.35 TB/s or operations over the peak of their
    type, computed from this run's inputs; NVIDIA publishes no rate for
-   K1's single-bit tensor-core products, so phase 3b measures the card's
-   rate of that instruction first).  K4 and K5b read the planes' compact
+   the single-bit tensor-core products, so phase 3b measures the card's
+   rate of both forms, mma.sync and wgmma, first, and every .b1 bound
+   takes the faster).  K4 and K5b read the planes' compact
    form (its build timed on its own line), and their bounds count the
    bytes of that form.  K4 at W = 12, K = 1024, rb = 4096, 1 and 2 planes:
    counts and the mask
@@ -121,7 +123,9 @@ planted and the sparse corpus, and times it beside one ``torch.nonzero``;
 phase 7 also runs the stream engine under ``RTC_PULL_MODE=idx``.  Phase 3e
 holds K7 (``sketch_window``) to its plain version over one full dispatch
 window (16 x 2^20 positions) at k 21 / dr 3, k 23 / dr 3 and k 31 / dr 2,
-and a low-complexity window over a table that keeps every dimension;
+and a low-complexity window over a table that keeps every dimension, and
+each table's keep bitmap (K7's first kernel) to its plain version, with
+each window's kernels apart;
 phase 3f holds K8 (``tuple_matches``) to its plain version at N = 8,192 at
 the WMH (50 x 4 words) and OMH (64 x 6) shapes.  Phase 3g holds K6
 (``greedy_filter``) to its plain version at B = 2,048 against R = 1,024
@@ -130,16 +134,19 @@ resident signatures, beside a bfloat16 ``torch.mm`` of the gathered
 product; phase 3h
 holds each step kind of the exact, bitmap and mask rings (self, interior,
 antipodal, and the antipodal step's empty tile) to the plain steps at 4
-shards of N = 16,384 and 8 shards of N = 131,072, times the whole bitmap
-ring at both shapes, and one LP round over a shard's slab with a clear
-list of repeated targets.  Phases 3g and 3h give each case's kernel time
+shards of N = 16,384 and 8 shards of N = 131,072 (the slab step also over
+64-bit hashes and over 256-bit signatures at the first shape), times the
+whole bitmap ring at both shapes, and one LP round over a shard's slab
+with a clear list of repeated targets.  Phases 3g and 3h give each case's
+kernel time
 (``device_ms``: the durations of its kernels and memsets from
 ``torch.profiler`` over 20 calls, the copies apart) and its call's time
 (CUDA events), and the same two times of the ``torch.mm``.
 ``python3 chip_smoke.py --parent DIR`` (DIR holding the parent
 commit's ``rabbittclust_tpu_torch/``) also builds that package from its
-own sources and times its K6, bitmap ring step and ring in turns with
-this tree's, equal outputs required.
+own sources and times its K7 windows, its K6, its slab step (alone and
+with its close) and its ring in turns with this tree's, equal outputs
+required.
 Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
 step) to the plain step on a band of 256 rows for each step kind at 4
 shards of N = 16,384, and times the whole steps beside their bounds and
@@ -190,6 +197,10 @@ KERNELS = {
                      "rabbittclust_tpu/ops/bitmap.py:389"),
     "kssd_sketch": ("rabbittclust_tpu_torch/csrc/kssd_sketch.cu",
                     "rabbittclust_tpu/ops/sketch_device.py:164"),
+    # K7's keep set as a bitmap, built once a table (the keep test of
+    # _chunk_kernel)
+    "kssd_keep_bitmap": ("rabbittclust_tpu_torch/csrc/kssd_sketch.cu",
+                         "rabbittclust_tpu/ops/sketch_device.py:116"),
     "tuple_match": ("rabbittclust_tpu_torch/csrc/tuple_match.cu",
                     "rabbittclust_tpu/ops/extra_pairs.py:48"),
     # K1's gathered form, then K3's row form
@@ -200,9 +211,9 @@ KERNELS = {
                    "rabbittclust_tpu/parallel/dist_engine.py:168"),
     # K1 over two shards into the slab a step (its launches: the steps);
     # the ring's close, K3 once a shard, is timed as its close_ms
-    "ring_bitmap": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+    "ring_bitmap": ("rabbittclust_tpu_torch/csrc/ring_step.cu",
                     "rabbittclust_tpu/parallel/dist_engine.py:296"),
-    "ring_masks": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
+    "ring_masks": ("rabbittclust_tpu_torch/csrc/ring_step.cu",
                    "rabbittclust_tpu/parallel/dist_engine.py:620"),
     # K2 over each shard's slab
     "dist_lp_round": ("rabbittclust_tpu_torch/csrc/labelprop_round.cu",
@@ -310,8 +321,8 @@ def fmt_parts(parts):
 
 
 # the parent commit's port package when the script runs with --parent DIR
-# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3g and 3h
-# then time its K6 and its bitmap ring step in the same call
+# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3e, 3g and
+# 3h then time its K7, its K6 and its ring step in the same call
 PARENT = {}
 
 
@@ -330,7 +341,8 @@ def load_parent(root):
     built = importlib.import_module("rtc_parent.kernels._build").build()
     PARENT.update(
         gd=importlib.import_module("rtc_parent.ops.greedy_device"),
-        de=importlib.import_module("rtc_parent.parallel.dist_engine"))
+        de=importlib.import_module("rtc_parent.parallel.dist_engine"),
+        sd=importlib.import_module("rtc_parent.ops.sketch_device"))
     say(f"the parent's port package from {pkg}: its kernels built in "
         f"{built['seconds']:.1f} s")
 
@@ -429,7 +441,7 @@ def check_native():
 
 def phase_build():
     say("== phase 2: build K1 (with K6's gathered form) / K2 / K3 / K4 / K5b"
-        " / K7 / K8 (nvcc, sm_90a)")
+        " / K7 / K8 / the ring step (nvcc, sm_90a)")
     from rabbittclust_tpu_torch.kernels import _build
     info = _build.build()  # all nvcc processes at once
     say(f"build seconds: {info['seconds']:.3f} "
@@ -828,12 +840,16 @@ def hold_exact(rec, name, got, want, what):
 
 
 def b1_rate(dev):
-    """Operations/s of ``mma.sync m16n8k256 .b1 .and.popc`` on this card,
-    two a bit multiply-add as int8 rates count them.  NVIDIA publishes no
-    such rate for the H100, so it is measured: register-only chains of the
-    instruction (``filter_mask.cu::mma_b1_peak_kernel``), 4, 8 or 16
-    independent chains a thread at two launch shapes, each launch ~1 ms
-    or more; the fastest."""
+    """Operations/s of the card's single-bit tensor-core products, two a
+    bit multiply-add as int8 rates count them: the faster of ``mma.sync
+    m16n8k256 .b1 .and.popc`` (K1's, K6's) and ``wgmma m64n256k256 .b1``
+    (the ring step's).  NVIDIA publishes no such rate for the H100, so both
+    are measured: register-only chains of the mma.sync form
+    (``filter_mask.cu::mma_b1_peak_kernel``), 4, 8 or 16 independent
+    chains a thread at two launch shapes, and warpgroups issuing the wgmma
+    form on shared-memory operands (``ring_step.cu::wgmma_b1_peak_kernel``)
+    1, 2 or 3 a CTA, each launch ~1 ms or more; the fastest.  Every .b1
+    bound takes it."""
     from rabbittclust_tpu_torch.kernels import _build
     lib = _build.load_kernels()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -859,6 +875,27 @@ def b1_rate(dev):
                 f" {threads} threads, {chains} chains of {iters}: "
                 f"{ms:.4f} ms, {rate / 1e12:.1f} TOP/s")
             best = max(best, rate)
+    mma = best
+    out = torch.empty(sms * 384, dtype=torch.int32, device=dev)
+    for threads in (128, 256, 384):
+        iters = 1024
+
+        def run():
+            rc = lib.rtc_wgmma_b1_peak(sms, threads, iters, out.data_ptr(),
+                                       stream)
+            if rc:
+                raise RuntimeError(f"rtc_wgmma_b1_peak: CUDA error {rc}")
+
+        _, ms = cuda_ms(run, reps=5)
+        rate = (sms * threads // 128 * iters * 16 * 2 * 64 * 256 * 256
+                / (ms * 1e-3))
+        say(f"wgmma m64n256k256 .b1 .and.popc alone: {sms} blocks x "
+            f"{threads // 128} warpgroups, {iters} groups of 16: {ms:.4f} "
+            f"ms, {rate / 1e12:.1f} TOP/s")
+        best = max(best, rate)
+    say(f"the .b1 rate for every .b1 bound: {best / 1e12:.1f} TOP/s (the "
+        f"wgmma form at {best / mma:.2f}x the mma.sync form's "
+        f"{mma / 1e12:.1f})")
     return best
 
 
@@ -1919,13 +1956,18 @@ def phase_sketch_kernel(dev, rec, card, n_pos=None):
     """3e: K7 over one full dispatch window (S x C = 16 x 2^20 positions)
     against its plain version on the card, at each of SKETCH_CASES over the
     shuffle table, and a low-complexity window over a table that keeps
-    every dimension (every valid window kept: the scatter's worst case)."""
+    every dimension (every valid window kept: the scatter's worst case).
+    Each table's keep bitmap (K7's first kernel, built once a table) is
+    held to its plain version.  Each window's kernels are timed by
+    ``device_ms`` (the keep pass, the scan and the scatter apart), with
+    --parent in turns with the parent's K7, whose rows must be equal."""
     say("== phase 3e: K7 (kssd_sketch) against sketch_window_plain")
     from rabbittclust_tpu_torch.ops import sketch_device as sd
     from rabbittclust_tpu_torch.sketch.kssd import KssdParams, \
         get_shuffle_table
     rng = np.random.default_rng(SEED + 30)
     n_pos = n_pos or sd.S_ROWS * sd.CHUNK
+    psd = PARENT.get("sd")
     cases = [(k, dr, False) for k, dr in SKETCH_CASES] + [(21, 3, True)]
     for k, dr, periodic in cases:
         p = KssdParams.from_kmer_size(k, dr)
@@ -1936,35 +1978,67 @@ def phase_sketch_kernel(dev, rec, card, n_pos=None):
                                     dtype=np.int32)
         codes = torch.from_numpy(w).to(dev)
         table = torch.from_numpy(table_np).to(dev)
-        got_h, got_pos = sd.sketch_window(codes, table, p)
-        (want_h, want_pos), plain_ms = cuda_ms(
-            lambda: sd.sketch_window_plain(codes, table, p), warmup=False)
         what = (f"k {p.kmer_size} dr {dr}"
                 + (" low-complexity, every dimension kept" if periodic
                    else ""))
+        # the keep bitmap: built once for this table, held to its plain form
+        bits, bm_ms = cuda_ms(lambda: sd._keep_bitmap_launch(table,
+                                                             p.dim_end),
+                              reps=5)
+        want_bits, bm_plain = cuda_ms(lambda: sd.keep_bitmap_plain(
+            table, p.dim_end), warmup=False)
+        hold_exact(rec, "kssd_keep_bitmap", bits, want_bits, what)
+        hold_exact(rec, "kssd_keep_bitmap", sd.keep_bitmap(table, p.dim_end),
+                   want_bits, f"{what}, the cached one")
+        b_bits = bound(4 * table.numel() + 4 * bits.numel(), 0, CORE_OPS)
+        kept_dims = int(((table >= 0) & (table < p.dim_end)).sum())
+        rec["kssd_keep_bitmap"]["ms"].append(bm_ms)
+        rec["kssd_keep_bitmap"]["plain_ms"].append(bm_plain)
+        rec["kssd_keep_bitmap"]["bound"].append(b_bits)
+        say(f"K7's keep bitmap {what}: {table.numel()} dimensions, "
+            f"{kept_dims} kept, {bits.numel()} words (fine and coarse): "
+            f"exact; kernel {bm_ms:.4f} ms, plain {bm_plain:.3f} ms; bound "
+            f"{b_bits[0]:.4f} ms ({b_bits[1]}), kernel at "
+            f"{b_bits[0] / bm_ms:.3f} of it; card {card}")
+        del want_bits
+        got_h, got_pos = sd.sketch_window(codes, table, p)
+        (want_h, want_pos), plain_ms = cuda_ms(
+            lambda: sd.sketch_window_plain(codes, table, p), warmup=False)
         hold_exact(rec, "kssd_sketch", got_h, want_h, f"{what} hashes")
         hold_exact(rec, "kssd_sketch", got_pos, want_pos, f"{what} positions")
-        _, ms = cuda_ms(lambda: sd.sketch_window_launch(codes, table, p),
-                        reps=10)
+        ab = ab_times(lambda: sd.sketch_window_launch(codes, table, p),
+                      psd and (lambda: psd.sketch_window_launch(codes, table,
+                                                                p)))
+        _, kern, call, parts = ab["change"]
         total = int(got_h.numel())
+        parent = ""
+        if psd:
+            ph, ppos, ptot = ab["parent"][0]
+            n_par = int(ptot.item())
+            if n_par != total or not torch.equal(ph[:n_par], got_h) \
+                    or not torch.equal(ppos[:n_par], got_pos):
+                raise AssertionError(f"K7 {what}: the parent's rows differ")
+            parent = (f"; the parent's K7 kernels {fmt_ms(ab['parent'][1])}"
+                      f" ms, call {fmt_ms(ab['parent'][2])} ms (in turns "
+                      f"parent, this, this, parent; "
+                      f"{fmt_parts(ab['parent'][3])}), rows equal")
         n_valid = valid_windows(w, p.kmer_size)
         # codes read once, kept rows written once, a 32-byte sector of the
         # table for each kept window
         k7_bound = bound(len(w) + 12 * total + 32 * total, 0, CORE_OPS)
-        gather = 32 * n_valid
-        rec["kssd_sketch"]["ms"].append(ms)
+        rec["kssd_sketch"]["ms"].append(kern[0])
         rec["kssd_sketch"]["plain_ms"].append(plain_ms)
         rec["kssd_sketch"]["bound"].append(k7_bound)
+        rec["kssd_sketch"].setdefault("call_ms", call[0])
         say(f"K7 {what}: {n_pos} positions, {n_valid} valid, {total} kept "
             f"({'64' if p.use64 else '32'}-bit hashes): rows and total "
-            f"exact; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+            f"exact; kernels {fmt_ms(kern)} ms ({fmt_parts(parts)}), call "
+            f"{fmt_ms(call)} ms{parent}; plain {plain_ms:.3f} ms; bound "
             f"{k7_bound[0]:.4f} ms ({k7_bound[1]}: {len(w)} B of codes, "
             f"{12 * total} B written, {32 * total} B of table sectors for "
-            f"the kept), kernel at {k7_bound[0] / ms:.4f} of it; the table "
-            f"gathers of every valid window imply {gather} B of sectors "
-            f"({1e3 * gather / HBM_BPS:.4f} ms at {HBM_BPS / 1e12:.2f} "
-            f"TB/s); card {card}")
-        del codes, table, got_h, got_pos, want_h, want_pos
+            f"the kept), kernels at {k7_bound[0] / kern[0]:.4f} of it; "
+            f"card {card}")
+        del codes, table, got_h, got_pos, want_h, want_pos, ab, bits
         torch.cuda.empty_cache()
 
 
@@ -2009,8 +2083,8 @@ def phase_match_kernel(dev, rec, card, n=8192):
 
 def run_sketch_cli(main, argv, env, dev, cwd):
     """One CLI run from genomes in ``cwd`` under the environment ``env``,
-    from K7's launch count set to 0: (wall, stats, K7 launches, spy of the
-    device sketcher)."""
+    from K7's launch counts set to 0: (wall, stats, K7's launch counts (the
+    windows' and the keep bitmap's), spy of the device sketcher)."""
     from rabbittclust_tpu_torch.ops import sketch_device as sd
     saved = {key: os.environ.get(key) for key in env}
     os.environ.update(env)
@@ -2034,7 +2108,7 @@ def run_sketch_cli(main, argv, env, dev, cwd):
                 os.environ[key] = val
     if rc != 0:
         raise RuntimeError(f"{argv[:3]}... returned {rc}")
-    return wall, stats, sd.LAUNCHES["kssd_sketch"], spy
+    return wall, stats, dict(sd.LAUNCHES), spy
 
 
 def planted_partition(n_bases, per_base, n=None):
@@ -2070,6 +2144,10 @@ def phase_device_sketch(tmp, dev, n_bases=32, per_base=4,
     say(f"the device route's host floor: reading and encoding the "
         f"{n_codes} bases alone takes {time.perf_counter() - t0:.3f} s")
     launches = None
+    # the shuffle tables are uploaded afresh, so the first device run builds
+    # its keep bitmap (once, kept on the table for the runs after it)
+    from rabbittclust_tpu_torch.ops.sketch_device import _device_table
+    _device_table.cache_clear()
     # the 64-bit case: -k 23 would be replaced by the CLI's k tuning (k
     # above recommended + 3 = 21 at 4 Mb), so k 21 at drlevel 2 (half_k
     # 11 - drlevel 2 > 8)
@@ -2090,12 +2168,17 @@ def phase_device_sketch(tmp, dev, n_bases=32, per_base=4,
                 {"RTC_DEVICE_SKETCH": mode}, dev, cwd)
             device = mode == "1"
             on_card = device and dev.type == "cuda"
-            if (k7 > 0) != on_card or bool(spy.calls) != device:
+            if (k7["kssd_sketch"] > 0) != on_card or \
+                    bool(spy.calls) != device:
                 raise AssertionError(f"{tag} RTC_DEVICE_SKETCH={mode}: K7 "
                                      f"launches {k7}, device sketcher "
                                      f"calls {len(spy.calls)}")
             if device and launches is None:
                 launches = k7
+                if k7["kssd_keep_bitmap"] != 1:
+                    raise AssertionError(f"{tag}: the keep bitmap was built "
+                                         f"{k7['kssd_keep_bitmap']} times, "
+                                         "not once")
             if device:
                 use64 = spy.results[0][1].use64
                 if use64 != ("drlevel" in tag):
@@ -2219,7 +2302,7 @@ def greedy_resident(hashes, dev):
 
 
 def pair_bound(rows, cols, tri, out_bytes, b1_ops, extra=8):
-    """The bound of K1's pair kernel (a ring step, K6) over ``rows`` x
+    """The bound of a ring step or of K6 over ``rows`` x
     ``cols`` pairs: the shared-bit products it needs, two operations a bit
     multiply-add at ``b1_ops``; under the triangle (the same genomes on
     both sides, column position < row position) only the 128 x 128 blocks
@@ -2346,7 +2429,50 @@ def ring_compares(loc, vis, kind, row0=0):
     return int(need.sum())
 
 
-def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
+def ring_step_shapes(hashes, wide, mesh, cases, sc, radio, dev, rec, card):
+    """The slab step's other operand shapes at 4 shards of N = 16,384, each
+    step kind held to the plain step (slab and count) and timed with CUDA
+    events: 64-bit hashes (``wide``, phase 9's corpus) at 8192 bits, and
+    signatures of 256 bits (a short TMA box; the card tests also take 64,
+    read without TMA)."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    n, n_dev = len(hashes), mesh.size
+    for label, hs, bits in (("64-bit hashes", wide, BITS),
+                            ("256-bit signatures", hashes, 256)):
+        xp, coll = bm.pack_bitmaps_packed(hs, bits, pad_n_to=n_dev)
+        sizes = np.array([len(h) for h in hs], dtype=np.int32)
+        shards = de._bit_shards(xp, coll, sizes, mesh)
+        times = []
+        for case, d, t in cases:
+            loc, vis = shards[d], shards[(d - t) % n_dev]
+            rows = loc.xp.shape[0]
+            out = torch.zeros((1, rows, rows // 8), dtype=torch.uint8,
+                              device=dev)
+            count = torch.zeros(1, dtype=torch.int32, device=dev)
+
+            def step():
+                count.zero_()
+                de.ring_masks_step(loc, vis, t, n_dev, sc, radio, False, out,
+                                   count)
+
+            _, ms = cuda_ms(step, reps=3)
+            ok = de.ring_filter_mask_plain(loc, vis, t, n_dev, sc, radio,
+                                           False)
+            what = f"{n_dev} shards of N={n}, {label}, {case}"
+            hold_exact(rec, "ring_masks", out[0], bm.pack_mask_u8(ok), what)
+            hold_exact(rec, "ring_masks", count, ok.sum(dtype=torch.int32)
+                       .view(1), f"{what} count")
+            times.append(f"{case} {int(count)} pairs, {ms:.4f} ms a call")
+            del ok, out
+        say(f"ring step {n_dev} shards of N={n}, {label} ({bits} bits): "
+            f"slab and count exact on every step kind; " + "; ".join(times)
+            + f"; card {card}")
+        del shards
+        torch.cuda.empty_cache()
+
+
+def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
     """Each ring step kind of the exact, bitmap and mask rings (self,
     interior, antipodal on the higher shard, and the antipodal step's
     empty tile on the lower one) at 4 shards of N = 16,384 and 8 shards of
@@ -2403,18 +2529,24 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
                 step()
                 return close()
 
+            p_out = torch.zeros_like(out) if pde else None
+            p_count = torch.zeros_like(count) if pde else None
+
             def parent_step():
-                # the step, then its pull and decode as the parent's
-                # _decode does them after its ring
-                f = pde.ring_bitmap_step(loc, vis, t, n_dev, sc, radio,
-                                         False).cpu().numpy().astype(np.int64)
-                return loc.lo + f // rows, vis.lo + f % rows
+                p_count.zero_()
+                pde.ring_masks_step(loc, vis, t, n_dev, sc, radio, False,
+                                    p_out, p_count)
+
+            def parent_bitmap_step():
+                parent_step()
+                return pde.ring_positions(p_out, p_count, los)
 
             timed = kind != "none"
             if timed:
-                _, s_dev, s_call, s_parts = ab_times(step)["change"]
+                sab = ab_times(step, pde and parent_step)
+                _, s_dev, s_call, s_parts = sab["change"]
                 _, c_dev, c_call, c_parts = ab_times(close)["change"]
-                ab = ab_times(bitmap_step, pde and parent_step)
+                ab = ab_times(bitmap_step, pde and parent_bitmap_step)
                 (ii, jj), b_dev, b_call, b_parts = ab["change"]
             else:
                 ii, jj = bitmap_step()
@@ -2432,14 +2564,19 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
             parent = ""
             if pde and timed:
                 pi, pj = ab["parent"][0]
-                if not (np.array_equal(pi, ii) and np.array_equal(pj, jj)):
+                if not (np.array_equal(pi, ii) and np.array_equal(pj, jj)
+                        and torch.equal(p_out, out)
+                        and torch.equal(p_count, count)):
                     raise AssertionError(f"ring step {what}: the parent's "
                                          "step differs")
-                parent = (f"; the parent's step (K1, its count pulled, K3, "
-                          f"the positions pulled and decoded) kernels "
-                          f"{fmt_ms(ab['parent'][1])} ms, call "
-                          f"{fmt_ms(ab['parent'][2])} ms (in turns parent, "
-                          f"this, this, parent; {fmt_parts(ab['parent'][3])})")
+                parent = (f"; the parent's slab step (filter_pair_kernel) "
+                          f"kernels {fmt_ms(sab['parent'][1])} ms, call "
+                          f"{fmt_ms(sab['parent'][2])} ms ("
+                          f"{fmt_parts(sab['parent'][3])}), with its close "
+                          f"kernels {fmt_ms(ab['parent'][1])} ms, call "
+                          f"{fmt_ms(ab['parent'][2])} ms (each in turns "
+                          f"parent, this, this, parent), slab, count and "
+                          f"positions equal")
             if not timed:
                 say(f"ring step {what}: empty on both: exact")
                 continue
@@ -2461,8 +2598,9 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
             rec["ring_bitmap"].setdefault("close_ms", c_dev[0])
             rec["ring_bitmap"].setdefault("close_call_ms", c_call[0])
             say(f"ring step {what}: {len(ii)} candidates, slab step, count "
-                f"and positions exact; the slab step (K1 and the count's "
-                f"zeroing) kernels {fmt_ms(s_dev)} ms ({fmt_parts(s_parts)})"
+                f"and positions exact; the slab step (the ring step's kernel"
+                f" and the count's zeroing) kernels {fmt_ms(s_dev)} ms "
+                f"({fmt_parts(s_parts)})"
                 f", call {fmt_ms(s_call)} ms; its close "
                 f"alone (count pull, K3, positions pull and decode) kernels "
                 f"{fmt_ms(c_dev)} ms, call {fmt_ms(c_call)} ms "
@@ -2493,18 +2631,17 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
                     for d in range(n_dev)]
 
         def ring_parent():
-            out = pde._ring(mesh, shards, lambda d, t, loc, vis:
-                            pde.ring_bitmap_step(loc, vis, t, n_dev, sc,
-                                                 radio, False))
-            return pde._decode(out, shard, shards[0].xp.shape[0], n_dev)
+            slabs, counts, los = pde.ring_slabs(mesh, shards, sc, radio,
+                                                False)
+            return [pde.ring_positions(slabs[d], counts[d], los[d])
+                    for d in range(n_dev)]
 
         ab = ab_times(ring_new, pde and ring_parent, reps=3)
         parent = ""
         if pde:
-            ii = np.concatenate([p[0] for p in ab["change"][0]])
-            jj = np.concatenate([p[1] for p in ab["change"][0]])
-            if not (np.array_equal(ab["parent"][0][0], ii) and
-                    np.array_equal(ab["parent"][0][1], jj)):
+            if not all(np.array_equal(a, b)
+                       for pa, pb in zip(ab["parent"][0], ab["change"][0])
+                       for a, b in zip(pa, pb)):
                 raise AssertionError(f"the bitmap ring over {n_dev} shards "
                                      "differs from the parent's ring")
             parent = (f"; the parent's ring kernels "
@@ -2564,6 +2701,9 @@ def phase_ring_kernels(corpus, dev, rec, card, b1_ops):
             del slab, mine, ref, got, want
         del shards
         torch.cuda.empty_cache()
+        if n == N_GENOMES:
+            ring_step_shapes(hashes, wide, mesh, cases, sc, radio, dev, rec,
+                             card)
         # the exact ring: planes of the shards the cases read (all four at
         # N = 16,384; shards 3, 6 and 7 at N = 131,072, whose empty case
         # reads shards 0 and 4 only for their ids)
@@ -3199,7 +3339,10 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
     phase_sketch_kernel(dev, rec, card)
     phase_match_kernel(dev, rec, card)
     phase_greedy_filter_kernel(greedy_corpora, dev, rec, card, b1_ops)
-    phase_ring_kernels(corpus, dev, rec, card, b1_ops)
+    # phase 9's MinHash corpus of 64-bit hashes, also 3h's 64-bit case
+    wide = make_corpus(N_GENOMES, SKETCH, N_CLUSTERS, SEED + 5,
+                       dtype=np.uint64)
+    phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops)
     say("phase 16's oracles " + ", ".join(
         f"{tag}: {'done' if o.ready() else 'running'}"
         for (tag, _), o in zip(greedy_corpora, oracles)))
@@ -3212,13 +3355,12 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
         phase_engines(hashes, want, dev)
         phase_greedy(sparse, tmp, "8a", None)
         phase_greedy(corpus[:N_GREEDY], tmp, "8b", "force")
-        phase_minhash(make_corpus(N_GENOMES, SKETCH, N_CLUSTERS, SEED + 5,
-                                  dtype=np.uint64), tmp)
+        phase_minhash(wide, tmp)
         phase_append(tmp, N_GENOMES)
         launches["mask_compact"] = phase_dbscan(
             [("sparse", sparse, 2), ("planted", hashes, 5)], tmp)
         phase_leiden(hashes, tmp)
-        launches["kssd_sketch"] = phase_device_sketch(tmp, dev)
+        launches.update(phase_device_sketch(tmp, dev))
         launches["tuple_match"] = phase_extra_sketch(tmp, dev)
         launches.update(phase_mesh(corpus, want, dev, tmp))
         launches["greedy_filter"] = phase_batched_greedy(greedy_corpora,

@@ -14,14 +14,10 @@
 // (rb, rb) count matrix never reaches device memory.
 //
 // A second kernel, filter_pair_kernel (the same tiles, loads and product
-// over FilterArgs), carries two more JAX programs; the square sweep keeps
-// filter_mask_kernel as it was (one generalised kernel for all three ran
-// slower on the sweep):
-//   - the mesh rings' steps (rabbittclust_tpu/parallel/dist_engine.py
-//     ::build_ring_bitmap_fn, build_ring_masks_fn): rows from the local
-//     shard's signatures and columns from the visiting shard's (sig_c,
-//     coll_c, size_c), the strict triangle only on the self step (tri), and
-//     a radio of 0 that disables the size-ratio gate;
+// over FilterArgs), carries one more JAX program; the square sweep keeps
+// filter_mask_kernel as it was (one generalised kernel ran slower on the
+// sweep).  The mesh rings' steps, which it carried before, have a kernel
+// of their own (ring_step.cu):
 //   - K6, rabbittclust_tpu/ops/greedy_device.py::_greedy_filter_fn: a
 //     batch's rows and its reps' columns gathered through two index lists
 //     in the loads (GATHER: the block's 256 genome ids staged in shared
@@ -31,11 +27,11 @@
 //     in order; rtc_greedy_filter launches both, and writes the count into
 //     the output's first word, on the stream.
 //
-// filter_pair_kernel's triangular grid (a ring's self step, K6's
-// triangular mode; tile origins equal) is a 1-D grid over only the
-// 128 x 128 blocks with some j < i (bx <= by, tri_block), so a 4096^2 self
-// step launches 528 of its 1,024 blocks; the blocks above are never
-// written, and the caller hands in a zeroed mask.
+// filter_pair_kernel's triangular grid (K6's triangular mode; tile
+// origins equal) is a 1-D grid over only the 128 x 128 blocks with some
+// j < i (bx <= by, tri_block), so a 4096^2 triangle launches 528 of its
+// 1,024 blocks; the blocks above are never written, and the caller hands
+// in a zeroed mask.
 //
 // Bound: the shared-bit counts are a 0/1 matrix product, rb^2 * bits
 // bit multiply-adds per tile.  A 4096^2 tile at 8192 bits is 1.37e11 of
@@ -43,8 +39,9 @@
 // H100's 1,979 dense int8 TOP/s, the floor of an s8 form; this kernel's
 // single-bit instruction carries 8 times the bits of an s8 one, so its
 // bound is the same operations at the card's rate of that instruction.
-// NVIDIA publishes none for the H100: mma_b1_peak_kernel below measures it
-// (chip_smoke.py phase 3b), and the bound follows from it.  The tile's
+// NVIDIA publishes none for the H100: mma_b1_peak_kernel below measures
+// it, and ring_step.cu's wgmma_b1_peak_kernel the faster wgmma form
+// (chip_smoke.py phase 3b); the bound takes the higher of the two.  The tile's
 // bytes (two 4 MB signature row blocks, a 2 MB mask) take ~3 us at
 // 3.35 TB/s.  The popcount form this replaces issued two POPC per 64-bit
 // word on the CUDA cores (~1.15 ms per tile) and left the tensor cores
@@ -125,10 +122,9 @@ static_assert(KSTEPS == 4, "the swizzle spreads 4 genomes over 4 groups");
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Bound { kMst = 0, kGreedy = 1, kMinhash = 2 };
-// filter_pair_kernel's modes.  kRing: the columns' own signatures,
-// collisions and sizes, the triangle when tri, radio 0 disabling the gate;
-// kGather: as kRing, rows and columns gathered through index lists (K6)
-enum Mode { kRing = 0, kGather = 1 };
+// filter_pair_kernel's mode.  kGather: rows and columns gathered through
+// index lists (K6), the triangle when tri, radio 0 disabling the gate
+enum Mode { kGather = 1 };
 
 __device__ __forceinline__ void cp_async8(uint32_t* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -375,7 +371,7 @@ filter_mask_kernel(const uint64_t* __restrict__ sig, int words,
 }
 
 // The operands of one launch.  Rows come from sig_r, columns from sig_c
-// (the same signatures for the square sweep, two shards' for a ring step).
+// (the same signatures for the square sweep and for K6's gathers).
 // Row position p of a tile is genome p (sig_r's row p) unless gat_r is set
 // (K6: the genome is gat_r[p]); columns likewise.  A tile is rows x cols
 // pairs from positions (r0s[t], c0s[t]); its mask rows are row_words uint32
@@ -489,14 +485,13 @@ __device__ __forceinline__ bool pair_gate(int shared, int i, int j, int si,
   if (A.bound == kGreedy && !A.containment) {
     ok = ok && fmaxf(fi, fj) <= __fadd_rn(__fmul_rn(A.radio_f, mn_f), 1.0f);
   } else if (A.bound == kMst && A.radio_i != 0) {
-    // int32 product, wrapping as in XLA; radio 0 disables the gate (the
-    // mesh rings' containment callers)
+    // int32 product, wrapping as in XLA; radio 0 disables the gate
     ok = ok && max(si, sj) <= (int)((unsigned)A.radio_i * (unsigned)mni);
   }
   return ok && shared >= thresh && (!A.tri || j < i);
 }
 
-// filter_mask_kernel over FilterArgs: the mesh rings' steps and K6
+// filter_mask_kernel over FilterArgs: K6
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 filter_pair_kernel(const FilterArgs A) {
@@ -760,8 +755,10 @@ extern "C" {
 // cols pairs; ceil(cols / 32) <= row_words <= 4 ceil(cols / 128) (every
 // word of a row is written).  tri: 0 every pair; 1 keep only column
 // position < row position; 2 the same on tiles whose origins are equal
-// (r0s[t] == c0s[t], a ring's self step), launching only the blocks with
-// some j < i: the words of the blocks above are not written (zero them).
+// (r0s[t] == c0s[t]), launching only the blocks with some j < i: the words
+// of the blocks above are not written (zero them).  Only the square sweep
+// and the gathered form (gat_r, gat_c set) launch; a ring step takes
+// rtc_ring_step (ring_step.cu).
 int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
                     const void* coll_r, const void* coll_c,
                     const void* size_r, const void* size_c,
@@ -796,14 +793,14 @@ int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
         (uint32_t*)packs);
     return (int)cudaGetLastError();
   }
+  if (gat_r == nullptr) return (int)cudaErrorInvalidValue;
   FilterArgs A = filter_args(sig_r, sig_c, words, coll_r, coll_c, size_r,
                              size_c, gat_r, gat_c, r0s, c0s, valid, rows,
                              cols, row_words, jmin_num, jmin_den, c_min,
                              radio_i, radio_f, containment, bound, tri,
                              counts, packs);
   A.tri_grid = tri == 2;
-  return (int)(gat_r != nullptr ? launch_pair<kGather>(A, batch, st)
-                                : launch_pair<kRing>(A, batch, st));
+  return (int)launch_pair<kGather>(A, batch, st);
 }
 
 // K6 (rabbittclust_tpu/ops/greedy_device.py::_greedy_filter_fn) whole, on

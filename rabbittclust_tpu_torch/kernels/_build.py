@@ -133,6 +133,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_greedy_filter.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci,
                                       cf, cf, cf, cf, ci, ci, vp, vp, ci,
                                       vp, vp]
+    lib.rtc_ring_step.restype = ci
+    lib.rtc_ring_step.argtypes = [vp, vp, ci] + [vp] * 4 + [ci] * 3 + [
+        cf, cf, cf, ci, ci, ci, vp, vp, vp]
+    lib.rtc_wgmma_b1_peak.restype = ci
+    lib.rtc_wgmma_b1_peak.argtypes = [ci, ci, ci, vp, vp]
     lib.rtc_mma_b1_peak.restype = ci
     lib.rtc_mma_b1_peak.argtypes = [ci, ci, ci, ci, vp, vp]
     lib.rtc_lp_round.restype = ci
@@ -149,8 +154,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_mask_compact_rows.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp]
     u64 = ctypes.c_uint64
     lib.rtc_kssd_sketch.restype = ci
-    lib.rtc_kssd_sketch.argtypes = [vp, ci, ci, vp, u64, u64, u64, u64, ci,
-                                    ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.rtc_kssd_sketch.argtypes = [vp, ci, ci, vp, ci, vp, u64, u64, u64,
+                                    u64, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.rtc_kssd_keep_bitmap.restype = ci
+    lib.rtc_kssd_keep_bitmap.argtypes = [vp, ci, ci, vp, vp]
     lib.rtc_tuple_match.restype = ci
     lib.rtc_tuple_match.argtypes = [vp, ci, ci, ci, vp, vp]
     return lib

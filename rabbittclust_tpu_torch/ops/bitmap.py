@@ -61,11 +61,11 @@ INDEX_LIMIT = 1 << 31
 # 16-byte chunks of a tile that one K3 block covers (``csrc/mask_compact.cu``
 # SEG); the wrapper sizes K3's per-segment scratch with it
 MASK_COMPACT_SEG = 1024
-# K1's ``tri`` argument: keep column < row on tiles whose origins are equal,
-# launching only the 128 x 128 blocks with bx <= by (``tri_block``)
-TRI_DIAGONAL = 2
 # K1's block of pairs (``csrc/filter_mask.cu`` BM = BN)
 BLOCK = 128
+# the ring step's tile of pairs, rows x columns (``csrc/ring_step.cu`` BM,
+# BN)
+RING_TILE = (128, 256)
 
 # the (3, 1) int32 tile geometry [0], [0], [1] (one valid tile at the
 # origin) on each device, uploaded once
@@ -317,6 +317,53 @@ def tri_block(k: int, nbx: int, nby: int) -> Tuple[int, int]:
     return m + (k - head) // nbx, (k - head) % nbx
 
 
+def ring_row_tiles(by: int, rows: int, cols: int, tri: bool) -> int:
+    """Tiles of row block ``by`` that the ring step's kernel visits
+    (``csrc/ring_step.cu::ring_row_tiles``): every column block, or on a
+    self step (``tri``) those starting below the block's last row."""
+    bm_, bn = RING_TILE
+    nbx = -(-cols // bn)
+    if not tri:
+        return nbx
+    i_max = min(by * bm_ + bm_, rows) - 1
+    return 0 if i_max < 1 else min(nbx, (i_max - 1) // bn + 1)
+
+
+def ring_tiles(rows: int, cols: int, tri: bool) -> List[Tuple[int, int]]:
+    """(by, bx) of every tile the ring step's kernel visits, in its walk's
+    order (row by row)."""
+    nby = -(-rows // RING_TILE[0])
+    return [(by, bx) for by in range(nby)
+            for bx in range(ring_row_tiles(by, rows, cols, tri))]
+
+
+def ring_cta_tiles(rows: int, cols: int, tri: bool, grid: int,
+                   cta: int) -> List[Tuple[int, int]]:
+    """The tiles CTA ``cta`` of the kernel's persistent grid of ``grid``
+    visits, by the kernel's own walk (``csrc/ring_step.cu
+    ::ring_tile_next``: from (0, 0) advance ``cta`` tiles, then ``grid`` a
+    tile); ``ring_tiles(...)[cta::grid]``."""
+    nby = -(-rows // RING_TILE[0])
+    n_tiles = sum(ring_row_tiles(by, rows, cols, tri) for by in range(nby))
+    out, by, bx = [], 0, 0
+
+    def advance(step, by, bx):
+        bx += step
+        while by < nby:
+            n = ring_row_tiles(by, rows, cols, tri)
+            if bx < n:
+                break
+            bx -= n
+            by += 1
+        return by, bx
+
+    by, bx = advance(cta, by, bx)
+    for _ in range(cta, n_tiles, grid):
+        out.append((by, bx))
+        by, bx = advance(grid, by, bx)
+    return out
+
+
 def tile_geometry(device: torch.device) -> torch.Tensor:
     """The (3, 1) int32 geometry of one valid tile at the origin on
     ``device`` (K1's r0s, c0s, valid), uploaded at the first call a
@@ -335,7 +382,7 @@ def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
     (2, n) under "minhash": the rows read row 0, the columns row 1);
     ``gather`` None or the (row, column) int32 genome of each position
     (K6); ``geo`` (3, k) int32 tile origins and validity on the card;
-    ``tri`` 0 or False, 1 or True, or ``TRI_DIAGONAL``."""
+    ``tri`` 0 or False, 1 or True."""
     from ..kernels._build import load_kernels
     lib = load_kernels()
     (xr, cr, sr), (xc, cc, sc) = rows, cols
@@ -357,6 +404,32 @@ def launch_filter(rows, cols, gather, geo, k, n_rows, n_cols, row_words,
                 ctypes.c_float(float(c_min)), radio_i,
                 ctypes.c_float(radio_f), int(bool(is_containment)),
                 BOUNDS[bound], int(tri), counts.data_ptr(),
+                packs.data_ptr(), stream)
+
+
+def launch_ring_step(rows, cols, scalars, is_containment, tri, count,
+                     packs) -> None:
+    """One launch of the ring step's kernel (``csrc/ring_step.cu
+    ::rtc_ring_step``), counted by the caller: ``rows`` and ``cols`` are
+    (signatures, collisions, sizes) of the local and the visiting shard,
+    ``scalars`` (jmin_num, jmin_den, c_min, radio) of the "mst" bound
+    (radio 0: no ratio gate), ``tri`` the self step's triangle; ``count``
+    (1,) int32 is added to, ``packs`` (rows, cols / 8) uint8 written on
+    the tiles visited."""
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    (xr, cr, sr), (xc, cc, sc) = rows, cols
+    jmin_num, jmin_den, c_min, radio = scalars
+    dev = xr.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_ring_step, xr.data_ptr(), xc.data_ptr(),
+                xr.shape[1] // 8, cr.data_ptr(), cc.data_ptr(),
+                sr.data_ptr(), sc.data_ptr(), xr.shape[0], xc.shape[0],
+                xc.shape[0] // 32, ctypes.c_float(float(jmin_num)),
+                ctypes.c_float(float(jmin_den)),
+                ctypes.c_float(float(c_min)), int(radio),
+                int(bool(is_containment)), int(bool(tri)), count.data_ptr(),
                 packs.data_ptr(), stream)
 
 

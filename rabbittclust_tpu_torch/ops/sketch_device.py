@@ -17,9 +17,14 @@ genomes' start offsets, and each genome's hashes are deduplicated with
   version: ``_chunk_kernel``'s formulation (k shifted ORs, in int64) over
   rows of ``chunk`` positions, as the JAX program's ``lax.scan`` rows,
   followed by an ordered ``nonzero``.
+* ``keep_bitmap`` — the set of dimensions that keep a window (``0 <=
+  table[d] < dim_end``) as a bitmap with a coarse level, built once per
+  (table, dim_end) and kept on the table tensor; K7's keep test reads it
+  in place of the table.  ``keep_bitmap_plain`` is its plain version.
 
 On a CPU device everything runs the plain version; on a CUDA device the
-wrapper launches K7 or raises.  ``LAUNCHES`` counts K7's launches.
+wrapper launches K7 or raises.  ``LAUNCHES`` counts K7's launches, the
+window's and the bitmap's build.
 """
 
 from __future__ import annotations
@@ -39,12 +44,15 @@ from .intersect import _launch
 CHUNK = 1 << 20
 # default rows per dispatch window (positions = S_ROWS * CHUNK)
 S_ROWS = 16
-# positions a K7 block covers and threads a block (csrc/kssd_sketch.cu SPAN,
+# positions of a K7 span and threads a block (csrc/kssd_sketch.cu SPAN,
 # THREADS); the wrapper sizes K7's scratch with them
 K7_SPAN = 8192
 K7_THREADS = 256
+# dimensions a bit of the keep bitmap's coarse level covers
+# (csrc/kssd_sketch.cu COARSE_SHIFT)
+COARSE_DIMS = 256
 
-LAUNCHES = {"kssd_sketch": 0}
+LAUNCHES = {"kssd_sketch": 0, "kssd_keep_bitmap": 0}
 
 
 def reset_launches() -> None:
@@ -70,6 +78,94 @@ def _shifts(p: KssdParams) -> Tuple[int, int, int]:
         4 * p.drlevel
 
 
+def _pack_bits(flags: torch.Tensor) -> torch.Tensor:
+    """(n,) bool -> int32 words, bit b of word w = flags[32 w + b]."""
+    f = torch.nn.functional.pad(flags.to(torch.uint8),
+                                (0, -flags.numel() % 32)).view(-1, 8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=f.device)
+    return (f << shifts).sum(1, dtype=torch.uint8).view(torch.int32)
+
+
+def keep_bitmap_plain(table: torch.Tensor, dim_end: int) -> torch.Tensor:
+    """Plain keep bitmap: int32 words, ceil(n / 32) fine ones (bit d set
+    iff 0 <= table[d] < dim_end, n = table.numel()), then ceil(n / 8192)
+    coarse ones (bit c set iff any of dimensions [256 c, +256) is)."""
+    keep = (table >= 0) & (table < dim_end)
+    coarse = torch.nn.functional.pad(
+        keep, (0, -keep.numel() % COARSE_DIMS)).view(-1, COARSE_DIMS).any(1)
+    return torch.cat([_pack_bits(keep), _pack_bits(coarse)])
+
+
+def _kept_on(table: torch.Tensor, key, build) -> torch.Tensor:
+    """``build()``, kept on ``table`` under ``key`` and built again only
+    when the table was modified in place."""
+    kept = getattr(table, "_rtc_keep", None)
+    if kept is None or kept[0] != table._version:
+        kept = table._rtc_keep = (table._version, {})
+    if key not in kept[1]:
+        kept[1][key] = build()
+    return kept[1][key]
+
+
+def keep_bitmap(table: torch.Tensor, dim_end: int) -> torch.Tensor:
+    """The keep bitmap of ``table`` for ``dim_end`` (``keep_bitmap_plain``'s
+    words), built once and kept on the table: on a CUDA table by one launch
+    of K7's bitmap kernel, on a CPU table by the plain version."""
+    if table.device.type == "cpu":
+        return _kept_on(table, ("plain", dim_end),
+                        lambda: keep_bitmap_plain(table, dim_end))
+    return _kept_on(table, ("kernel", dim_end),
+                    lambda: _keep_bitmap_launch(table, dim_end))
+
+
+def _keep_bitmap_launch(table: torch.Tensor, dim_end: int) -> torch.Tensor:
+    if table.dtype != torch.int32 or not table.is_contiguous() \
+            or table.dim() != 1 or not 0 < table.numel() <= 1 << 24:
+        raise ValueError("table must be a contiguous 1-D int32 tensor of at "
+                         "most 2^24 entries")
+    from ..kernels._build import load_kernels
+    lib = load_kernels()
+    n = table.numel()
+    dev = table.device
+    out = torch.empty(-(-n // 32) + -(-n // (32 * COARSE_DIMS)),
+                      dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.rtc_kssd_keep_bitmap, table.data_ptr(), n, int(dim_end),
+                out.data_ptr(), stream)
+    LAUNCHES["kssd_keep_bitmap"] += 1
+    return out
+
+
+def _bit(bitmap: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Bit ``d`` (int64, >= 0) of the bitmap's fine words, as bool."""
+    return ((bitmap[d >> 5] >> (d & 31).to(torch.int32)) & 1).bool()
+
+
+def _row_dims(c: torch.Tensor, n: int, p: KssdParams):
+    """The canonical tuples (int64 bit patterns), their dimensions and
+    validity at the ``n`` positions of one row's codes ``c`` (int64, n + k
+    - 1 of them): ``_chunk_kernel``'s formulation."""
+    k = p.kmer_size
+    dev = c.device
+    hol2 = _shifts(p)[0]
+    sign = torch.tensor(_s64(1 << 63), dtype=torch.int64, device=dev)
+    tup = torch.zeros(n, dtype=torch.int64, device=dev)
+    rvs = torch.zeros(n, dtype=torch.int64, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for j in range(k):
+        cj = c[j:j + n]
+        vj = cj >= 0
+        valid &= vj
+        cc = torch.where(vj, cj, 0)
+        tup |= cc << (2 * (k - 1 - j))
+        rvs |= torch.where(vj, cc ^ 3, 0) << (2 * j)
+    # the canonical tuple: the unsigned minimum (compare with bit 63
+    # flipped; a signed min picks the wrong tuple when it is set)
+    uni = torch.where((tup ^ sign) < (rvs ^ sign), tup, rvs)
+    return uni, _shr(uni & _s64(p.domask), hol2), valid
+
+
 def sketch_window_plain(codes: torch.Tensor, table: torch.Tensor,
                         p: KssdParams, chunk: int = CHUNK
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,43 +175,33 @@ def sketch_window_plain(codes: torch.Tensor, table: torch.Tensor,
     shuffle table on the same device.  Returns (hash int64 holding the
     uint64 bit pattern, position int32) in position order: the first
     ``total`` (hi << 32 | lo, enc) rows of the JAX ``_stream_kernel_fn``.
-    Rows of ``chunk`` positions bound the int64 temporaries; a row whose
-    codes are all invalid keeps nothing and is skipped."""
+    A valid window is kept when its dimension's bit is set in the plain
+    keep bitmap (kept on the table), and the table's rank is read for the
+    kept ones only.  Rows of ``chunk`` positions bound the int64
+    temporaries; a row whose codes are all invalid keeps nothing and is
+    skipped."""
     k = p.kmer_size
     n_pos = codes.numel() - (k - 1)
     dev = codes.device
-    hol2, shift1, drshift = _shifts(p)
-    sign = torch.tensor(_s64(1 << 63), dtype=torch.int64, device=dev)
-    domask, und0, und1 = (_s64(m) for m in (
-        p.domask, p.undomask0, p.undomask1))
+    bitmap = _kept_on(table, ("plain", p.dim_end),
+                      lambda: keep_bitmap_plain(table, p.dim_end))
+    _, shift1, drshift = _shifts(p)
+    und0, und1 = _s64(p.undomask0), _s64(p.undomask1)
     hashes, positions = [], []
     for r0 in range(0, max(n_pos, 0), chunk):
         n = min(chunk, n_pos - r0)
         c = codes[r0:r0 + n + k - 1].to(torch.int64)
         if not bool((c >= 0).any()):
             continue
-        tup = torch.zeros(n, dtype=torch.int64, device=dev)
-        rvs = torch.zeros(n, dtype=torch.int64, device=dev)
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-        for j in range(k):
-            cj = c[j:j + n]
-            vj = cj >= 0
-            valid &= vj
-            cc = torch.where(vj, cj, 0)
-            tup |= cc << (2 * (k - 1 - j))
-            rvs |= torch.where(vj, cc ^ 3, 0) << (2 * j)
-        # the canonical tuple: the unsigned minimum (compare with bit 63
-        # flipped; a signed min picks the wrong tuple when it is set)
-        uni = torch.where((tup ^ sign) < (rvs ^ sign), tup, rvs)
-        dim = _shr(uni & domask, hol2)
-        pf = table[torch.where(valid, dim, 0)]
-        keep = valid & (pf >= 0) & (pf < p.dim_end)
+        uni, dim, valid = _row_dims(c, n, p)
+        keep = valid & _bit(bitmap, torch.where(valid, dim, 0))
         (idx,) = torch.nonzero(keep, as_tuple=True)
         if not idx.numel():
             continue
         uni = uni[idx]
+        pf = table[dim[idx]].to(torch.int64)
         lifted = (uni & und1) << shift1 if shift1 < 64 else 0
-        dr = _shr((uni & und0) | lifted, drshift) | pf[idx].to(torch.int64)
+        dr = _shr((uni & und0) | lifted, drshift) | pf
         hashes.append(dr)
         positions.append((idx + r0).to(torch.int32))
     if not hashes:
@@ -153,12 +239,13 @@ def sketch_window_launch(codes: torch.Tensor, table: torch.Tensor,
     (1,)), all on the card; the first ``total`` rows are the kept
     windows."""
     n_pos = _check_window(codes, table, p)
+    bitmap = keep_bitmap(table, p.dim_end)
     from ..kernels._build import load_kernels
     lib = load_kernels()
     dev = codes.device
-    blocks = -(-n_pos // K7_SPAN)
-    keep = torch.empty(blocks * K7_THREADS, dtype=torch.int32, device=dev)
-    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    spans = -(-n_pos // K7_SPAN)
+    scratch = torch.empty(spans * (K7_THREADS + 2), dtype=torch.int32,
+                          device=dev)
     out_hash = torch.empty(n_pos, dtype=torch.int64, device=dev)
     out_pos = torch.empty(n_pos, dtype=torch.int32, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
@@ -167,9 +254,9 @@ def sketch_window_launch(codes: torch.Tensor, table: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(lib.rtc_kssd_sketch, codes.data_ptr(), n_pos, p.kmer_size,
-                table.data_ptr(), u64(p.tupmask), u64(p.domask),
-                u64(p.undomask0), u64(p.undomask1), hol2, shift1, drshift,
-                p.dim_end, keep.data_ptr(), counts.data_ptr(),
+                bitmap.data_ptr(), table.numel(), table.data_ptr(),
+                u64(p.tupmask), u64(p.domask), u64(p.undomask0),
+                u64(p.undomask1), hol2, shift1, drshift, scratch.data_ptr(),
                 out_hash.data_ptr(), out_pos.data_ptr(), total.data_ptr(),
                 stream)
     LAUNCHES["kssd_sketch"] += 1
@@ -193,7 +280,8 @@ def sketch_window(codes: torch.Tensor, table: torch.Tensor, p: KssdParams
 @lru_cache(maxsize=4)
 def _device_table(half_subk: int, device: torch.device) -> torch.Tensor:
     """The shuffle table, uploaded once per ``half_subk`` and device and
-    kept resident (64 MB at half_subk 6)."""
+    kept resident (64 MB at half_subk 6), with its keep bitmaps
+    (``keep_bitmap``) on it."""
     return torch.from_numpy(get_shuffle_table(half_subk)).to(device)
 
 

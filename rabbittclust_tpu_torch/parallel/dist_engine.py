@@ -30,9 +30,10 @@ and runs its plain torch version on CPU tensors:
   mode over (local shard, visiting shard), K3 to compact, K5b for the
   exact common counts of the survivors;
 * ``ring_masks_step`` (``build_ring_masks_fn``, and the step of
-  ``build_ring_bitmap_fn``): K1 over the two shards' signatures into the
-  shard's resident mask slab, its count into the slab's counts on the
-  device; the self step launches only its lower-triangle blocks;
+  ``build_ring_bitmap_fn``): the ring step's kernel (``csrc/ring_step.cu``)
+  over the two shards' signatures into the shard's resident mask slab, its
+  count into the slab's counts on the device; the self step visits only
+  its lower-triangle tiles;
 * ``ring_positions`` (the rest of ``build_ring_bitmap_fn``): after the
   ring, one pull of a shard's counts, one K3 launch over its slab (counted
   as ``ops/bitmap.py``'s), one pull of its candidates' positions;
@@ -76,8 +77,8 @@ from ..ops.labelprop import MAX_RB, SENT, _clear_quantum, lp_round
 from ..ops.pack import (GROUP, _to_device, compact_of, keep_compact,
                         pack_sketches)
 
-# K1 launches of the bitmap ring's steps count as "ring_bitmap", of the mask
-# ring's as "ring_masks"; the bitmap ring's closing K3 counts in
+# the ring step's launches of the bitmap ring count as "ring_bitmap", of the
+# mask ring as "ring_masks"; the bitmap ring's closing K3 counts in
 # ops/bitmap.py's LAUNCHES["mask_compact"]
 LAUNCHES = {"ring_stats": 0, "ring_edges": 0, "ring_bitmap": 0,
             "ring_masks": 0, "dist_lp_round": 0}
@@ -303,11 +304,12 @@ def ring_masks_step(local: BitShard, visiting: BitShard, t: int, n_dev: int,
     the packed candidate mask of (local rows, visiting columns) into
     ``out`` (1, rows, rows // 8) uint8 (a step of the shard's slab, zeros
     on entry on the card) and its number of set bits added into ``count``
-    (1,) int32 (zero on entry).  On the card one K1 launch over the two
-    shards' signatures, the tile kind taking the place of the ownership
-    mask; the self step launches only the 128² blocks with some j < i (the
-    words above the diagonal keep their zeros).  Nothing is pulled.  The
-    launch counts in ``LAUNCHES[counter]``."""
+    (1,) int32 (zero on entry).  On the card one launch of the ring step's
+    kernel (``csrc/ring_step.cu``) over the two shards' signatures, the
+    tile kind taking the place of the ownership mask; the self step visits
+    only the tiles with some j < i (the words above the diagonal keep
+    their zeros).  Nothing is pulled.  The launch counts in
+    ``LAUNCHES[counter]``."""
     rows = local.xp.shape[0]
     if local.xp.device.type == "cpu":
         ok = ring_filter_mask_plain(local, visiting, t, n_dev, scalars,
@@ -329,12 +331,10 @@ def ring_masks_step(local: BitShard, visiting: BitShard, t: int, n_dev: int,
         raise ValueError(f"out must be a contiguous (1, {rows}, {rows // 8})"
                          f" uint8 step and count a (1,) int32 tensor on "
                          f"{dev}, rows a multiple of 32 on both shards")
-    bm.launch_filter((local.xp, local.coll, local.sizes),
-                     (visiting.xp, visiting.coll, visiting.sizes), None,
-                     bm.tile_geometry(dev), 1, rows, rows, rows // 32,
-                     (*scalars, radio), is_containment,
-                     "mst", bm.TRI_DIAGONAL if kind == "self" else 0, count,
-                     out)
+    bm.launch_ring_step((local.xp, local.coll, local.sizes),
+                        (visiting.xp, visiting.coll, visiting.sizes),
+                        (*scalars, radio), is_containment, kind == "self",
+                        count, out)
     LAUNCHES[counter] += 1
 
 
@@ -365,9 +365,6 @@ def ring_slabs(mesh: Mesh, shards: List[BitShard], scalars, radio: int,
                          device=dev) for dev in mesh.devices]
     counts = [torch.zeros(n_steps, dtype=torch.int32, device=dev)
               for dev in mesh.devices]
-    for dev in mesh.devices:
-        if dev.type == "cuda":
-            bm.tile_geometry(dev)  # its one upload, before the first step
 
     def step(d, t, loc, vis):
         ring_masks_step(loc, vis, t, n_dev, scalars, radio, is_containment,

@@ -19,8 +19,9 @@ one 1-D "data" mesh spans every chip of every process, the ring's
   shift that moves each local shard one place and sends the last one to
   rank + 1 while it receives rank - 1's last one, both in one
   ``batch_isend_irecv`` (no pair of ranks can deadlock).  The ring is
-  ``dist_engine.ring_slabs`` (K1's pair kernel into each local shard's
-  slab, its count on the device), closed by ``dist_engine.ring_positions``
+  ``dist_engine.ring_slabs`` (the ring step's kernel into each local
+  shard's slab, its count on the device), closed by
+  ``dist_engine.ring_positions``
   (one pull of the counts, one K3 launch, one pull of the positions a
   shard).
 * host data (sketches, metadata, edge forests) moves by an allgather of
@@ -52,7 +53,7 @@ N local processes running the self-test ``_sim_child``.
 
 Left out: ``multihost_repdb_query`` and ``multihost_repdb_assign``, which
 need the RepDB state (``state/greedy_state.py``), not ported yet; the JAX
-function's ``cap`` (each step's output is sized from K1's count).
+function's ``cap`` (each step's output is sized from the step's count).
 """
 
 from __future__ import annotations
@@ -85,8 +86,8 @@ from . import dist_engine as de
 TIMEOUT_S = 600.0
 
 # the last multi-process ring of this process: its transport, the bytes and
-# milliseconds of each hop (staging included), of each ring step (K1 into
-# the slab) and of each local shard's close (its pulls and K3)
+# milliseconds of each hop (staging included), of each ring step (into the
+# slab) and of each local shard's close (its pulls and K3)
 RING_LAST: dict = {}
 
 

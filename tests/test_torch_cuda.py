@@ -649,7 +649,7 @@ def _k7_hold(codes, table, p):
 
 
 @pytest.mark.parametrize("table_kind", ["shuffle", "dense"])
-@pytest.mark.parametrize("k,dr", [(21, 3), (23, 3), (31, 2)])
+@pytest.mark.parametrize("k,dr", [(21, 3), (23, 3), (31, 2), (32, 3)])
 def test_k7_matches_plain(gpu, k, dr, table_kind):
     """One window of 2^20 positions with invalid codes, record separators,
     a low-complexity run and a padded tail (the dense table keeps nearly
@@ -663,8 +663,11 @@ def test_k7_matches_plain(gpu, k, dr, table_kind):
 
 
 def test_k7_edges(gpu):
-    """Ragged windows (1 position, 10,001, one past a block), separators at
-    a block's edge, an all-invalid window, a full 64-bit tuple width."""
+    """Ragged windows (1 position, 10,001, one past a span, ending inside a
+    span), separators at a span's edge, an all-invalid window, a full
+    64-bit tuple width, a table that keeps nothing, and k = 2."""
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams
     rng = np.random.default_rng(5)
     for k, dr, n_pos in ((21, 3, 1), (16, 2, 10_001), (31, 2, 8193),
                          (23, 3, 3 * 8192)):
@@ -678,6 +681,45 @@ def test_k7_edges(gpu):
     p, codes, table = _k7_inputs(gpu, 21, 3,
                                  np.full(20_000, -1, dtype=np.int8))
     assert _k7_hold(codes, table, p) == 0
+    # windows ending inside a span of K7_SPAN positions
+    for n_pos in (5000, 2 * 8192 + 4097):
+        p, codes, table = _k7_inputs(gpu, 23, 3,
+                                     kssd_window(n_pos, 24, n_pos), "dense")
+        assert _k7_hold(codes, table, p) > 0
+    # a table whose ranks all lie past dim_end: nothing kept; its bitmap
+    # has no bit set
+    p, codes, _ = _k7_inputs(gpu, 21, 3, kssd_window(3, 22, 30_000))
+    none = torch.full((1 << (4 * p.half_subk),), p.dim_end,
+                      dtype=torch.int32, device=gpu)
+    assert _k7_hold(codes, none, p) == 0
+    assert int(sd.keep_bitmap(none, p.dim_end).count_nonzero()) == 0
+    # k = 2 (one base of context a side: 16 dimensions, half_subk 1)
+    p = KssdParams(half_k=1, half_subk=1, drlevel=0)
+    t16 = rng.integers(-4, 24, 16).astype(np.int32)
+    codes = torch.from_numpy(kssd_window(9, 2, 40_000)).to(gpu)
+    assert _k7_hold(codes, torch.from_numpy(t16).to(gpu), p) > 0
+
+
+def test_k7_keep_bitmap_matches_plain(gpu):
+    """K7's keep bitmap kernel against its plain version: the shuffle and a
+    dense table at half_subk 6 (fine words and the coarse level), a table
+    of 16 dimensions, and a table modified in place (built again)."""
+    from rabbittclust_tpu_torch.ops import sketch_device as sd
+    from rabbittclust_tpu_torch.sketch.kssd import get_shuffle_table
+    cases = [(get_shuffle_table(6), 1 << 12),
+             (dense_keep_table(1 << 12, 6, 21), 1 << 12),
+             (np.arange(16, dtype=np.int32)[::-1].copy(), 5)]
+    for table_np, dim_end in cases:
+        table = torch.from_numpy(table_np).to(gpu)
+        before = sd.LAUNCHES["kssd_keep_bitmap"]
+        got = sd.keep_bitmap(table, dim_end)
+        assert sd.keep_bitmap(table, dim_end) is got  # kept on the table
+        assert sd.LAUNCHES["kssd_keep_bitmap"] == before + 1
+        assert torch.equal(got, sd.keep_bitmap_plain(table, dim_end))
+    table[3] = 0  # in place: the bitmap is built again
+    assert torch.equal(sd.keep_bitmap(table, 5),
+                       sd.keep_bitmap_plain(table, 5))
+    assert sd.LAUNCHES["kssd_keep_bitmap"] == before + 2
 
 
 def test_k7_rejects_bad_inputs(gpu):
@@ -874,23 +916,46 @@ def _ring_shards(kind, hashes, mesh, bits=1024):
     return de._bit_shards(xp, coll, sizes, mesh)
 
 
+def _ragged_shards(hashes, n_dev, rows, bits, dev):
+    """Bit shards of ``rows`` rows each (a multiple of 32, not of 128),
+    built by hand: ``_bit_shards`` pads them to 128 on the card."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = hashes[:n_dev * rows - 5]
+    xp, coll = bm.pack_bitmaps_packed(hashes, bits=bits,
+                                      pad_n_to=n_dev * rows)
+    sizes = np.zeros(xp.shape[0], dtype=np.int32)
+    sizes[:len(hashes)] = [len(h) for h in hashes]
+    return [de.BitShard(*(torch.from_numpy(a[d * rows:(d + 1) * rows])
+                          .to(dev) for a in (xp, coll, sizes)), d * rows)
+            for d in range(n_dev)]
+
+
 @pytest.mark.parametrize("n_dev", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("kind,use64", [("edges", False), ("edges", True),
-                                        ("bitmap", False), ("masks", False)],
-                         ids=["edges-32bit", "edges-64bit", "bitmap",
-                              "masks"])
-def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
+@pytest.mark.parametrize("kind,use64,bits,rows", [
+    ("edges", False, 0, 0), ("edges", True, 0, 0), ("bitmap", False, 1024, 0),
+    ("masks", False, 1024, 0), ("masks", True, 64, 0), ("masks", False, 256, 0),
+    ("masks", False, 8192, 0), ("masks", False, 64, 96),
+    ("masks", True, 256, 160), ("masks", False, 1024, 96),
+    ("masks", False, 8192, 160)],
+    ids=["edges-32bit", "edges-64bit", "bitmap", "masks", "masks-64bits",
+         "masks-256bits", "masks-8192bits", "masks-rows96-64bits",
+         "masks-rows160-256bits", "masks-rows96-1024bits",
+         "masks-rows160-8192bits"])
+def test_ring_steps_match_plain(gpu, n_dev, kind, use64, bits, rows):
     """Every (device, step) of each ring over [cuda:0] * n_dev: the
     kernels (tile kinds self / full / none) against the plain step (the
-    JAX ownership mask on genome ids); shards padded to 128 rows.  The
-    bitmap ring runs whole in its slab form: each shard's slab and counts
-    against the plain steps' masks, then its closing compaction against
-    the plain steps' positions, step after step.  The bitmap rings hash
-    64-bit sketches into one plane like 32-bit ones."""
+    JAX ownership mask on genome ids); shards padded to 128 rows, or of
+    ``rows`` rows (ragged: a multiple of 32) built by hand; signatures of
+    ``bits`` bits (64: no TMA; 256: a short TMA box).  The bitmap ring
+    runs whole in its slab form: each shard's slab and counts against the
+    plain steps' masks, then its closing compaction against the plain
+    steps' positions, step after step.  The bitmap rings hash 64-bit
+    sketches into one plane like 32-bit ones."""
     from rabbittclust_tpu_torch.parallel import dist_engine as de
     mesh = de.make_mesh(devices=[gpu] * n_dev)
-    hashes = _ring_corpus(n=300, use64=use64)
-    shards = _ring_shards(kind, hashes, mesh)
+    hashes = _ring_corpus(n=max(300, n_dev * rows), use64=use64)
+    shards = (_ragged_shards(hashes, n_dev, rows, bits, gpu) if rows else
+              _ring_shards(kind, hashes, mesh, bits))
     sc = bm.filter_scalars(0.05, 21)[:3]
     radio = int(bm.filter_scalars(0.05, 21)[3])
     kinds = set()
@@ -939,6 +1004,34 @@ def test_ring_steps_match_plain(gpu, n_dev, kind, use64):
     assert kinds == ({"self"} if n_dev == 1 else
                      {"self", "full"} if n_dev == 3 else
                      {"self", "full", "none"})
+
+
+@pytest.mark.parametrize("base", [0, 4095, 1 << 20])
+def test_ring_step_bound_is_exact_at_every_size(gpu, base):
+    """The ring step's float32 bound at every boundary: all-zero
+    signatures (shared 0), rows of size base + 1, column j of size j (size
+    sums base + 1 .. base + 4096), row i with collisions c0 + i and the
+    columns with more, so pair (i, j) passes iff c0 + i + 2 >
+    jmin_num (base + 1 + j) / jmin_den in float32: the rows' thresholds
+    cross every integer the quotient takes over the columns.  The kernel's
+    division (two corrections of a reciprocal product) against the plain
+    step's IEEE division, at two thresholds and k."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    rows = 4096
+    x = torch.zeros((rows, 128), dtype=torch.uint8, device=gpu)
+    ids = torch.arange(rows, dtype=torch.int32, device=gpu)
+    vis = de.BitShard(x, ids + (1 << 23), ids, 0)
+    for thr, k in ((0.05, 21), (0.3, 15)):
+        sc = bm.filter_scalars(thr, k)
+        c0 = max(0, int(np.floor(sc[0] * np.float32(base + 1) / sc[1])) - 2)
+        loc = de.BitShard(x, ids + c0, torch.full_like(ids, base + 1), rows)
+        out = torch.zeros((1, rows, rows // 8), dtype=torch.uint8, device=gpu)
+        count = torch.zeros(1, dtype=torch.int32, device=gpu)
+        de.ring_masks_step(loc, vis, 1, 3, sc[:3], 0, False, out, count)
+        ok = de.ring_filter_mask_plain(loc, vis, 1, 3, sc[:3], 0, False)
+        assert 0 < int(ok.sum()) < rows * (rows - 1)
+        assert torch.equal(out[0], bm.pack_mask_u8(ok)), (thr, k)
+        assert int(count) == int(ok.sum())
 
 
 def test_bitmap_ring_syncs_only_at_its_close(gpu, monkeypatch):

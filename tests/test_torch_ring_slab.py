@@ -7,8 +7,9 @@ package's ``distributed_candidate_pairs_bitmap`` element for element, and
 each step of the slab must be the plain step's mask.  The lower-triangle
 block list (``ops/bitmap.py::tri_block``, the map of K1's triangular
 grid, launched by a ring's self step and K6's triangular mode) is host
-arithmetic, checked here against brute force.  Every comparison is
-exact."""
+arithmetic, checked here against brute force, as is the tile walk of
+the ring step's own kernel (``ring_tiles``, ``ring_cta_tiles``).  Every
+comparison is exact."""
 
 import numpy as np
 import pytest
@@ -34,6 +35,42 @@ def test_lower_blocks_are_the_blocks_with_pairs(rows, cols):
     want = [(by, bx) for by in range(nby) for bx in range(nbx)
             if 128 * bx < min(128 * by + 127, rows - 1)]
     assert got == want
+
+
+@pytest.mark.parametrize("rows", [96, 160, 4000, 4096, 16384])
+@pytest.mark.parametrize("tri", [True, False], ids=["self", "full"])
+def test_ring_step_tiles_cover_each_pair_once(rows, tri):
+    """The ring step's kernel (``csrc/ring_step.cu``) walks tiles of
+    ``RING_TILE`` = 128 x 256 pairs over a persistent grid: every pair
+    (i, j) of a rows x rows step lies in exactly one visited tile (on a
+    self step every pair with j < i, and no tile is visited that holds
+    none), and the CTAs' walks (132 of them, an H100's SMs, and 7) split
+    the walk without a gap or an overlap."""
+    bm_, bn = bm.RING_TILE
+    tiles = bm.ring_tiles(rows, rows, tri)
+    assert len(set(tiles)) == len(tiles)
+    for grid in (132, 7):
+        walks = [bm.ring_cta_tiles(rows, rows, tri, grid, c)
+                 for c in range(min(grid, len(tiles)))]
+        assert walks == [tiles[c::grid] for c in range(len(walks))]
+        assert sorted(t for w in walks for t in w) == sorted(tiles)
+    # pairs covered a row: the union of the row block's column ranges
+    for by in range(-(-rows // bm_)):
+        cols = sorted(bx for y, bx in tiles if y == by)
+        assert cols == list(range(len(cols)))  # disjoint, from column 0
+        last = min(by * bm_ + bm_, rows) - 1  # the block's last row
+        covered = min(len(cols) * bn, rows)
+        if tri:  # every j < last, and each tile starts below last
+            assert covered >= last and all(bx * bn < last for bx in cols)
+        else:
+            assert covered == rows
+    if rows <= 160:  # brute force: each pair's count of visiting tiles
+        hits = np.zeros((rows, rows), dtype=np.int64)
+        for by, bx in tiles:
+            hits[by * bm_:(by + 1) * bm_, bx * bn:(bx + 1) * bn] += 1
+        want = np.tril(np.ones((rows, rows), dtype=bool), -1) if tri \
+            else np.ones((rows, rows), dtype=bool)
+        assert (hits[want] == 1).all() and hits.max() == 1
 
 
 def _disjoint(n=96, s=120, seed=4):

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from rabbittclust_tpu.ops.sketch_device import _jitted_stream_kernel
+from rabbittclust_tpu.ops.sketch_device import _chunk_kernel, \
+    _jitted_stream_kernel
 from rabbittclust_tpu.sketch.kssd import \
     kssd_kmer_hashes_numpy as jax_kmer_hashes
 from rabbittclust_tpu_torch.ops import sketch_device as sd
@@ -42,7 +43,9 @@ def test_window_triples_equal_jax(k, dr, table_kind):
     """The plain K7's ordered (hash, position) rows of one window equal the
     first ``total`` (hi << 32 | lo, enc) rows of JAX's
     ``_stream_kernel_fn``, also with rows of another length; at k 31 the
-    tuples use all 64 bits."""
+    tuples use all 64 bits.  The plain K7 keeps a window by its
+    dimension's bit in the keep bitmap and reads the table for the kept
+    ones only."""
     p = KssdParams.from_kmer_size(k, dr)
     k = p.kmer_size
     chunk, s_rows = 8192, 4
@@ -68,6 +71,42 @@ def test_window_triples_equal_jax(k, dr, table_kind):
         assert np.array_equal(pos.numpy(), want_pos), row
     if k == 32:  # a canonical tuple with bit 63 set (hash bit 55)
         assert ((want_h >> np.uint64(55)) & np.uint64(1)).any()
+
+
+@pytest.mark.parametrize("table_kind", ["shuffle", "dense"])
+@pytest.mark.parametrize("k,dr", [(21, 3), (23, 3), (16, 2), (31, 2)])
+def test_keep_bitmap_selects_the_dims_jax_keeps(k, dr, table_kind):
+    """K7's keep bitmap (plain version): bit d is set exactly where JAX's
+    ``_chunk_kernel`` keeps a window of dimension d (``0 <= table[d] <
+    dim_end``), position by position over one window, and for every
+    dimension of the table; a coarse bit is set exactly where one of its
+    256 dimensions is."""
+    p = KssdParams.from_kmer_size(k, dr)
+    k = p.kmer_size
+    n_pos = 1 << 15
+    window = kssd_window(k * 5 + dr, k, n_pos)
+    table = get_shuffle_table(p.half_subk) if table_kind == "shuffle" \
+        else dense_keep_table(p.dim_end, p.half_subk, k)
+    _, _, keep = _chunk_kernel(jnp.asarray(window.astype(np.int32)),
+                               jnp.asarray(table), p)
+    keep = np.asarray(keep)
+    bitmap = sd.keep_bitmap_plain(torch.from_numpy(table), p.dim_end)
+    n = len(table)
+    n_fine = -(-n // 32)
+    assert bitmap.dtype == torch.int32
+    assert bitmap.numel() == n_fine + -(-n // 8192)
+    words = bitmap.numpy().view(np.uint32)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    fine = bits[:n].astype(bool)
+    assert np.array_equal(fine, (table >= 0) & (table < p.dim_end))
+    coarse = bits[32 * n_fine:32 * n_fine + -(-n // 256)].astype(bool)
+    want = np.pad(fine, (0, -n % 256)).reshape(-1, 256).any(1)
+    assert np.array_equal(coarse, want)
+    _, dim, valid = sd._row_dims(torch.from_numpy(window).to(torch.int64),
+                                 n_pos, p)
+    dim, valid = dim.numpy(), valid.numpy()
+    assert np.array_equal(keep, valid & fine[np.where(valid, dim, 0)])
+    assert keep.sum() > (1000 if table_kind == "dense" else 0)
 
 
 @pytest.mark.parametrize("k,dr", [(21, 3), (23, 3), (16, 2), (31, 2)])
