@@ -126,8 +126,9 @@ window (16 x 2^20 positions) at k 21 / dr 3, k 23 / dr 3 and k 31 / dr 2,
 and a low-complexity window over a table that keeps every dimension, and
 each table's keep bitmap (K7's first kernel) to its plain version, with
 each window's kernels apart;
-phase 3f holds K8 (``tuple_matches``) to its plain version at N = 8,192 at
-the WMH (50 x 4 words) and OMH (64 x 6) shapes.  Phase 3g holds K6
+phase 3f holds K8 (``tuple_matches``, in its packed and its int32 form)
+and its id pass alone (``tuple_ids``) to their plain versions at N = 8,192
+at the WMH (50 x 4 words) and OMH (64 x 6) shapes.  Phase 3g holds K6
 (``greedy_filter``) to its plain version at B = 2,048 against R = 1,024
 and 16,384 reps, triangular, and a ragged B = 7, over phases 8a's and 8b's
 resident signatures, beside a bfloat16 ``torch.mm`` of the gathered
@@ -137,15 +138,16 @@ antipodal, and the antipodal step's empty tile) to the plain steps at 4
 shards of N = 16,384 and 8 shards of N = 131,072 (the slab step also over
 64-bit hashes and over 256-bit signatures at the first shape), times the
 whole bitmap ring at both shapes, and one LP round over a shard's slab
-with a clear list of repeated targets.  Phases 3g and 3h give each case's
-kernel time
+with a clear list of repeated targets.  Phases 3f, 3g and 3h give each
+case's kernel time
 (``device_ms``: the durations of its kernels and memsets from
 ``torch.profiler`` over 20 calls, the copies apart) and its call's time
 (CUDA events), and the same two times of the ``torch.mm``.
 ``python3 chip_smoke.py --parent DIR`` (DIR holding the parent
 commit's ``rabbittclust_tpu_torch/``) also builds that package from its
-own sources and times its K7 windows, its K6, its slab step (alone and
-with its close) and its ring in turns with this tree's, equal outputs
+own sources and times its K2 over panels 0 and 1 (phase 3c),
+its K7 windows, its K8, its K6, its slab step (alone and with its close),
+its ring and its LP slab round in turns with this tree's, equal outputs
 required.
 Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
 step) to the plain step on a band of 256 rows for each step kind at 4
@@ -161,6 +163,7 @@ prints no result.  The full compiler report is kept beside the built
 library (``rabbittclust_tpu_torch/build/*.log``).
 """
 
+import functools
 import json
 import os
 import re
@@ -203,6 +206,10 @@ KERNELS = {
                          "rabbittclust_tpu/ops/sketch_device.py:116"),
     "tuple_match": ("rabbittclust_tpu_torch/csrc/tuple_match.cu",
                     "rabbittclust_tpu/ops/extra_pairs.py:48"),
+    # K8's id pass: the C-word equality of _jitted_match as each sample's
+    # class ids (launched by K8's C entry, and alone by tuple_ids)
+    "tuple_ids": ("rabbittclust_tpu_torch/csrc/tuple_match.cu",
+                  "rabbittclust_tpu/ops/extra_pairs.py:53"),
     # K1's gathered form, then K3's row form
     "greedy_filter": ("rabbittclust_tpu_torch/csrc/filter_mask.cu",
                       "rabbittclust_tpu/ops/greedy_device.py:310"),
@@ -321,8 +328,9 @@ def fmt_parts(parts):
 
 
 # the parent commit's port package when the script runs with --parent DIR
-# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3e, 3g and
-# 3h then time its K7, its K6 and its ring step in the same call
+# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3c, 3e, 3f,
+# 3g and 3h then time its K2 panel round, its K7, its K8, its K6, its ring
+# step and its LP slab round in the same call
 PARENT = {}
 
 
@@ -342,7 +350,9 @@ def load_parent(root):
     PARENT.update(
         gd=importlib.import_module("rtc_parent.ops.greedy_device"),
         de=importlib.import_module("rtc_parent.parallel.dist_engine"),
-        sd=importlib.import_module("rtc_parent.ops.sketch_device"))
+        sd=importlib.import_module("rtc_parent.ops.sketch_device"),
+        xp=importlib.import_module("rtc_parent.ops.extra_pairs"),
+        lp=importlib.import_module("rtc_parent.ops.labelprop"))
     say(f"the parent's port package from {pkg}: its kernels built in "
         f"{built['seconds']:.1f} s")
 
@@ -1115,6 +1125,32 @@ def round_cases(rec, what, packs, geo, mixes, clr_np, rb, cases, dev,
     return times
 
 
+def parent_round(packs, geo, labels, clr_np, rb, dev, what, card):
+    """K2's full round over ``packs`` against the parent's, each on its own
+    copy, by ``device_ms`` in turns parent, this, this, parent: outputs and
+    cleared masks equal."""
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    plp = PARENT["lp"]
+    geo_d = torch.from_numpy(geo.astype(np.int32)).to(dev)
+    labels_d = torch.from_numpy(labels).to(dev)
+    clr = torch.from_numpy(clr_np).to(dev)
+    mine, theirs = packs.clone(), packs.clone()
+    ab = ab_times(lambda: lp.lp_round(mine, labels_d, clr, *geo_d, rb),
+                  lambda: plp.lp_round(theirs, labels_d, clr, *geo_d, rb))
+    if not (torch.equal(ab["change"][0], ab["parent"][0])
+            and torch.equal(mine, theirs)):
+        raise AssertionError(f"K2 {what}: the parent's round differs")
+    say(f"K2 {what} against the parent's: kernels "
+        f"{fmt_ms(ab['change'][1])} ms, call {fmt_ms(ab['change'][2])} ms "
+        f"({fmt_parts(ab['change'][3])}); the parent's kernels "
+        f"{fmt_ms(ab['parent'][1])} ms, call {fmt_ms(ab['parent'][2])} ms "
+        f"({fmt_parts(ab['parent'][3])}) (in turns parent, this, this, "
+        f"parent; outputs and masks equal); this at "
+        f"{ab['change'][1][0] / ab['parent'][1][0]:.3f} of it; card {card}")
+    del mine, theirs, ab
+    torch.cuda.empty_cache()
+
+
 def panel_clear_list(packs, rng):
     """A clear list over bits of the first tile and of the last 4."""
     n_t = packs.shape[0]
@@ -1181,12 +1217,16 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
         say(f"K1 panel 0 of N={n}: {n_t} tiles of rb={rb} in "
             f"{build_ms:.3f} ms ({build_ms / n_t:.3f} ms per tile)")
         clr_np = panel_clear_list(packs, rng)
+        mixes = label_mixes(np.arange(n_pad) % N_CLUSTERS, rng)
         times[rb] = round_cases(
-            rec, f"N={n} panel 0", packs, geo,
-            label_mixes(np.arange(n_pad) % N_CLUSTERS, rng), clr_np, rb,
+            rec, f"N={n} panel 0", packs, geo, mixes, clr_np, rb,
             [("full", None),
              ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
             dev, need_repeats=False)
+        if PARENT:
+            parent_round(packs, geo, mixes[0][1], clr_np, rb, dev,
+                         f"N={n} panel 0 ({n_t} tiles of rb={rb}), mixed "
+                         "labels, full", card)
         del packs
         torch.cuda.empty_cache()
     # (b) cluster members side by side (genome i moves to cluster i % 64's
@@ -1228,12 +1268,16 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
     sig, geo, packs, _ = build_masks(corpus, RB, dev, slice(512, None))
     n_pad = sig.n_pad
     del sig
-    round_cases(rec, f"N={n} panel 1", packs, geo,
-                [("mixed", mixed_labels(np.arange(n_pad) % N_CLUSTERS, rng))],
-                panel_clear_list(packs, rng), RB,
+    mixes = [("mixed", mixed_labels(np.arange(n_pad) % N_CLUSTERS, rng))]
+    clr_np = panel_clear_list(packs, rng)
+    round_cases(rec, f"N={n} panel 1", packs, geo, mixes, clr_np, RB,
                 [("full", None),
                  ("compact span=n_pad cap=65536", (0, n_pad, 65536))],
                 dev, need_repeats=False)
+    if PARENT:
+        parent_round(packs, geo, mixes[0][1], clr_np, RB, dev,
+                     f"N={n} panel 1 ({len(geo[0])} tiles of rb={RB}), mixed "
+                     "labels, full", card)
     del packs
     torch.cuda.empty_cache()
     phase_compaction(dev, rec, times[RB][
@@ -2057,27 +2101,70 @@ def planted_tokens(n, s, c, seed):
 
 def phase_match_kernel(dev, rec, card, n=8192):
     """3f: K8 at N = 8,192 at the WMH and OMH shapes against its plain
-    version on the card."""
+    version on the card: the whole call (the id pass, then the pairs) in
+    its packed form and in its int32 form, and the id pass alone against
+    its plain version, each timed by ``device_ms``, K8 in turns with the
+    parent's under --parent."""
     say("== phase 3f: K8 (tuple_match) against tuple_matches_plain")
     from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    pxp = PARENT.get("xp")
     for label, s, c in (("WMH", 50, 4), ("OMH", 64, 6)):
         tok = torch.from_numpy(planted_tokens(n, s, c, SEED + s).view(
             np.int32)).to(dev)
-        got, ms = cuda_ms(lambda: xp.tuple_matches(tok), reps=10)
+        ab = ab_times(lambda: xp.tuple_matches(tok),
+                      pxp and (lambda: pxp.tuple_matches(tok)))
+        got, k_dev, k_call, parts = ab["change"]
         want, plain_ms = cuda_ms(lambda: xp.tuple_matches_plain(tok),
                                  warmup=False)
         hold_exact(rec, "tuple_match", got, want, label)
-        k8_bound = bound(4 * n * n, n * n * s * c, CORE_OPS)
-        rec["tuple_match"]["ms"].append(ms)
-        rec["tuple_match"]["plain_ms"].append(plain_ms)
-        rec["tuple_match"]["bound"].append(k8_bound)
+        pack_max = xp.PACK_MAX_N
+        xp.PACK_MAX_N = 0  # the int32 form
+        try:
+            got32, i_dev, i_call, _ = device_ms(
+                lambda: xp.tuple_matches(tok))
+        finally:
+            xp.PACK_MAX_N = pack_max
+        hold_exact(rec, "tuple_match", got32, want, f"{label} int32 form")
+        ids, d_dev, d_call, d_parts = device_ms(lambda: xp.tuple_ids(tok))
+        want_ids, ids_plain = cuda_ms(lambda: xp.tuple_ids_plain(tok),
+                                      warmup=False)
+        hold_exact(rec, "tuple_ids", ids, want_ids, f"{label} ids")
+        pairs = n * (n + 1) // 2 * s
+        k8_bound = bound(4 * n * n, pairs, CORE_OPS)
+        jax_bound = bound(4 * n * n, n * n * s * c, CORE_OPS)
+        ids_bound = bound(4 * n * s * c + 4 * n * s, n * s * c, CORE_OPS)
+        for name, ms, plain, bnd, call in (
+                ("tuple_match", k_dev[0], plain_ms, k8_bound, k_call[0]),
+                ("tuple_ids", d_dev, ids_plain, ids_bound, d_call)):
+            rec[name]["ms"].append(ms)
+            rec[name]["plain_ms"].append(plain)
+            rec[name]["bound"].append(bnd)
+            rec[name].setdefault("call_ms", call)
+        parent = ""
+        if pxp:
+            if not torch.equal(ab["parent"][0], got):
+                raise AssertionError(f"K8 {label}: the parent's counts "
+                                     "differ")
+            parent = (f"; the parent's K8 kernels "
+                      f"{fmt_ms(ab['parent'][1])} ms, call "
+                      f"{fmt_ms(ab['parent'][2])} ms (in turns parent, "
+                      f"this, this, parent; counts equal), this at "
+                      f"{ab['change'][1][0] / ab['parent'][1][0]:.3f} of "
+                      f"it")
         say(f"K8 {label} N={n}, {s} samples x {c} words: exact (counts "
-            f"{int(want.min())}..{int(want.max())}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms; bound {k8_bound[0]:.4f} ms "
-            f"({k8_bound[1]}: {n * n * s * c} word compares at "
-            f"{CORE_OPS / 1e12:.0f} TOP/s, {4 * n * n} B written), kernel "
-            f"at {k8_bound[0] / ms:.4f} of it; card {card}")
-        del tok, got, want
+            f"{int(want.min())}..{int(want.max())}), int32 form exact, ids "
+            f"exact; kernels {fmt_ms(k_dev)} ms ({fmt_parts(parts)}), call "
+            f"{fmt_ms(k_call)} ms; int32 form kernels {i_dev:.4f} ms, call "
+            f"{i_call:.4f} ms; the id pass alone kernels {d_dev:.4f} ms "
+            f"({fmt_parts(d_parts)}), call {d_call:.4f} ms, plain "
+            f"{ids_plain:.3f} ms, bound {ids_bound[0]:.4f} ms "
+            f"({ids_bound[1]}); plain K8 {plain_ms:.3f} ms; bound "
+            f"{k8_bound[0]:.4f} ms ({k8_bound[1]}: {4 * n * n} B written, "
+            f"{pairs} one-word compares at {CORE_OPS / 1e12:.0f} TOP/s; the "
+            f"JAX formulation's {n * n * s * c} word compares "
+            f"{jax_bound[0]:.4f} ms), kernels at "
+            f"{k8_bound[0] / k_dev[0]:.4f} of it{parent}; card {card}")
+        del tok, got, want, got32, ids, want_ids, ab
         torch.cuda.empty_cache()
 
 
@@ -2251,10 +2338,11 @@ def phase_extra_sketch(tmp, dev, n_bases=32, per_base=4, length=20_000):
         if rc != 0:
             raise RuntimeError(f"--sketch-func {func} returned {rc}")
         k8 = xp.LAUNCHES["tuple_match"]
-        if (k8 == 1) != (func != "HLL" and dev.type == "cuda") or k8 > 1:
-            raise AssertionError(f"{func}: K8 launches {k8}")
+        if (k8 == 1) != (func != "HLL" and dev.type == "cuda") or k8 > 1 \
+                or xp.LAUNCHES["tuple_ids"] != k8:
+            raise AssertionError(f"{func}: K8 launches {xp.LAUNCHES}")
         if func == "WMH":
-            launches = k8
+            launches = dict(xp.LAUNCHES)
         got = partition(read_cluster_file(out))
         if got != want:
             raise AssertionError(f"{func}: partition {got} != planted")
@@ -2677,28 +2765,49 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
                                                  rng)).to(dev)
             planted = np.arange(n) % N_CLUSTERS
             labels = torch.from_numpy(mixed_labels(planted, rng)).to(dev)
-            mine, ref = slab.clone(), slab.clone()
-            got, ms = cuda_ms(lambda: lp.lp_round(mine, labels, clr, *geo,
-                                                  shard), reps=3)
+            ref = slab.clone()
             want, plain_ms = cuda_ms(lambda: lp.round_plain(
                 ref, labels, clr, *geo, shard), warmup=False)
-            hold_exact(rec, "dist_lp_round", got, want,
-                       "one slab round, fused output")
-            hold_exact(rec, "dist_lp_round", mine, ref,
-                       "one slab round, cleared slab")
+            plp = PARENT.get("lp")
+            runs = {}  # who: its round over its own copy of the slab
+            for who, mod in (("this", lp), ("parent", plp)):
+                if mod is None:
+                    continue
+                work = slab.clone()
+                runs[who] = functools.partial(mod.lp_round, work, labels, clr,
+                                              *geo, shard)
+                got = runs[who]()
+                torch.cuda.synchronize()
+                hold_exact(rec, "dist_lp_round", got, want,
+                           f"one slab round ({who}), fused output")
+                hold_exact(rec, "dist_lp_round", work, ref,
+                           f"one slab round ({who}), cleared slab")
+            ab = ab_times(runs["this"], plp and runs["parent"])
+            _, k_dev, k_call, parts = ab["change"]
             b_lp = bound(slab.numel() + 4 * labels.numel() + 4 * clr.numel()
-                         + 4 * got.numel(), 0, CORE_OPS)
-            rec["dist_lp_round"]["ms"].append(ms)
+                         + 4 * want.numel(), 0, CORE_OPS)
+            rec["dist_lp_round"]["ms"].append(k_dev[0])
             rec["dist_lp_round"]["plain_ms"].append(plain_ms)
             rec["dist_lp_round"]["bound"].append(b_lp)
+            rec["dist_lp_round"].setdefault("call_ms", k_call[0])
             live = clr[3] > 0
+            parent = ""
+            if plp:
+                parent = (f"; the parent's round kernels "
+                          f"{fmt_ms(ab['parent'][1])} ms, call "
+                          f"{fmt_ms(ab['parent'][2])} ms ("
+                          f"{fmt_parts(ab['parent'][3])}; in turns parent, "
+                          f"this, this, parent; outputs and slab equal), "
+                          f"this at {k_dev[0] / ab['parent'][1][0]:.3f} of "
+                          f"it")
             say(f"LP slab round, shard {top} of 8 at N={n} ({slab.shape[0]} "
                 f"steps of {shard}^2, {int(live.sum())} clear-list bits), "
-                f"cross {int(want[0])}: fused output and slab exact; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound {b_lp[0]:.4f} "
-                f"ms ({b_lp[1]}), kernel at {b_lp[0] / ms:.3f} of it; card "
-                f"{card}")
-            del slab, mine, ref, got, want
+                f"cross {int(want[0])}: fused output and slab exact; "
+                f"kernels {fmt_ms(k_dev)} ms ({fmt_parts(parts)}), call "
+                f"{fmt_ms(k_call)} ms; plain {plain_ms:.3f} ms; bound "
+                f"{b_lp[0]:.4f} ms ({b_lp[1]}), kernels at "
+                f"{b_lp[0] / k_dev[0]:.3f} of it{parent}; card {card}")
+            del runs, ab, slab, ref, got, want
         del shards
         torch.cuda.empty_cache()
         if n == N_GENOMES:
@@ -3307,9 +3416,10 @@ def main() -> int:
     # round's function); launches from the run of the path that uses the
     # kernel (K4's counts mode is on no path: the dense engine takes its
     # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
-    # first device run, K8's from phase 14's WMH run, K6's from phase 16's
-    # 8a run, the rings' from phase 15).  K6's and the ring steps' ms and
-    # library_ms are kernel times (device_ms); their call times, and the
+    # first device run, K8's and its id pass's from phase 14's WMH run,
+    # K6's from phase 16's 8a run, the rings' from phase 15).  K6's, K8's,
+    # the ring steps' and the LP slab round's ms and library_ms are kernel
+    # times (device_ms); their call times, and the
     # bitmap ring's close, ride along as extra keys
     extra = ("call_ms", "library_call_ms", "close_ms", "close_call_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
@@ -3361,7 +3471,7 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
             [("sparse", sparse, 2), ("planted", hashes, 5)], tmp)
         phase_leiden(hashes, tmp)
         launches.update(phase_device_sketch(tmp, dev))
-        launches["tuple_match"] = phase_extra_sketch(tmp, dev)
+        launches.update(phase_extra_sketch(tmp, dev))
         launches.update(phase_mesh(corpus, want, dev, tmp))
         launches["greedy_filter"] = phase_batched_greedy(greedy_corpora,
                                                          oracles, dev)

@@ -29,15 +29,29 @@
 // Bound: device memory bandwidth.  A round reads the panel's masks once
 // (1.07 GB for 512 tiles at rb = 4096: 0.32 ms at 3.35 TB/s) plus the
 // labels.  Design:
-//   - A block owns a band of up to 4,096 rows of one tile (narrower, down
-//     to 128 rows, until the blocks spread over the SMs within 10 %), so a
-//     tile's column labels are staged in shared memory once per band.  Each
-//     warp walks its own run of the band's rows in ascending order, four
-//     16-byte loads in flight a lane (ld.global.nc, no L1 allocation): a
-//     warp step covers 512 B, one row at rb = 4096, several rows below it,
-//     and lanes keep the same 128 columns of every row they take.  So a row
+//   - A block owns a band of rows of one tile and the columns of a span:
+//     the whole row up to rb = 8,192 (SPAN_FROM), spans of 4,096 columns
+//     (SPAN, 512 bytes of each row) above it, so a block's column labels
+//     and minima, staged in shared memory once per block, take at most 64
+//     KB, and 32 KB at rb = 16,384 (the mesh LP's slabs), where several
+//     blocks share an SM.  The band is up to 4,096 rows, narrower until
+//     the blocks spread over the SMs within 10 %, down to 128 rows, or to
+//     1,024 where a tile has several spans, so that staging and the flush
+//     stay a few per cent of the bytes a block streams.  Whole rows of
+//     16,384 columns would take 128 KB of shared memory: one block an SM,
+//     bands of 128 rows, and staging and flush a sixth of the slab round's
+//     time.  At rb = 8,192, spans of 4,096 took 1.08 times the whole rows'
+//     time (twice the row work a byte), so spans start above it.
+//   - Each warp walks its own run of the band's rows in ascending order,
+//     four 16-byte loads in flight a lane (ld.global.nc, no L1
+//     allocation): a warp step covers 512 B at a span of 4,096 columns
+//     (one row's span, or several rows below it) and 1 KB at 8,192, and
+//     lanes keep the same 128 columns of every row they take.  So a row
 //     whose set bits crowd into a few 128-column runs (cluster members side
-//     by side) keeps a few lanes busy while the rest wait.
+//     by side) keeps a few lanes busy while the rest wait.  Staging the
+//     rows through TMA into a ring of shared-memory stages, with a
+//     producer warp, was measured at the slabs' shape and took 1.03 times
+//     these direct loads' time: the scan, not the loads, holds the round.
 //   - A set bit's whole work is one pass of one 32-bit loop (scan_word):
 //     the gate, the count, the row's first column and the column's first
 //     row.  The lanes' reads of column labels and minima are spread over the
@@ -47,7 +61,8 @@
 //     words cost no loop iteration.
 //   - Row minimum: each lane's first gated column; the warp's lowest lane
 //     with one holds the row's (a ballot, or a warp min reduction when one
-//     row spans the warp); one global atomicMin per row and tile with a hit.
+//     row spans the warp); one global atomicMin per row and span with a
+//     hit.
 //   - Column minimum: as a lane's rows ascend, a column's first gated row is
 //     its minimum over that lane's rows, so each lane keeps a "found" mask of
 //     its columns and only newly found bits take a shared atomicMin (a few a
@@ -65,8 +80,11 @@ namespace {
 constexpr int SENT = 1 << 30;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int SPAN = 4096;          // columns of a block above SPAN_FROM
+constexpr int SPAN_FROM = 8192;     // ... up to which a block takes rows whole
 constexpr int MAX_BAND = 4096;      // rows of a tile per block, at most
 constexpr int MIN_BAND = 128;       // ... and at least, where rb allows
+constexpr int SPAN_MIN_BAND = 1024;  // ... where a tile has several spans
 constexpr int SCAN_THREADS = 512;
 constexpr int SEG = 4 * SCAN_THREADS;  // columns per compaction block
 constexpr unsigned FULL = 0xffffffffu;
@@ -133,25 +151,31 @@ __global__ void lp_prepare_kernel(int* __restrict__ fused, int64_t n_fused,
   }
 }
 
-// KPL: 16-byte chunks of a row per lane (1 up to rb = 4096, 2 up to 8192,
-// 4 up to 16384).  Grid: (bands of a tile, tiles).
+// KPL: 16-byte chunks of a row's span per lane (1 up to 4,096 columns, 2
+// up to 8,192).  Grid: (bands of a tile, spans of a tile, tiles).  A block
+// takes rows [band * x, +band) of its tile and columns [span * y, +span)
+// of them; each warp its own run of those rows, in whole warp steps of
+// 16-byte loads, U steps in flight.
 template <int KPL>
 __global__ void __launch_bounds__(THREADS)
 lp_round_kernel(const uint4* __restrict__ packs,
                 const int* __restrict__ labels, const int* __restrict__ r0s,
                 const int* __restrict__ c0s, const int* __restrict__ valid,
-                int rb, int band, int* __restrict__ fused, int n_pad) {
+                int rb, int span, int band, int* __restrict__ fused,
+                int n_pad) {
   constexpr int U = 4 / KPL;  // warp steps loaded before the first is read
-  const int t = blockIdx.y;
+  const int t = blockIdx.z;
   if (!valid[t]) return;
+  const int s0 = blockIdx.y * span;
+  const int cols = min(span, rb - s0);
   const int r0 = r0s[t];
-  const int c0 = c0s[t];
+  const int c0 = c0s[t] + s0;  // the span's first genome column
   int* row_p = fused + 1;
   int* col_p = fused + 1 + n_pad;
   extern __shared__ int smem[];
-  int* lc = smem;         // column labels of the tile, at slot(c)
-  int* cmin = smem + rb;  // min proposing row per column, this block
-  for (int c = threadIdx.x; c < rb; c += THREADS) {
+  int* lc = smem;           // column labels of the span, at slot(c)
+  int* cmin = smem + span;  // min proposing row per column, this block
+  for (int c = threadIdx.x; c < cols; c += THREADS) {
     lc[slot(c)] = labels[c0 + c];
     cmin[c] = SENT;
   }
@@ -159,7 +183,7 @@ lp_round_kernel(const uint4* __restrict__ packs,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int chunks = rb / 128;  // 16-byte chunks of a row
+  const int chunks = cols / 128;  // 16-byte chunks of a row's span
   const int rpi = chunks >= 32 ? 1 : 32 / chunks;  // rows a warp step covers
   const int grp = chunks >= 32 ? 0 : lane / chunks;  // the lane's row of them
   const bool on = grp < rpi;  // lanes past rpi * chunks idle
@@ -177,8 +201,10 @@ lp_round_kernel(const uint4* __restrict__ packs,
   sub = (sub + rpi - 1) / rpi * rpi;
   const int w_lo = lo + warp * sub;
   const int w_hi = min(w_lo + sub, hi);
-  const int step = rpi * chunks;  // 16-byte chunks from one step to the next
-  const uint4* src = packs + ((int64_t)t * rb + w_lo + grp) * chunks;
+  const int row_chunks = rb / 128;
+  const int step = rpi * row_chunks;  // 16-byte chunks between warp steps
+  const uint4* src =
+      packs + ((int64_t)t * rb + w_lo + grp) * row_chunks + s0 / 128;
   const int* lrow = labels + r0 + w_lo + grp;
   uint32_t found[KPL][4];
 #pragma unroll
@@ -213,7 +239,7 @@ lp_round_kernel(const uint4* __restrict__ packs,
           scan_word(w[q], lc, cmin, col + 32 * q, chunk[k] & 31, li[u], gi,
                     found[k][q], first, mine);
       }
-      if (chunks >= 32) {  // one row across the warp
+      if (chunks >= 32) {  // one row's span across the warp
         const int m = __reduce_min_sync(FULL, first);
         if (lane == 0 && m < SENT) atomicMin(row_p + gi, c0 + m);
       } else {  // the row's lowest lane with a hit holds its minimum
@@ -224,7 +250,7 @@ lp_round_kernel(const uint4* __restrict__ packs,
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < rb; c += THREADS) {
+  for (int c = threadIdx.x; c < cols; c += THREADS) {
     const int m = cmin[slot(c)];
     if (m < SENT) atomicMin(col_p + c0 + c, m);
   }
@@ -330,11 +356,34 @@ lp_scatter_kernel(const int* __restrict__ fused, int n_pad, int n_seg,
   }
 }
 
+// the columns a block takes: a whole row up to SPAN_FROM, spans of SPAN
+// above it
+int span_of(int rb) { return rb > SPAN_FROM ? SPAN : rb; }
+
+// the band: the widest, from MAX_BAND down, whose blocks spread over the
+// SMs within 10 % (the fullest SM holds at most 1.1 times the mean number
+// of blocks), but no narrower than MIN_BAND, or SPAN_MIN_BAND where a tile
+// has several spans (so that staging and flushing a span stay a few per
+// cent of the bytes its block streams)
+int band_of(int n_tiles, int rb, int sms) {
+  const int spans = (rb + span_of(rb) - 1) / span_of(rb);
+  const int floor_band = spans > 1 ? SPAN_MIN_BAND : MIN_BAND;
+  int band = rb < MAX_BAND ? rb : MAX_BAND;
+  for (;;) {
+    const int64_t blocks =
+        (int64_t)n_tiles * spans * ((rb + band - 1) / band);
+    const int64_t fullest = (blocks + sms - 1) / sms;
+    if (band <= floor_band || 10 * fullest * sms <= 11 * blocks) break;
+    band /= 2;
+  }
+  return band;
+}
+
 template <int KPL>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const void* packs, const void* labels,
                          const void* r0s, const void* c0s, const void* valid,
-                         int rb, int band, void* fused, int n_pad) {
+                         int rb, int span, int band, void* fused, int n_pad) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         lp_round_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -343,7 +392,8 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
   }
   lp_round_kernel<KPL><<<grid, THREADS, smem, st>>>(
       (const uint4*)packs, (const int*)labels, (const int*)r0s,
-      (const int*)c0s, (const int*)valid, rb, band, (int*)fused, n_pad);
+      (const int*)c0s, (const int*)valid, rb, span, band, (int*)fused,
+      n_pad);
   return cudaGetLastError();
 }
 
@@ -365,28 +415,16 @@ int launch_round(void* packs, const void* labels, const void* clr, int n_clr,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  // the widest band whose blocks spread over the SMs within 10 %: the
-  // fullest SM holds at most 1.1 times the mean number of blocks
-  int band = rb < MAX_BAND ? rb : MAX_BAND;
-  for (;;) {
-    const int64_t blocks = (int64_t)n_tiles * ((rb + band - 1) / band);
-    const int64_t fullest = (blocks + sms - 1) / sms;
-    if (band <= MIN_BAND || 10 * fullest * sms <= 11 * blocks) break;
-    band /= 2;
-  }
-  const dim3 grid((rb + band - 1) / band, n_tiles);
-  const int chunks = rb / 128;
-  const int kpl = chunks <= 32 ? 1 : chunks <= 64 ? 2 : 4;
-  const size_t smem = 2 * (size_t)rb * sizeof(int);
-  if (kpl == 1)
+  const int span = span_of(rb);
+  const int band = band_of(n_tiles, rb, sms);
+  const dim3 grid((rb + band - 1) / band, (rb + span - 1) / span, n_tiles);
+  const size_t smem = 2 * (size_t)span * sizeof(int);
+  if (span / 128 <= 32)
     err = launch_tiles<1>(grid, smem, st, packs, labels, r0s, c0s, valid, rb,
-                          band, fused, n_pad);
-  else if (kpl == 2)
-    err = launch_tiles<2>(grid, smem, st, packs, labels, r0s, c0s, valid, rb,
-                          band, fused, n_pad);
+                          span, band, fused, n_pad);
   else
-    err = launch_tiles<4>(grid, smem, st, packs, labels, r0s, c0s, valid, rb,
-                          band, fused, n_pad);
+    err = launch_tiles<2>(grid, smem, st, packs, labels, r0s, c0s, valid, rb,
+                          span, band, fused, n_pad);
   return (int)err;
 }
 
@@ -425,8 +463,8 @@ extern "C" {
 // packs: (n_tiles, rb, rb / 8) uint8, 16-byte aligned, updated in place;
 // labels: (n_pad,) int32; clr: (4, n_clr) int32; r0s/c0s/valid:
 // (n_tiles,) int32; fused: (1 + 2 * n_pad,) int32 output.
-// rb % 128 == 0 (16-byte row chunks), rb <= 16384 (two int32 per column in
-// shared memory); other rb return cudaErrorInvalidValue.
+// rb % 128 == 0 (16-byte row chunks), rb <= 16384 (the engines' largest
+// row block); other rb return cudaErrorInvalidValue.
 int rtc_lp_round(void* packs, const void* labels, const void* clr,
                  int n_clr, const void* r0s, const void* c0s,
                  const void* valid, int n_tiles, int rb, int n_pad,

@@ -159,5 +159,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_kssd_keep_bitmap.restype = ci
     lib.rtc_kssd_keep_bitmap.argtypes = [vp, ci, ci, vp, vp]
     lib.rtc_tuple_match.restype = ci
-    lib.rtc_tuple_match.argtypes = [vp, ci, ci, ci, vp, vp]
+    lib.rtc_tuple_match.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, vp, vp]
+    lib.rtc_tuple_ids.restype = ci
+    lib.rtc_tuple_ids.argtypes = [vp, ci, ci, ci, vp, vp, vp]
     return lib

@@ -47,10 +47,20 @@ from .transfer import _host_async, _host_wait
 # Source: rabbittclust_tpu/ops/labelprop.py::SENT
 SENT = 1 << 30  # "no partner" in the proposals
 LAUNCHES = {"labelprop_round": 0}
-# K2's limits (csrc/labelprop_round.cu): the row block (two int32 per
-# column in shared memory) and the tiles of one launch (grid y)
+# K2's limits (csrc/labelprop_round.cu): the row block (the engines'
+# largest) and the tiles of one launch (grid z)
 MAX_RB = 16384
 MAX_LAUNCH_TILES = 65535
+# K2's blocks (csrc/labelprop_round.cu): the whole row of a band of rows of
+# one tile up to rb = SPAN_FROM, a span of SPAN columns of it above, scanned
+# by WARPS warps; the band from MAX_BAND down to MIN_BAND, or SPAN_MIN_BAND
+# where a tile has several spans (``lp_band``)
+SPAN = 4096
+SPAN_FROM = 8192
+MAX_BAND = 4096
+MIN_BAND = 128
+SPAN_MIN_BAND = 1024
+WARPS = 8
 
 # the last run's phases (host seconds), counts and the device milliseconds
 # of the builds and rounds (CUDA events); pulled bytes are in
@@ -134,6 +144,59 @@ def round_compact_plain(packs, labels, clr, r0s, c0s, valid, r_lo, rb,
     """Plain compact K2 (``_round_fn_compact``)."""
     fused = round_plain(packs, labels, clr, r0s, c0s, valid, rb)
     return compact_plain(fused, labels.shape[0], r_lo, span, cap)
+
+
+def lp_span(rb: int) -> int:
+    """The columns a K2 block takes (``span_of``): the whole row up to
+    SPAN_FROM, SPAN above it."""
+    return SPAN if rb > SPAN_FROM else rb
+
+
+def lp_band(n_tiles: int, rb: int, sms: int) -> int:
+    """K2's band (``band_of``): the widest from MAX_BAND down whose blocks
+    spread over ``sms`` SMs within 10 %, but no narrower than MIN_BAND, or
+    SPAN_MIN_BAND where a tile has several spans."""
+    spans = -(-rb // lp_span(rb))
+    floor_band = SPAN_MIN_BAND if spans > 1 else MIN_BAND
+    band = min(rb, MAX_BAND)
+    while True:
+        blocks = n_tiles * spans * -(-rb // band)
+        fullest = -(-blocks // sms)
+        if band <= floor_band or 10 * fullest * sms <= 11 * blocks:
+            return band
+        band //= 2
+
+
+def lp_walk(rb: int, band: int):
+    """The rows and columns of one tile each (band, span, warp, lane group)
+    of K2 reads, as the kernel's index arithmetic gives them: a list of
+    (rows, columns), the rows in the order the lanes take them."""
+    span = lp_span(rb)
+    out = []
+    for lo in range(0, rb, band):
+        hi = min(lo + band, rb)
+        for s0 in range(0, rb, span):
+            chunks = min(span, rb - s0) // 128
+            rpi = 1 if chunks >= 32 else 32 // chunks
+            sub = -(-(hi - lo) // WARPS)
+            sub = -(-sub // rpi) * rpi
+            # a lane's chunks: lane + 32 k below ``chunks``, or lane % chunks
+            lane_chunks = [[c for c in range(ln, chunks, 32)]
+                           if chunks >= 32 else [ln % chunks]
+                           for ln in range(32)]
+            for w in range(WARPS):
+                w_lo = lo + w * sub
+                w_hi = min(w_lo + sub, hi)
+                for grp in range(min(rpi, 32)):
+                    lanes = [ln for ln in range(32)
+                             if (0 if chunks >= 32 else ln // chunks) == grp]
+                    cols = sorted({s0 + 128 * c + b for ln in lanes
+                                   for c in lane_chunks[ln]
+                                   for b in range(128)})
+                    rows = [b + grp for b in range(w_lo, w_hi, rpi)
+                            if b + grp < w_hi]
+                    out.append((rows, cols))
+    return out
 
 
 def _check_round_inputs(packs, labels, clr, r0s, c0s, valid, rb):
@@ -259,8 +322,8 @@ def threshold_clusters_device_lp(
     # K2's limits on the card, checked before anything is staged
     if cuda and (rb % 128 or rb > MAX_RB):
         raise ValueError(f"row block {rb}: K2 reads rows in 16-byte chunks "
-                         f"and keeps two int32 per column in shared memory, "
-                         f"so on the card it must be a multiple of 128, "
+                         f"and takes row blocks of at most {MAX_RB}, so on "
+                         f"the card it must be a multiple of 128, "
                          f"<= {MAX_RB}")
     if cuda and min(t_cap, len(tiles)) > MAX_LAUNCH_TILES:
         raise ValueError(f"a panel of {min(t_cap, len(tiles))} tiles "

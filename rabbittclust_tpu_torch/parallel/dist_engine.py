@@ -878,8 +878,8 @@ def distributed_threshold_clusters_lp(hashes, threshold: float,
     if mesh.cuda and shard > MAX_RB:
         raise ValueError(
             f"{n} genomes over {n_dev} shards: a shard of {shard} rows; K2 "
-            f"keeps two int32 per column in shared memory, so on the card "
-            f"a shard holds at most {MAX_RB} rows (use more shards)")
+            f"takes row blocks of at most {MAX_RB}, so on the card a shard "
+            f"holds at most {MAX_RB} rows (use more shards)")
     xp, coll = bm.pack_bitmaps_packed(hashes, bits=bits,
                                       pad_n_to=n_dev * 128)
     assert xp.shape[0] == n_pad

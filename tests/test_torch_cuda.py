@@ -373,6 +373,58 @@ def test_k2_matches_plain(gpu, masks, labels_mix, rb, cap):
             assert int(want[1 + n_pad + rb - 1]) == rb + 5
 
 
+def _wide_masks(gpu, rb, n_tiles, seed=8):
+    """n_tiles random tiles of rb rows whose set bits follow 64 planted
+    clusters (bit (i, j) where i and j share i % 64, about one in 64, and
+    a few stray bits), over n_tiles * rb genomes: the mesh LP slab's
+    pattern."""
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    rows = torch.arange(rb, device=gpu)
+    n_pad = n_tiles * rb
+    packs = torch.empty((n_tiles, rb, rb // 8), dtype=torch.uint8,
+                        device=gpu)
+    for t in range(n_tiles):
+        c0 = (t * 3 % n_tiles) * rb
+        m = (rows[:, None] % 64) == ((rows[None, :] + c0) % 64)
+        m &= torch.rand((rb, rb), generator=g, device=gpu) < 0.9
+        m |= torch.rand((rb, rb), generator=g, device=gpu) < 1e-4
+        packs[t] = bm.pack_mask_u8(m)
+        del m
+    geo = torch.tensor([[t * rb for t in range(n_tiles)],
+                        [(t * 3 % n_tiles) * rb for t in range(n_tiles)],
+                        [1] * n_tiles], dtype=torch.int32, device=gpu)
+    return packs, geo, n_pad
+
+
+@pytest.mark.parametrize("rb,n_tiles", [(16384, 2), (12416, 2), (8320, 3),
+                                        (8192, 2)])
+def test_k2_wide_rows_match_plain(gpu, rb, n_tiles):
+    """K2 over tiles of several spans (rb 16,384: four spans of 4,096
+    columns, bands of 1,024 rows; rb 12,416: three full spans and one of
+    128 columns, and a last band of 128 rows; rb 8,320: two spans and one
+    of 128 columns) and over whole rows of 8,192, against ``round_plain``:
+    the fused output and the cleared masks exactly equal, with a clear list
+    of repeated targets and random labels."""
+    packs, geo, n_pad = _wide_masks(gpu, rb, n_tiles)
+    rng = np.random.default_rng(3)
+    labels = torch.from_numpy(np.where(
+        rng.random(n_pad) < 0.5, np.arange(n_pad) % 64,
+        64 + np.arange(n_pad)).astype(np.int32)).to(gpu)
+    clr_np = clear_list(packs.cpu().numpy(), rng)
+    assert len({tuple(e) for e in clr_np[:3].T[clr_np[3] > 0]}) < \
+        int((clr_np[3] > 0).sum())
+    clr = torch.from_numpy(clr_np).to(gpu)
+    mine, ref = packs.clone(), packs.clone()
+    before = lp.LAUNCHES["labelprop_round"]
+    got = lp.lp_round(mine, labels, clr, *geo, rb)
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES["labelprop_round"] == before + 1
+    want = lp.round_plain(ref, labels, clr, *geo, rb)
+    assert torch.equal(got, want)
+    assert torch.equal(mine, ref)
+    assert int(want[0]) > 0 and not torch.equal(mine, packs)
+
+
 @pytest.mark.parametrize("engine_name", ["stream", "lp"])
 def test_cluster_engines_on_card_match_host(gpu, engine_name):
     hashes = clustered_sketches(n=1500, s=300, n_clusters=25, seed=4)
@@ -772,17 +824,71 @@ def test_k7_stream_equals_native_sketcher(gpu, tmp_path, k, dr):
     assert ss_h.names == ss_d.names and ss_h.total_lens == ss_d.total_lens
 
 
-@pytest.mark.parametrize("n", [1, 65, 700])
-@pytest.mark.parametrize("s,c", [(50, 4), (64, 6), (7, 1), (3, 8)])
-def test_k8_matches_plain(gpu, n, s, c):
+def _adversarial_tokens(kind, n, s, c, seed=5):
+    """Every row equal, every row distinct, or rows in groups of 5 that
+    differ from their group's base only in the last or the first word."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, 2 ** 32, (n, s, c), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "equal":
+        return np.ascontiguousarray(np.broadcast_to(tok[:1], tok.shape))
+    if kind == "distinct":
+        return tok
+    base = tok[::5].repeat(5, axis=0)[:n]
+    word = c - 1 if kind == "last" else 0
+    base[:, :, word] ^= (rng.random((n, s)) < 0.5).astype(np.uint32) * \
+        np.uint32(1 + 0x10001 * (np.arange(n) % 5))[:, None]
+    return base
+
+
+K8_TOKENS = [pytest.param("planted", n, s, c, id=f"n{n}-s{s}c{c}")
+             for n in (1, 63, 64, 65, 700, 4100)
+             for s, c in ((50, 4), (64, 6), (7, 1), (3, 8))] + \
+    [pytest.param(kind, 700, s, c, id=f"{kind}-s{s}c{c}")
+     for kind in ("equal", "distinct", "last", "first")
+     for s, c in ((50, 4), (7, 1), (3, 8))]
+
+
+@pytest.mark.parametrize("form", ["packed", "int32"])
+@pytest.mark.parametrize("kind,n,s,c", K8_TOKENS)
+def test_k8_matches_plain(gpu, monkeypatch, kind, n, s, c, form):
+    """K8 (the id pass, then the pairs over the lower triangle's tiles with
+    their transposes) against its plain version, in the packed form (two
+    samples' ids a word as fp16 patterns) and the int32 form (the packed
+    form's limit set to 0): one counted launch a call."""
     from rabbittclust_tpu_torch.ops import extra_pairs as xp
-    tok = torch.from_numpy(planted_tokens(n, s, c, seed=n + s).view(
-        np.int32)).to(gpu)
-    before = xp.LAUNCHES["tuple_match"]
+    if form == "int32":
+        monkeypatch.setattr(xp, "PACK_MAX_N", 0)
+    tok_np = planted_tokens(n, s, c, seed=n + s) if kind == "planted" \
+        else _adversarial_tokens(kind, n, s, c)
+    tok = torch.from_numpy(tok_np.view(np.int32)).to(gpu)
+    before = dict(xp.LAUNCHES)
     got = xp.tuple_matches(tok)
     torch.cuda.synchronize()
-    assert xp.LAUNCHES["tuple_match"] == before + 1
+    assert xp.LAUNCHES["tuple_match"] == before["tuple_match"] + 1
+    assert xp.LAUNCHES["tuple_ids"] == before["tuple_ids"] + 1
     assert torch.equal(got, xp.tuple_matches_plain(tok))
+
+
+@pytest.mark.parametrize("kind,n,s,c", [
+    ("planted", 1, 3, 8), ("planted", 65, 7, 1), ("planted", 4100, 50, 4),
+    ("planted", 700, 64, 6), ("equal", 700, 50, 4),
+    ("distinct", 700, 7, 1), ("last", 700, 50, 4), ("first", 700, 3, 8),
+    ("planted", 20000, 2, 2)])
+def test_k8_ids_match_plain(gpu, kind, n, s, c):
+    """K8's id pass alone (``tuple_ids``: each sample's hash table, then
+    each row's class's smallest row) element for element against
+    ``tuple_ids_plain``, one counted launch; N = 20,000 takes tables of
+    65,536 slots."""
+    from rabbittclust_tpu_torch.ops import extra_pairs as xp
+    tok_np = planted_tokens(n, s, c, seed=n + s) if kind == "planted" \
+        else _adversarial_tokens(kind, n, s, c)
+    tok = torch.from_numpy(tok_np.view(np.int32)).to(gpu)
+    before = xp.LAUNCHES["tuple_ids"]
+    got = xp.tuple_ids(tok)
+    torch.cuda.synchronize()
+    assert xp.LAUNCHES["tuple_ids"] == before + 1
+    assert torch.equal(got, xp.tuple_ids_plain(tok))
 
 
 def test_k8_rejects_nine_words(gpu):

@@ -1,7 +1,9 @@
 """The WMH / HLL / OMH arm of the port's clust-mst on the CPU against the
-JAX package: the sketchers' copies, the plain K8 (``tuple_matches_plain``)
-against JAX's ``pairwise_tuple_matches``, the float64 distance matrices,
-and the ``--sketch-func`` ``.cluster`` files byte-equal to the JAX CLI's.
+JAX package: the sketchers' copies, the plain K8 (``tuple_matches_plain``,
+and its two passes ``tuple_ids_plain`` and ``match_ids_plain``) against
+JAX's ``pairwise_tuple_matches``, K8's tile walk (``match_tiles``), the
+float64 distance matrices, and the ``--sketch-func`` ``.cluster`` files
+byte-equal to the JAX CLI's.
 """
 
 import random
@@ -79,6 +81,84 @@ def test_tuple_matches_plain_equals_jax(s, c):
                           want)
     assert port_xp.pairwise_tuple_matches(
         tok[:0], device=CPU).shape == (0, 0)
+
+
+def adversarial_tokens(kind, n=300, s=9, c=3, seed=5):
+    """(n, s, c) uint32 tokens that stress the id pass: every row equal,
+    every row distinct, or rows in groups of 5 that differ from their
+    group's base only in the last word or only in the first."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.broadcast_to(rng.integers(0, 2 ** 32, (1, s, c),
+                                            dtype=np.uint64).astype(
+            np.uint32), (n, s, c)).copy()
+    tok = rng.integers(0, 2 ** 32, (n, s, c), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "distinct":
+        return tok
+    word = {"last": c - 1, "first": 0}[kind]
+    base = tok[::5].repeat(5, axis=0)[:n]
+    flip = rng.random((n, s)) < 0.5
+    base[:, :, word] ^= flip.astype(np.uint32) * np.uint32(1 + (
+        np.arange(n) % 5)[:, None] * 0x10001)
+    return base
+
+
+TOKEN_CASES = {"WMH": lambda: planted_tokens(700, 50, 4, seed=50),
+               "OMH": lambda: planted_tokens(700, 64, 6, seed=64),
+               "equal": lambda: adversarial_tokens("equal"),
+               "distinct": lambda: adversarial_tokens("distinct"),
+               "last_word": lambda: adversarial_tokens("last"),
+               "first_word": lambda: adversarial_tokens("first")}
+
+
+@pytest.mark.parametrize("case", list(TOKEN_CASES))
+def test_tuple_ids_plain_then_counts_equal_jax(case):
+    """K8's two passes' plain versions: each id is the smallest row with
+    the same words at that sample (ids equal exactly where the tokens are),
+    and the counts rebuilt from the ids equal JAX's
+    ``pairwise_tuple_matches`` element for element, at N = 700 at the WMH
+    and OMH shapes and on adversarial tokens."""
+    tok = TOKEN_CASES[case]()
+    n, s, _ = tok.shape
+    ids = port_xp.tuple_ids_plain(torch.from_numpy(tok.view(np.int32)))
+    assert ids.dtype == torch.int32 and tuple(ids.shape) == (s, n)
+    got = ids.numpy()
+    for q in range(s):
+        # a row's id is the first row of its class
+        _, first, inv = np.unique(tok[:, q, :], axis=0, return_index=True,
+                                  return_inverse=True)
+        assert np.array_equal(got[q], first[inv.ravel()])
+    same = (tok[:, None] == tok[None]).all(-1)  # (n, n, s)
+    assert np.array_equal(got.T[:, None] == got.T[None], same)
+    want = jax_xp.pairwise_tuple_matches(tok, device=True)
+    counts = port_xp.match_ids_plain(ids).numpy()
+    assert counts.dtype == np.int32 and np.array_equal(counts, want)
+    assert np.array_equal(port_xp.tuple_matches(
+        torch.from_numpy(tok.view(np.int32))).numpy(), want)
+    n_classes = {"equal": 1, "distinct": n}.get(case)
+    if n_classes is not None:
+        assert all(len(np.unique(got[q])) == n_classes for q in range(s))
+    if case in ("last_word", "first_word"):
+        assert 0 < want[0, 1] < s and want[0, 5] <= 1  # near copies
+
+
+@pytest.mark.parametrize("n", [1, 63, 127, 128, 129, 700, 4100, 8192])
+def test_match_tiles_cover_every_pair_once(n):
+    """K8's pair kernel walks the lower triangle's 128 x 128 tiles by a
+    formula (``tile_of``); its host mirror gives each tile once with
+    bx <= by, and the tiles with their transposes cover every pair once."""
+    tiles = port_xp.match_tiles(n)
+    nt = -(-n // port_xp.TILE)
+    assert len(tiles) == nt * (nt + 1) // 2
+    cover = np.zeros((nt, nt), dtype=np.int64)
+    for by, bx in tiles:
+        assert 0 <= bx <= by < nt
+        cover[by, bx] += 1
+        if bx != by:
+            cover[bx, by] += 1
+    assert (cover == 1).all()
+    assert tiles == sorted(tiles)  # row by row, as the blocks are numbered
 
 
 def test_tuple_matches_need_a_card_unless_the_cpu_is_asked():

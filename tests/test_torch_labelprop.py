@@ -256,8 +256,8 @@ def test_lp_rejects_row_block_k2_cannot_read(monkeypatch):
 @pytest.mark.parametrize("case", ["rb_direct", "rb_dispatcher",
                                   "panel_tiles"])
 def test_lp_rejects_k2_limits_before_staging(monkeypatch, case):
-    """On the card K2 takes rb <= 16,384 (two int32 per column in shared
-    memory) and at most 65,535 tiles per launch: the engine rejects a row
+    """On the card K2 takes rb <= 16,384 (the engines' largest row block)
+    and at most 65,535 tiles per launch: the engine rejects a row
     block of 32,768 (directly and through ``RTC_CLUSTER_RB`` with
     ``RTC_CLUSTER_ENGINE=lp``) and a panel of more tiles
     (``RTC_LP_PANEL_TILES``) before it stages anything."""
@@ -285,3 +285,30 @@ def test_lp_rejects_k2_limits_before_staging(monkeypatch, case):
         with pytest.raises(ValueError, match="65703 tiles"):
             port_lp.threshold_clusters_device_lp([one] * (362 * 128), 0.05,
                                                  21, row_block=128)
+
+
+@pytest.mark.parametrize("rb,n_tiles", [
+    (128, 21), (4096, 512), (4096, 16), (8192, 136), (8320, 4),
+    (12416, 3), (16384, 5)])
+def test_k2_walk_covers_every_cell_once(rb, n_tiles):
+    """K2's blocks (a band of rows by the whole row up to rb 8,192, by a
+    span of 4,096 columns above it; each warp a run of the band's rows,
+    each lane group its rows' 16-byte chunks) read every (row, column) of a
+    tile once, each lane's rows ascending, at the engine's and the mesh
+    LP's shapes on an H100's 132 SMs (rb 8,320 and 12,416: a partial span,
+    and at 12,416 a partial band)."""
+    band = port_lp.lp_band(n_tiles, rb, 132)
+    spans = -(-rb // port_lp.lp_span(rb))
+    assert spans == (1 if rb <= port_lp.SPAN_FROM else -(-rb // 4096))
+    assert band >= (port_lp.SPAN_MIN_BAND if spans > 1
+                    else min(rb, port_lp.MIN_BAND))
+    chunks = rb // 128
+    cover = np.zeros((rb, chunks), dtype=np.int64)  # rows x 128 columns
+    for rows, cols in port_lp.lp_walk(rb, band):
+        assert rows == sorted(rows)
+        c = np.asarray(cols)
+        assert len(c) % 128 == 0 and (c[::128] % 128 == 0).all()
+        assert np.array_equal(c, (c[::128, None] + np.arange(128)).ravel())
+        cover[np.asarray(rows, dtype=np.int64)[:, None],
+              c[::128] // 128] += 1
+    assert (cover == 1).all()
