@@ -117,10 +117,14 @@ Phases, one line or block each; any failure raises (non-zero exit):
    single-process ``--device -t 2`` run; (c) ``dryrun_multichip(4)`` over
    ``[cuda:0] * 4`` (the stats ring, then its own 2-process simulation).
 
-Phase 3d holds K3 (``compact_masks``, and K1 + K3 as ``batched_filter``)
-to its plain versions on batches of 16 tiles at rb 1024 and 4096 over the
-planted and the sparse corpus, and times it beside one ``torch.nonzero``;
-phase 7 also runs the stream engine under ``RTC_PULL_MODE=idx``.  Phase 3e
+Phase 3d holds K3 (``compact_masks``, ``compact_steps``, and K1 + K3 as
+``batched_filter``) to its plain versions on batches of 16 tiles at rb
+1024 and 4096 over the planted and the sparse corpus, one all-ones 4096^2
+tile and one slab of 5 steps of 16384^2 (the bitmap ring's close at
+N = 131,072), checks that it is one kernel launch a call, and times it
+(kernel, call, and the non-syncing ``compact_masks_into``) beside one
+``torch.nonzero``; phase 7 also runs the stream engine under
+``RTC_PULL_MODE=idx``.  Phase 3e
 holds K7 (``sketch_window``) to its plain version over one full dispatch
 window (16 x 2^20 positions) at k 21 / dr 3, k 23 / dr 3 and k 31 / dr 2,
 and a low-complexity window over a table that keeps every dimension, and
@@ -145,10 +149,12 @@ case's kernel time
 (CUDA events), and the same two times of the ``torch.mm``.
 ``python3 chip_smoke.py --parent DIR`` (DIR holding the parent
 commit's ``rabbittclust_tpu_torch/``) also builds that package from its
-own sources and times its K2 over panels 0 and 1 (phase 3c),
+own sources and times its K2 over panels 0 and 1 (phase 3c), its K3
+(phase 3d, its count pull in its call),
 its K7 windows, its K8, its K6, its slab step (alone and with its close),
 its ring and its LP slab round in turns with this tree's, equal outputs
-required.
+required.  Phases 3h and 15 print the bitmap ring's closes by part
+(counts pull, K3, positions copy, host decode).
 Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
 step) to the plain step on a band of 256 rows for each step kind at 4
 shards of N = 16,384, and times the whole steps beside their bounds and
@@ -163,6 +169,7 @@ prints no result.  The full compiler report is kept beside the built
 library (``rabbittclust_tpu_torch/build/*.log``).
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -328,9 +335,9 @@ def fmt_parts(parts):
 
 
 # the parent commit's port package when the script runs with --parent DIR
-# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3c, 3e, 3f,
-# 3g and 3h then time its K2 panel round, its K7, its K8, its K6, its ring
-# step and its LP slab round in the same call
+# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3c, 3d, 3e,
+# 3f, 3g and 3h then time its K2 panel round, its K3, its K7, its K8, its
+# K6, its ring step and its LP slab round in the same call
 PARENT = {}
 
 
@@ -348,6 +355,7 @@ def load_parent(root):
     spec.loader.exec_module(mod)
     built = importlib.import_module("rtc_parent.kernels._build").build()
     PARENT.update(
+        bm=importlib.import_module("rtc_parent.ops.bitmap"),
         gd=importlib.import_module("rtc_parent.ops.greedy_device"),
         de=importlib.import_module("rtc_parent.parallel.dist_engine"),
         sd=importlib.import_module("rtc_parent.ops.sketch_device"),
@@ -377,6 +385,37 @@ def ab_times(change, parent=None, reps=20):
 
 def fmt_ms(xs):
     return " / ".join(f"{x:.4f}" for x in xs)
+
+
+def fmt_close(record):
+    """The bitmap ring's closes by part, ms a shard (``ring_positions``'s
+    record): the host's wait for the counts (K3 runs ahead of them), K3
+    and the positions copy (CUDA events), the host decode, and the whole
+    close up to the positions on the host."""
+    return "; ".join(
+        f"{label} {[round(x, 4) for x in record.get(key, [])]}"
+        for label, key in (("counts pull", "counts_ms"), ("K3", "k3_ms"),
+                           ("positions copy", "copy_ms"),
+                           ("host decode", "decode_ms"),
+                           ("close to the host", "compact_ms"))) + " ms"
+
+
+@contextlib.contextmanager
+def recorded_closes(de):
+    """While the block runs, each bitmap ring's close on a shard
+    (``de.ring_positions``) appends its parts to the dict it yields (for
+    ``fmt_close``)."""
+    rec = {"compact_ms": []}
+    inner = de.ring_positions
+
+    def close(slab, counts, los, record=None):
+        return inner(slab, counts, los, rec)
+
+    de.ring_positions = close
+    try:
+        yield rec
+    finally:
+        de.ring_positions = inner
 
 
 def make_corpus(n, s, n_clusters, seed, dtype=np.uint32):
@@ -1284,51 +1323,55 @@ def phase_round_kernel(corpus, dev, rec, card, b1_ops):
         "mixed", "compact span=n_pad cap=65536"])
 
 
-def k3_launch_ms(packs, cnt, sel, want, dev):
-    """K3's two launches alone (``rtc_mask_compact``) on inputs already on
-    the card, milliseconds per call; the output must equal ``want``."""
-    from rabbittclust_tpu_torch.kernels import _build
+def k3_slab(corpus, dev):
+    """One shard's slab of the bitmap ring at N = 131,072 over 8 shards
+    (shard 7: 5 steps of 16384^2, the close's shape) and its counts, both
+    on the card, filled by the ring step's kernel."""
     from rabbittclust_tpu_torch.ops import bitmap as bm
-    if not sel:
-        return 0.0
-    lib = _build.load_kernels()
-    rb = packs.shape[1]
-    c = cnt[sel].astype(np.int64)
-    tiles = torch.from_numpy(np.stack([np.array(sel), np.cumsum(c) - c,
-                                       np.arange(len(sel))]).astype(
-        np.int32)).to(dev)
-    n_seg = -(-rb * rb // 128 // bm.MASK_COMPACT_SEG)
-    seg = torch.empty(len(sel) * n_seg, dtype=torch.int32, device=dev)
-    out = torch.empty(int(c.sum()), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run():
-        rc = lib.rtc_mask_compact(packs.data_ptr(), tiles.data_ptr(),
-                                  len(sel), rb, seg.data_ptr(), out.numel(),
-                                  out.data_ptr(), stream)
-        if rc:
-            raise RuntimeError(f"rtc_mask_compact: CUDA error {rc}")
-        return out
-
-    got, ms = cuda_ms(run, reps=20)
-    if not torch.equal(got, want):
-        raise AssertionError("K3's launches alone differ from its wrapper")
-    return ms
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    sc = bm.filter_scalars(THRESHOLD, kssd_params().kmer_size)
+    n_dev, top = 8, 7
+    mesh = de.make_mesh(devices=[dev] * n_dev)
+    xp, coll = bm.pack_bitmaps_packed(corpus, BITS, pad_n_to=n_dev)
+    sizes = np.array([len(h) for h in corpus], dtype=np.int32)
+    shards = de._bit_shards(xp, coll, sizes, mesh)
+    del xp
+    shard = shards[0].xp.shape[0]
+    steps = de._n_ring_steps(n_dev)
+    slab = torch.zeros((steps, shard, shard // 8), dtype=torch.uint8,
+                       device=dev)
+    cnt = torch.zeros(steps, dtype=torch.int32, device=dev)
+    for t in range(steps):
+        de.ring_masks_step(shards[top], shards[(top - t) % n_dev], t, n_dev,
+                           sc[:3], int(sc[3]), False, slab[t:t + 1],
+                           cnt[t:t + 1])
+    del shards
+    return slab, cnt
 
 
-def phase_compact_kernel(planted, sparse, dev, rec, card):
-    """K3 against its plain versions at the stream generator's batch (16
-    tiles) at rb 1024 (the dbscan and leiden CLIs' row_block) and rb 4096,
-    over the planted corpus (first 16,384 genomes: 10 tiles at rb 4096,
-    so 6 padding slots) and the sparse one (pairs 16,384 apart: only tiles
-    with r0 - c0 = 16,384 hold a candidate).  ``batched_filter`` (K1 + K3) must equal
-    ``batched_filter_plain`` over the whole buffer, ``compact_masks`` (K3
-    alone, timed) ``compact_masks_plain``; beside them one
-    ``torch.nonzero`` over the batch's unpacked mask."""
+def phase_compact_kernel(planted, sparse, corpus, dev, rec, card):
+    """K3 against its plain versions, and against the parent's K3 in turns
+    under --parent: at the stream generator's batch (16 tiles) at rb 1024
+    (the dbscan and leiden CLIs' row_block) and rb 4096, over the planted
+    corpus (first 16,384 genomes: 10 tiles at rb 4096, so 6 padding slots)
+    and the sparse one (pairs 16,384 apart: only tiles with r0 - c0 =
+    16,384 hold a candidate); one all-ones 4096^2 tile (16,777,216
+    indices); one slab of 5 steps of 16384^2 (the bitmap ring's close at
+    N = 131,072, ``compact_steps``).  ``compact_masks`` (K3 from K1's
+    counts on the card, then one pull of its total) must equal
+    ``compact_masks_plain`` and the parent's (whose call pulls the counts
+    first), and be one kernel launch a call (``LAUNCHES`` and the
+    profiler); the kernels and calls are timed by ``device_ms`` in turns
+    (parent, this, this, parent), the non-syncing ``compact_masks_into``
+    call by CUDA events over 20 calls, beside one ``torch.nonzero`` over
+    the unpacked masks and the bound.  ``batched_filter`` (K1 + K3) must
+    equal ``batched_filter_plain`` over the whole buffer."""
     say("== phase 3d: K3 (mask_compact) against its plain versions")
     from rabbittclust_tpu_torch.ops import bitmap as bm
+    pbm = PARENT.get("bm")
     k = kssd_params().kmer_size
     sc = bm.filter_scalars(THRESHOLD, k)
+    cases = []
     for label, hashes, rb, part in (
             ("planted", planted, 1024, slice(16, 32)),
             # row panel 16,384: its first tile holds the 1,024 planted
@@ -1344,57 +1387,121 @@ def phase_compact_kernel(planted, sparse, dev, rec, card):
                                         [1] * len(tiles)])
         cnt_d, packs = bm.batched_mask(sig.xd, sig.cd, sig.sd, *geo, *sc,
                                        False, rb)
+        what = (f"{label} rb={rb} tiles {part.start}..{part.stop - 1} "
+                f"({len(tiles)} tiles, {16 - len(tiles)} padding)")
+        cases.append((what, packs, cnt_d, "masks", (sig, geo, rb)))
+    ones = torch.full((1, RB, RB // 8), 0xFF, dtype=torch.uint8, device=dev)
+    cases.append(("one all-ones tile of 4096^2", ones,
+                  torch.tensor([RB * RB], dtype=torch.int32, device=dev),
+                  "masks", None))
+    slab, slab_cnt = k3_slab(corpus, dev)
+    cases.append((f"a slab of {slab.shape[0]} steps of {slab.shape[1]}^2 "
+                  f"(shard 7 of 8 at N={len(corpus)})", slab, slab_cnt,
+                  "steps", None))
+    for what, packs, cnt_d, form, filt in cases:
         cnt = cnt_d.cpu().numpy()
-        sel = [t for t in range(16) if cnt[t]]
+        sel = [t for t in range(len(cnt)) if cnt[t]]
         total, maxc = int(cnt.sum()), int(cnt.max())
-        got, call_ms = cuda_ms(lambda: bm.compact_masks(packs, cnt, sel),
-                               reps=20)
-        ms = k3_launch_ms(packs, cnt, sel, got, dev)
-        want, plain_ms = cuda_ms(lambda: bm.compact_masks_plain(packs, sel),
-                                 reps=3)
-        what = f"{label} rb={rb} tiles {part.start}..{part.stop - 1}"
+        rb = packs.shape[1]
+        if form == "masks":
+            def change():
+                return bm.compact_masks(packs, cnt_d, sel)
+
+            def parent():
+                return pbm.compact_masks(packs, cnt_d.cpu().numpy(), sel)
+
+            def plain():
+                return bm.compact_masks_plain(packs, sel)
+        else:
+            def change():
+                return bm.compact_steps(packs, cnt_d)
+
+            def parent():
+                return pbm.compact_steps(packs, cnt_d.cpu().numpy())
+
+            def plain():
+                return torch.cat([bm.compact_masks_plain(packs, [t])
+                                  for t in sel])
+        change()  # the first call may grow the capacity and launch again
+        n0 = bm.LAUNCHES["mask_compact"]
+        change()
+        n1 = bm.LAUNCHES["mask_compact"] - n0
+        if n1 != 1:
+            raise AssertionError(f"K3 {what}: {n1} launches a call, not one")
+        t = ab_times(change, pbm and parent)
+        got, devs, calls, parts = t["change"]
+        kernels = sorted(p for p in parts if p != "copies")
+        if parts and (len(kernels) != 1
+                      or not kernels[0].startswith("mc_compact_kernel")):
+            raise AssertionError(f"K3 {what}: the profiler shows {kernels}, "
+                                 "not one mc_compact_kernel a call")
+        want, plain_ms = cuda_ms(plain, reps=3)
         hold_exact(rec, "mask_compact", got, want, what)
+        par = ""
+        if pbm:
+            if not torch.equal(t["parent"][0], got):
+                raise AssertionError(f"K3 {what}: the parent's K3 differs")
+            par = (f"; the parent's K3 (its count pull, geometry upload and "
+                   f"two launches) kernels {fmt_ms(t['parent'][1])} ms, call "
+                   f"{fmt_ms(t['parent'][2])} ms ("
+                   f"{fmt_parts(t['parent'][3])}), output equal")
+        buf = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+        # as the stream generator and the ring's close call it: every tile,
+        # no selection uploaded
+        _, into_ms = cuda_ms(lambda: bm.compact_masks_into(
+            packs, cnt_d, buf, total,
+            codes="slots" if form == "masks" else "local"), reps=20)
         flags = bm.unpack_bits(packs[sel].reshape(-1, rb // 8), torch.bool) \
             if sel else torch.zeros(0, dtype=torch.bool, device=dev)
         lib, lib_ms = cuda_ms(lambda: torch.nonzero(flags.reshape(-1)),
                               reps=5)
         if lib.numel() != total:
             raise AssertionError(f"{what}: torch.nonzero found {lib.numel()}"
-                                 f" set bits, K1 counted {total}")
+                                 f" set bits, the counts say {total}")
         del flags, lib
         k3_bound = bound(len(sel) * rb * rb // 8 + 4 * total, 0, CORE_OPS)
-        rec["mask_compact"]["ms"].append(ms)
-        rec["mask_compact"]["plain_ms"].append(plain_ms)
-        rec["mask_compact"]["bound"].append(k3_bound)
-        rec["mask_compact"].setdefault("library_ms", lib_ms)
-        # K1 + K3 against the plain program, sized as the JAX generator
-        # sizes its index program from the exact counts
-        grid = rb * (rb // min(512, rb))
-        cap_tile, cap_chunks = max(maxc, 1), min(max(maxc, 1), grid)
-        args = (sig.xd, sig.cd, sig.sd, np.arange(16), *geo, *sc, False,
-                cap_tile, cap_chunks, rb)
-        fused = bm.batched_filter(*args)
-        fused_plain = bm.batched_filter_plain(*args)
-        hold_exact(rec, "mask_compact", fused, fused_plain,
-                   f"{what} batched_filter")
-        # compact_masks numbers the selected tiles 0, 1, ...; batched_filter
-        # encodes each tile by its slot in the batch
-        slots = torch.tensor(sel, dtype=torch.int64, device=dev)
-        as_slots = (slots[got.long() // (rb * rb)] * (rb * rb)
-                    + got.long() % (rb * rb)).to(torch.int32)
-        if not torch.equal(fused[2:2 + total], as_slots):
-            raise AssertionError(f"{what}: batched_filter's indices are not "
-                                 "compact_masks'")
-        say(f"K3 {what} ({len(tiles)} tiles, {16 - len(tiles)} padding, "
-            f"{16 - len(sel)} without a candidate): total {total}, max "
-            f"{maxc}: exact, batched_filter whole buffer exact; kernel "
-            f"{ms:.4f} ms (the wrapper's call {call_ms:.4f} ms), plain "
-            f"{plain_ms:.3f} ms, torch.nonzero "
-            f"{lib_ms:.4f} ms; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}: "
+        entry = rec["mask_compact"]
+        entry["ms"].append(devs[0])
+        entry["plain_ms"].append(plain_ms)
+        entry["bound"].append(k3_bound)
+        entry.setdefault("call_ms", calls[0])
+        entry.setdefault("library_ms", lib_ms)
+        fused = ""
+        if filt is not None:
+            # K1 + K3 against the plain program, sized as the JAX generator
+            # sizes its index program from the exact counts
+            sig, geo, _ = filt
+            grid = rb * (rb // min(512, rb))
+            cap_tile, cap_chunks = max(maxc, 1), min(max(maxc, 1), grid)
+            args = (sig.xd, sig.cd, sig.sd, np.arange(16), *geo, *sc, False,
+                    cap_tile, cap_chunks, rb)
+            fb = bm.batched_filter(*args)
+            hold_exact(rec, "mask_compact", fb, bm.batched_filter_plain(*args),
+                       f"{what} batched_filter")
+            # compact_masks numbers the selected tiles 0, 1, ...;
+            # batched_filter encodes each tile by its slot in the batch
+            slots = torch.tensor(sel, dtype=torch.int64, device=dev)
+            as_slots = (slots[got.long() // (rb * rb)] * (rb * rb)
+                        + got.long() % (rb * rb)).to(torch.int32)
+            if not torch.equal(fb[2:2 + total], as_slots):
+                raise AssertionError(f"{what}: batched_filter's indices are "
+                                     "not compact_masks'")
+            fused = ", batched_filter whole buffer exact"
+        say(f"K3 {what}, {len(cnt) - len(sel)} tiles without a candidate: "
+            f"total {total}, max {maxc}: exact{fused}; one launch a call; "
+            f"kernel {fmt_ms(devs)} ms ({fmt_parts(parts)}), call (with "
+            f"its total's pull) {fmt_ms(calls)} ms, the non-syncing "
+            f"compact_masks_into {into_ms:.4f} ms{par}; plain "
+            f"{plain_ms:.3f} ms, torch.nonzero {lib_ms:.4f} ms; bound "
+            f"{k3_bound[0]:.5f} ms ({k3_bound[1]}: "
             f"{len(sel) * rb * rb // 8} B of masks read, {4 * total} B "
-            f"written), kernel at {k3_bound[0] / ms:.3f} of it; card {card}")
-        del sig, packs, got, want, fused, fused_plain
-        torch.cuda.empty_cache()
+            f"written), kernel at {k3_bound[0] / devs[0]:.3f} of it"
+            + (f", the parent's at "
+               f"{k3_bound[0] / min(t['parent'][1]):.3f}" if pbm else "")
+            + f"; card {card}")
+        del got, want, buf
+    del cases, slab, ones
+    torch.cuda.empty_cache()
 
 
 def phase_slice(hashes, dev, tmp):
@@ -1466,7 +1573,7 @@ def phase_engines(hashes, want, dev):
         bm.reset_pull_stats()
         t0 = time.perf_counter()
         try:
-            with Spy(bm, "compact_masks") as k3:
+            with Spy(bm, "compact_masks_into") as k3:
                 got = cf.threshold_clusters_device(hashes, THRESHOLD, k,
                                                    device=dev)
         finally:
@@ -1857,7 +1964,7 @@ def run_pairs_cli(main, argv, env):
     bm.reset_pull_stats()
     stats = {}
     try:
-        with Spy(bm, "compact_masks") as k3, \
+        with Spy(bm, "compact_masks_into") as k3, \
                 Spy(bm, "candidate_pairs_threshold") as pairs, \
                 Spy(leiden, "build_similarity_graph") as graph:
             t0 = time.perf_counter()
@@ -2713,9 +2820,13 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
                        for d in range(n_dev)
                        for t in range(de._n_ring_steps(n_dev)))
 
+        close_rec = {}
+
         def ring_new():
+            close_rec.clear()
+            close_rec["compact_ms"] = []
             slabs, counts, los = de.ring_slabs(mesh, shards, sc, radio, False)
-            return [de.ring_positions(slabs[d], counts[d], los[d])
+            return [de.ring_positions(slabs[d], counts[d], los[d], close_rec)
                     for d in range(n_dev)]
 
         def ring_parent():
@@ -2744,6 +2855,8 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
             f"{ab['change'][1][0] / launched:.4f} / "
             f"{ab['change'][2][0] / launched:.4f} ms a launched step; "
             f"{fmt_parts(ab['change'][3])}){parent}; card {card}")
+        say(f"bitmap ring over {n_dev} shards of N={n}, its last call's "
+            f"closes: {fmt_close(close_rec)}")
         del ab
         if n == N_SLICE:
             # one slab of the mesh LP engine (shard 7: steps 0..4) and one
@@ -3008,8 +3121,9 @@ def phase_mesh(corpus, want, dev, tmp):
         de.reset_launches()
         k3 = bm.LAUNCHES["mask_compact"]
         t0 = time.perf_counter()
-        res = de.distributed_mst(hashes, THRESHOLD, k, mesh=mesh4,
-                                 engine=engine)
+        with recorded_closes(de) as closes:
+            res = de.distributed_mst(hashes, THRESHOLD, k, mesh=mesh4,
+                                     engine=engine)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         # each ring launches its step's kernels a step (the exact ring's K3
@@ -3038,6 +3152,8 @@ def phase_mesh(corpus, want, dev, tmp):
             f", partition at {THRESHOLD} = phase 4's; {secs:.3f} s (4 "
             f"logical shards on one card); launches {dict(de.LAUNCHES)}, "
             f"K3 {k3}")
+        if engine == "bitmap":
+            say(f"15b the bitmap ring's closes: {fmt_close(closes)}")
     # the copies a mesh of distinct cards would make, which logical shards
     # on one card do not (the dist_engine module's analytic volume)
     say(f"15b a bitmap ring over 4 distinct cards would move per device "
@@ -3080,8 +3196,9 @@ def phase_mesh(corpus, want, dev, tmp):
         raise AssertionError("distributed_threshold_clusters: partition "
                              "differs from phase 4's")
     t0 = time.perf_counter()
-    frm, to, w = de.distributed_similarity_graph(hashes, THRESHOLD, k,
-                                                 mesh=mesh4)
+    with recorded_closes(de) as closes:
+        frm, to, w = de.distributed_similarity_graph(hashes, THRESHOLD, k,
+                                                     mesh=mesh4)
     g_s = time.perf_counter() - t0
     hf, ht, hw = build_similarity_graph(hashes, THRESHOLD, k)
 
@@ -3099,7 +3216,8 @@ def phase_mesh(corpus, want, dev, tmp):
         f"phase 4's partition ({tc_s:.3f} s), distributed_similarity_graph "
         f"= build_similarity_graph's {len(frm)} edges and weights "
         f"({g_s:.3f} s); bitmap ring steps {de.LAUNCHES['ring_bitmap']}, "
-        f"closing K3s {bm.LAUNCHES['mask_compact'] - k3}")
+        f"closing K3s {bm.LAUNCHES['mask_compact'] - k3}; the last ring's "
+        f"closes: {fmt_close(closes)}")
     say("launches (phase 15): " + ", ".join(
         f"{k_}={v}" for k_, v in launches.items()))
     return launches
@@ -3445,7 +3563,7 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
     rec = phase_kernels(hashes, dev)
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
-    phase_compact_kernel(hashes, sparse, dev, rec, card)
+    phase_compact_kernel(hashes, sparse, corpus, dev, rec, card)
     phase_sketch_kernel(dev, rec, card)
     phase_match_kernel(dev, rec, card)
     phase_greedy_filter_kernel(greedy_corpora, dev, rec, card, b1_ops)

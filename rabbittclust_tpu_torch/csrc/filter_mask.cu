@@ -97,8 +97,9 @@
 // K3's row form (mask_compact.cu), launched by rtc_greedy_filter
 extern "C" int rtc_mask_compact_rows(const void* packs, int rows,
                                      int row_chunks, int out_cols,
-                                     void* seg_counts, int limit, void* out,
-                                     void* stream);
+                                     const void* count, void* scratch,
+                                     int scratch_blocks, unsigned epoch,
+                                     int limit, void* out, void* stream);
 
 namespace {
 
@@ -808,17 +809,19 @@ int rtc_filter_mask(const void* sig_r, const void* sig_c, int words,
 // -1 padded.  sig (n, words) uint64, coll and size (n,) int32 resident;
 // gather (b + r,) int32: the batch's genomes, then the reps'; geo (3, 1)
 // int32 = 0, 0, 1 (one tile at the origin); packs: scratch of (b,
-// row_words) uint32, row_words = 4 ceil(r / 128); seg_counts: scratch of
-// ceil(b * row_words / 4 / 1024) int32 (K3's segments); tri: keep column
-// position < row position (a triangular grid of the blocks with some
-// j < i).
-// The count goes straight from K1's atomics into out[0].
+// row_words) uint32, row_words = 4 ceil(r / 128); scratch, scratch_blocks,
+// epoch: K3's (mask_compact.cu; at least ceil(b * row_words /
+// 4096) status words); tri: keep column position < row position (a
+// triangular grid of the blocks with some j < i).
+// The count goes straight from K1's atomics into out[0], and K3 takes it
+// from there.
 int rtc_greedy_filter(const void* sig, int words, const void* coll,
                       const void* size, const void* gather, const void* geo,
                       int b, int r, int row_words, float jmin_num,
                       float jmin_den, float c_min, float radio_f,
                       int containment, int tri, void* packs,
-                      void* seg_counts, int cap, void* out, void* stream) {
+                      void* scratch, int scratch_blocks, unsigned epoch,
+                      int cap, void* out, void* stream) {
   if (b <= 0 || r <= 0 || words <= 0 || cap < 0 ||
       row_words != 4 * ((r + BN - 1) / BN))
     return (int)cudaErrorInvalidValue;
@@ -839,8 +842,8 @@ int rtc_greedy_filter(const void* sig, int words, const void* coll,
   A.tri_grid = tri != 0;
   err = launch_pair<kGather>(A, 1, st);
   if (err != cudaSuccess) return (int)err;
-  return rtc_mask_compact_rows(packs, b, row_words / 4, r, seg_counts, cap,
-                               o + 1, stream);
+  return rtc_mask_compact_rows(packs, b, row_words / 4, r, o, scratch,
+                               scratch_blocks, epoch, cap, o + 1, stream);
 }
 
 // The rate probe: blocks x threads threads (threads a multiple of 32), each

@@ -120,7 +120,7 @@ def _compile(path: str) -> dict:
 def load_kernels() -> ctypes.CDLL:
     """The built library with its entry points' signatures declared."""
     lib = ctypes.CDLL(build()["path"])
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     cf = ctypes.c_float
     lib.rtc_pair_tiles.restype = ci
     lib.rtc_pair_tiles.argtypes = [vp] * 18 + [ci] * 11 + [cf, cf, vp]
@@ -132,7 +132,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_greedy_filter.restype = ci
     lib.rtc_greedy_filter.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci,
                                       cf, cf, cf, cf, ci, ci, vp, vp, ci,
-                                      vp, vp]
+                                      cu, ci, vp, vp]
     lib.rtc_ring_step.restype = ci
     lib.rtc_ring_step.argtypes = [vp, vp, ci] + [vp] * 4 + [ci] * 3 + [
         cf, cf, cf, ci, ci, ci, vp, vp, vp]
@@ -149,9 +149,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_lp_compact.restype = ci
     lib.rtc_lp_compact.argtypes = [vp, ci, ci, ci, ci, vp, vp]
     lib.rtc_mask_compact.restype = ci
-    lib.rtc_mask_compact.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp]
+    lib.rtc_mask_compact.argtypes = [vp] * 4 + [ci] * 4 + [vp, vp] + [
+        ci] * 3 + [vp, ci, cu, vp]
     lib.rtc_mask_compact_rows.restype = ci
-    lib.rtc_mask_compact_rows.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp]
+    lib.rtc_mask_compact_rows.argtypes = [vp, ci, ci, ci, vp, vp, ci, cu, ci,
+                                          vp, vp]
     u64 = ctypes.c_uint64
     lib.rtc_kssd_sketch.restype = ci
     lib.rtc_kssd_sketch.argtypes = [vp, ci, ci, vp, ci, vp, u64, u64, u64,

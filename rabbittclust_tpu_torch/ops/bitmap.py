@@ -12,18 +12,22 @@ never drops a pair that can reach the threshold.
   jitted ``_batched_mask_fn`` over ``_tile_mask``.  Kernel in
   ``csrc/filter_mask.cu``; ``batched_mask_plain`` is its plain torch
   version (unpack to 0/1, float32 product, the same float32 bound).
-* K3 ``compact_masks`` — the set bits of chosen tiles of K1's packed
-  masks as ordered flat indices ``t * rb^2 + r * rb + c``; with K1 in
-  front, ``batched_filter`` returns what the jitted ``_batched_filter_fn``
-  over ``compact_mask_two_level`` returns.  ``compact_steps`` numbers each
-  tile's bits ``r * rb + c`` (a mesh ring's slab, in one launch).  Kernel
-  in ``csrc/mask_compact.cu``; ``compact_masks_plain``,
-  ``batched_filter_plain`` and ``compact_mask_two_level_plain`` are the
-  plain torch versions.
+* K3 ``compact_masks_into`` — the set bits of K1's packed masks as
+  ordered flat indices ``t * rb^2 + r * rb + c``, in one launch that takes
+  K1's counts on the card (no host synchronisation) and reports the total
+  on the card; ``compact_masks`` and ``compact_steps`` (a mesh ring's
+  slab, each tile's bits ``r * rb + c``) pull that total once after it to
+  size their result (``compact_sized``); with K1 in front,
+  ``batched_filter`` returns what the jitted ``_batched_filter_fn`` over
+  ``compact_mask_two_level`` returns.  Kernel in
+  ``csrc/mask_compact.cu``; ``compact_masks_into_plain``,
+  ``compact_masks_plain``, ``batched_filter_plain`` and
+  ``compact_mask_two_level_plain`` are the plain torch versions.
 * ``candidate_pair_blocks`` — the stream engine's batched generator: batch
   b+1's K1 is queued before batch b's pairs are decoded on the host.
   ``RTC_PULL_MODE`` picks the pull: ``mask`` and ``auto`` (the default)
-  pull packed masks, ``idx`` runs K3 and pulls 4 bytes a candidate.
+  pull packed masks, ``idx`` queues K3 behind each K1 and pulls 4 bytes a
+  candidate.
 * ``candidate_pairs_threshold`` — every candidate with its exact common
   count (the DBSCAN neighbour lists and the leiden graph).
 
@@ -34,6 +38,7 @@ kernel launches.  ``pack_mask_u8`` is shared with the dense engine.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -51,6 +56,9 @@ from .pack import _to_device
 from .transfer import _host_async, _host_wait
 
 LAUNCHES = {"filter_mask": 0, "mask_compact": 0}
+# K3 launched again into a larger buffer after its total outgrew the first
+# (counted in LAUNCHES too on the card; the plain versions count here only)
+RELAUNCHES = {"mask_compact": 0}
 BOUNDS = {"mst": 0, "greedy": 1, "minhash": 2}
 # tiles per K1 launch of the stream generator (the JAX generator's default)
 BATCH_TILES = 16
@@ -58,9 +66,13 @@ PULL_MODES = ("auto", "mask", "idx")
 # K3's flat indices are int32, as the JAX program's are: a batch of k tiles
 # of rb x rb needs k * rb^2 below this
 INDEX_LIMIT = 1 << 31
-# 16-byte chunks of a tile that one K3 block covers (``csrc/mask_compact.cu``
-# SEG); the wrapper sizes K3's per-segment scratch with it
+# 32-bit words of a tile that one K3 block covers at least
+# (``csrc/mask_compact.cu``: 4 KB in its narrow form, 16 KB in its wide
+# one); a launch takes at most one status word of scratch a block of it
 MASK_COMPACT_SEG = 1024
+# the entries of K3's first output buffer on a device; later buffers follow
+# the largest total seen there
+K3_START_CAPACITY = 1 << 16
 # K1's block of pairs (``csrc/filter_mask.cu`` BM = BN)
 BLOCK = 128
 # the ring step's tile of pairs, rows x columns (``csrc/ring_step.cu`` BM,
@@ -70,6 +82,11 @@ RING_TILE = (128, 256)
 # the (3, 1) int32 tile geometry [0], [0], [1] (one valid tile at the
 # origin) on each device, uploaded once
 _GEOMETRY: dict = {}
+# K3's scratch on each (device, stream) (``K3Scratch``)
+_K3_SCRATCH: dict = {}
+# K3's output capacity on each device (``k3_buffer``): the largest total
+# seen there
+_K3_CAPACITY: dict = {}
 
 # device-to-host bytes and pulls of the filter (reset_pull_stats() zeroes)
 PULL_STATS = {"bytes": 0, "pulls": 0}
@@ -78,6 +95,7 @@ PULL_STATS = {"bytes": 0, "pulls": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    RELAUNCHES["mask_compact"] = 0
 
 
 def reset_pull_stats() -> None:
@@ -546,6 +564,46 @@ def compact_masks_plain(packs: torch.Tensor, sel) -> torch.Tensor:
     return flat.to(torch.int32)
 
 
+def _wrap32(x: int) -> int:
+    """``x`` as int32 arithmetic leaves it (the JAX program's wrap)."""
+    return (int(x) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def compact_masks_into_plain(packs, counts, out, limit, codes="slots",
+                             sel=None, head=None, pad=None) -> torch.Tensor:
+    """Plain ``compact_masks_into``, on the same contract: the tiles whose
+    count is 0 are not read, no write reaches ``out[limit:]``, and the head
+    reports the total of the counts, also past ``limit``."""
+    k, rb = packs.shape[0], packs.shape[1]
+    sel = list(range(k)) if sel is None else [int(t) for t in sel]
+    cnt = [int(c) for c in torch.as_tensor(counts).reshape(-1).tolist()]
+    parts = []
+    for q, t in enumerate(sel):
+        if not cnt[t]:
+            continue
+        if isinstance(codes, str):
+            code = q if codes == "slots" else 0
+        else:
+            code = int(codes[q])
+        flat = compact_masks_plain(packs, [t]).to(torch.int64)
+        parts.append(((flat + _wrap32(code * rb * rb) + (1 << 31))
+                      % (1 << 32) - (1 << 31)).to(torch.int32))
+    enc = torch.cat(parts) if parts else torch.empty(0, dtype=torch.int32)
+    total = sum(cnt[t] for t in sel)
+    n = min(len(enc), limit)
+    out[:n] = enc[:n].to(out.device)
+    if pad is not None and sel:
+        cap, value = pad
+        end = min(total - cnt[sel[-1]] + cap, limit)
+        if end > total:
+            out[total:end] = _wrap32(value)
+    vals = [total, max((cnt[t] for t in sel), default=0)]
+    if head is None:
+        head = torch.empty(1, dtype=torch.int32, device=out.device)
+    head[:] = torch.tensor(vals[:head.numel()], dtype=torch.int32)
+    return head
+
+
 def _check_index_range(k: int, rb: int) -> None:
     if k * rb * rb >= INDEX_LIMIT:
         raise ValueError(
@@ -554,38 +612,191 @@ def _check_index_range(k: int, rb: int) -> None:
             "indices wrap there); use fewer or smaller tiles")
 
 
-def _compact_into(packs: torch.Tensor, src, base, code, out: torch.Tensor,
-                  limit: int) -> None:
-    """Launch K3 (``csrc/mask_compact.cu``): tile ``src[q]`` of ``packs``
-    writes its set bits, encoded ``code[q] * rb^2 + local``, in order at
-    ``out[base[q]:]``; no write reaches ``out[limit:]``."""
+class K3Scratch:
+    """K3's scratch on one stream of a device (``csrc/mask_compact.cu``):
+    int64 words, the ticket word then a status word a block, zeroed once,
+    and the host's count of the launches on it (the epoch).  Nothing is
+    cleared between launches: the ticket word goes back to 0 with a
+    launch's last ticket, and a status word of another launch's epoch
+    counts as unpublished."""
+
+    def __init__(self, device: torch.device, n_blocks: int):
+        self.words = torch.zeros(1 + max(n_blocks, 1 << 14),
+                                 dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    @property
+    def blocks(self) -> int:
+        return self.words.numel() - 1
+
+    def launch(self):
+        """(pointer, status words, epoch) for the next launch."""
+        self.epoch = self.epoch % ((1 << 30) - 1) + 1
+        return self.words.data_ptr(), self.blocks, ctypes.c_uint(self.epoch)
+
+
+def k3_scratch(device: torch.device, n_blocks: int) -> K3Scratch:
+    """K3's scratch for a launch of ``n_blocks`` blocks on ``device``'s
+    current stream, allocated (zeroed) at the first launch there and
+    again, larger, when a launch needs more blocks.  One a stream: the
+    ticket word and the epoch hold only for launches in one stream's
+    order."""
+    key = _stream_key(device)
+    s = _K3_SCRATCH.get(key)
+    if s is None or s.blocks < n_blocks:
+        s = _K3_SCRATCH[key] = K3Scratch(device, n_blocks)
+    return s
+
+
+def launch_k3(fn, device: torch.device, n_blocks: int, *args) -> None:
+    """Call the C entry ``fn`` with ``args``, the scratch's pointer, status
+    words and epoch where ``args`` holds ``None``.  A launch that fails
+    may leave the ticket word set: the scratch goes, and the next launch
+    allocates it afresh."""
+    scratch = k3_scratch(device, n_blocks)
+    i = args.index(None)
+    try:
+        _launch(fn, *args[:i], *scratch.launch(), *args[i + 1:])
+    except RuntimeError:
+        _K3_SCRATCH.pop(_stream_key(device), None)
+        raise
+
+
+def _stream_key(device: torch.device):
+    return device, torch.cuda.current_stream(device).cuda_stream
+
+
+def _counts_on(packs: torch.Tensor, counts) -> torch.Tensor:
+    """``counts`` as an int32 tensor on ``packs``' device (a host sequence
+    is uploaded)."""
+    if isinstance(counts, torch.Tensor):
+        return counts.reshape(-1)
+    return _upload(np.asarray(counts, dtype=np.int64).reshape(-1),
+                   packs.device)
+
+
+def compact_masks_into(packs: torch.Tensor, counts: torch.Tensor,
+                       out: torch.Tensor, limit: int, codes="slots",
+                       sel=None, head: Optional[torch.Tensor] = None,
+                       pad=None) -> torch.Tensor:
+    """K3 (``csrc/mask_compact.cu``), one launch, no host synchronisation:
+    the set bits of tiles ``sel`` (host indices into ``packs``, in output
+    order; default every tile) of ``packs`` (k, rb, rb // 8) uint8, tile
+    after tile and row-major within a tile, into ``out`` (int32); no write
+    reaches ``out[limit:]``.  ``counts``: K1's exact per-tile counts, int32
+    on the same device; a tile starts at the sum of the counts of the
+    tiles before it, and a tile with none is not read.  A tile's bits are
+    encoded ``code * rb^2 + r * rb + c`` with code its place in ``sel``
+    (``codes="slots"``), 0 (``"local"``) or ``codes[place]`` (host ints).
+    ``head``, when given, an int32 tensor of 1 or 2 entries, receives [the
+    total] or [the total, the largest count]; ``pad`` = (cap, value)
+    writes value from the total on to the last tile's start + cap (the
+    padding of ``batched_filter``'s buffer).  Returns the head (a new (1,)
+    tensor when none is given): the total counts every set bit, also
+    those past ``limit``."""
     k, rb = packs.shape[0], packs.shape[1]
+    if not 0 <= limit <= out.numel():
+        raise ValueError(f"limit {limit} outside out's {out.numel()} entries")
+    counts = _counts_on(packs, counts)
+    if packs.device.type == "cpu":
+        return compact_masks_into_plain(packs, counts, out, limit, codes, sel,
+                                        head, pad)
+    if packs.device.type != "cuda":
+        raise ValueError(f"packs on {packs.device}: expected cuda or cpu")
     if (packs.dtype != torch.uint8 or not packs.is_contiguous()
             or tuple(packs.shape) != (k, rb, rb // 8) or rb % 32
             or packs.data_ptr() % 16):
         raise ValueError("packs must be a contiguous, 16-byte aligned "
                          "(k, rb, rb // 8) uint8 tensor, rb a multiple of 32")
-    if out.dtype != torch.int32 or not out.is_contiguous() \
-            or out.device != packs.device or out.numel() < limit:
-        raise ValueError(f"out must be a contiguous int32 tensor of at least "
-                         f"{limit} entries on {packs.device}")
-    m = len(src)
-    if m == 0 or limit == 0:
-        return
-    if m > 65535:
-        raise ValueError(f"{m} tiles: K3 takes at most 65,535 a launch")
+    dev = packs.device
+    for name, t in (("out", out), ("counts", counts), ("head", head)):
+        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()
+                              or t.device != dev):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{dev}")
+    if counts.numel() < k:
+        raise ValueError(f"{counts.numel()} counts for {k} tiles")
+    m = k if sel is None else len(sel)
+    if head is None:
+        head = torch.empty(1, dtype=torch.int32, device=dev)
+    elif head.numel() not in (1, 2):
+        raise ValueError("head takes [total] or [total, largest count]")
+    if m == 0:
+        head.zero_()
+        return head
+    src = None
+    if sel is not None:
+        sel = np.asarray(sel, dtype=np.int64).reshape(-1)
+        if sel.min() < 0 or sel.max() >= k:
+            raise ValueError(f"sel outside the {k} tiles")
+        src = _upload(sel, dev)
+    local = isinstance(codes, str) and codes == "local"
+    code_t = None
+    if not isinstance(codes, str):
+        code_t = _upload(np.asarray(codes, dtype=np.int64).reshape(-1), dev)
+        if code_t.numel() != m:
+            raise ValueError(f"{code_t.numel()} codes for {m} tiles")
+    elif codes not in ("slots", "local"):
+        raise ValueError(f"codes={codes!r}: 'slots', 'local' or host ints")
+    pad_cap, pad_value = (0, 0) if pad is None else (int(pad[0]),
+                                                     _wrap32(pad[1]))
     from ..kernels._build import load_kernels
     lib = load_kernels()
-    dev = packs.device
-    tiles = _upload(np.stack([np.asarray(src), np.asarray(base),
-                              np.asarray(code)]), dev)
-    n_seg = -(-rb * rb // 128 // MASK_COMPACT_SEG)
-    seg = torch.empty(m * n_seg, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.rtc_mask_compact, packs.data_ptr(), tiles.data_ptr(), m,
-                rb, seg.data_ptr(), limit, out.data_ptr(), stream)
+        launch_k3(lib.rtc_mask_compact, dev,
+                  m * -(-rb * rb // 32 // MASK_COMPACT_SEG),
+                  packs.data_ptr(), _ptr(src), counts.data_ptr(),
+                  _ptr(code_t), m, rb, int(local), limit, out.data_ptr(),
+                  head.data_ptr(), head.numel(), pad_cap, pad_value, None,
+                  stream)
     LAUNCHES["mask_compact"] += 1
+    return head
+
+
+def _on(dev: torch.device):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is current
+    already (the context costs the non-syncing call host time)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def k3_buffer(dev: torch.device,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An int32 buffer for K3 on ``dev`` of the capacity seen there so far
+    (``K3_START_CAPACITY``, then the largest total ``k3_complete`` saw):
+    ``out`` when it holds as many entries, else a new one."""
+    cap = _K3_CAPACITY.get(dev, K3_START_CAPACITY)
+    if out is None or out.numel() < cap:
+        out = torch.empty(cap, dtype=torch.int32, device=dev)
+    return out
+
+
+def k3_complete(packs: torch.Tensor, counts: torch.Tensor,
+                out: torch.Tensor, total: int, **kw) -> torch.Tensor:
+    """After ``compact_masks_into(packs, counts, out, out.numel(), **kw)``,
+    with its ``total`` on the host: ``out`` when it held every index, else
+    K3 launched again (``RELAUNCHES``) into a new buffer of ``total``
+    entries, the device's capacity from then on.  Returns the buffer that
+    holds the ``total`` indices."""
+    if total <= out.numel():
+        return out
+    dev = packs.device
+    _K3_CAPACITY[dev] = max(total, _K3_CAPACITY.get(dev, 0))
+    out = torch.empty(total, dtype=torch.int32, device=dev)
+    compact_masks_into(packs, counts, out, total, **kw)
+    RELAUNCHES["mask_compact"] += 1
+    return out
+
+
+def compact_sized(packs: torch.Tensor, counts: torch.Tensor, **kw):
+    """``compact_masks_into`` into a ``k3_buffer``, then one pull of the
+    total (``k3_complete`` launches K3 again when it outgrew the buffer).
+    Returns the int32 (total,) output on the card."""
+    out = k3_buffer(packs.device)
+    total = int(compact_masks_into(packs, counts, out, out.numel(), **kw)[0])
+    return k3_complete(packs, counts, out, total, **kw)[:total]
 
 
 def _check_flat_range(rows: int, cols: int) -> None:
@@ -598,46 +809,39 @@ def _check_flat_range(rows: int, cols: int) -> None:
 
 def compact_masks(packs: torch.Tensor, counts, sel) -> torch.Tensor:
     """K3: ``compact_masks_plain``'s result, int32 (total,).  ``counts`` are
-    K1's exact per-tile counts on the host (each selected tile's output
-    starts at the sum of the counts before it in ``sel``), ``sel`` host
-    tile indices in output order."""
+    K1's exact per-tile counts on the card (a host sequence is uploaded),
+    ``sel`` host tile indices in output order.  One launch, then one pull
+    of its total (``compact_sized``)."""
     sel = [int(t) for t in sel]
     _check_index_range(packs.shape[0], packs.shape[1])
     if packs.device.type == "cpu":
         return compact_masks_plain(packs, sel)
     if packs.device.type != "cuda":
         raise ValueError(f"packs on {packs.device}: expected cuda or cpu")
-    cnt = np.asarray(counts, dtype=np.int64).reshape(-1)[sel]
-    base = np.cumsum(cnt) - cnt
-    total = int(cnt.sum())
-    out = torch.empty(total, dtype=torch.int32, device=packs.device)
-    _compact_into(packs, sel, base, np.arange(len(sel)), out, total)
-    return out
+    if not sel:
+        return torch.empty(0, dtype=torch.int32, device=packs.device)
+    return compact_sized(packs, _counts_on(packs, counts), sel=sel)
 
 
 def compact_steps(packs: torch.Tensor, counts) -> torch.Tensor:
     """K3 over every tile of ``packs`` (k, rb, rb // 8) uint8 (a mesh
     ring's slab of steps) in one launch: the set bits of each tile as its
     local position ``r * rb + c`` (int32), tile after tile, row-major
-    within a tile.  ``counts``: K1's exact per-tile counts on the host;
-    tiles with none are skipped."""
+    within a tile.  ``counts``: the exact per-tile counts, on the card
+    (a host sequence is uploaded); tiles with none are not read."""
     k, rb = packs.shape[0], packs.shape[1]
-    cnt = np.asarray(counts, dtype=np.int64).reshape(-1)
-    if len(cnt) != k:
-        raise ValueError(f"{len(cnt)} counts for {k} tiles")
+    counts = _counts_on(packs, counts)
+    if counts.numel() != k:
+        raise ValueError(f"{counts.numel()} counts for {k} tiles")
     _check_index_range(1, rb)
-    sel = np.flatnonzero(cnt)
     if packs.device.type == "cpu":
-        parts = [compact_masks_plain(packs, [t]) for t in sel]
+        parts = [compact_masks_plain(packs, [t])
+                 for t in np.flatnonzero(counts.numpy())]
         return torch.cat(parts) if parts else \
             torch.empty(0, dtype=torch.int32)
     if packs.device.type != "cuda":
         raise ValueError(f"packs on {packs.device}: expected cuda or cpu")
-    total = int(cnt.sum())
-    out = torch.empty(total, dtype=torch.int32, device=packs.device)
-    _compact_into(packs, sel, np.cumsum(cnt[sel]) - cnt[sel],
-                  np.zeros(len(sel), dtype=np.int64), out, total)
-    return out
+    return compact_sized(packs, counts, codes="local")
 
 
 def batched_filter(xd, cd, sd, ts, r0s, c0s, valid, jmin_num, jmin_den,
@@ -645,11 +849,13 @@ def batched_filter(xd, cd, sd, ts, r0s, c0s, valid, jmin_num, jmin_den,
                    bound="mst") -> torch.Tensor:
     """K1 then K3: ``batched_filter_plain``'s result, whole buffer.  The
     arguments are those of the JAX ``_batched_filter_fn``; ``ts``, ``r0s``,
-    ``c0s`` and ``valid`` are host int sequences.  On the card K3 compacts
-    K1's packed masks after one pull of K1's counts, which sets each tile's
-    offset; ``cap_tile`` must hold every tile's count and ``cap_chunks``
-    every tile's hit chunks (the count, or the whole chunk grid), the
-    sizing under which the JAX program loses no index."""
+    ``c0s`` and ``valid`` are host int sequences.  On the card K3 takes
+    K1's counts where K1 wrote them and writes the head [total, largest
+    count] and the last tile's encoded padding itself; one pull of the
+    head follows.  ``cap_tile`` must hold every tile's count and
+    ``cap_chunks`` every tile's hit chunks (the count, or the whole chunk
+    grid), the sizing under which the JAX program loses no index: past
+    it, the pull raises."""
     ts, r0s, c0s, valid = (np.asarray(x, dtype=np.int64).reshape(-1)
                            for x in (ts, r0s, c0s, valid))
     k = len(ts)
@@ -662,25 +868,22 @@ def batched_filter(xd, cd, sd, ts, r0s, c0s, valid, jmin_num, jmin_den,
     counts, packs = batched_mask(xd, cd, sd, r0s, c0s, valid, jmin_num,
                                  jmin_den, c_min, radio, is_containment, rb,
                                  bound)
-    cnt = counts.cpu().numpy().astype(np.int64)
-    maxc = int(cnt.max()) if k else 0
+    out = torch.full((2 + k * cap_tile,), -1, dtype=torch.int32,
+                     device=xd.device)
+    if k:
+        pad = ((cap_tile, int(ts[-1]) * rb * rb - 1)
+               if valid[-1] and cap_tile else None)
+        compact_masks_into(packs, counts, out[2:], k * cap_tile,
+                           codes=ts, head=out[:2], pad=pad)
+    else:
+        out[:2] = 0
+    maxc = int(out[1])
     w = min(512, rb)
     grid = rb * (rb // w) if rb % w == 0 else 0
     if maxc > cap_tile or cap_chunks < min(maxc, grid):
         raise ValueError(f"cap_tile {cap_tile} / cap_chunks {cap_chunks} "
                          f"below the largest tile count {maxc}: the JAX "
                          "program would drop indices there")
-    base = np.cumsum(cnt) - cnt
-    total = int(cnt.sum())
-    out = torch.full((2 + k * cap_tile,), -1, dtype=torch.int32,
-                     device=xd.device)
-    out[:2] = torch.tensor([total, maxc], dtype=torch.int32)
-    if k and valid[-1] and cap_tile:
-        # the last tile's padding, encoded, past the final total
-        out[2 + total:2 + int(base[-1]) + cap_tile] = \
-            int(ts[-1]) * rb * rb - 1
-    sel = [t for t in range(k) if valid[t] and cnt[t]]
-    _compact_into(packs, sel, base[sel], ts[sel], out[2:], total)
     return out
 
 
@@ -748,10 +951,11 @@ def candidate_pair_blocks(hashes: List[np.ndarray], threshold: float,
     ``RTC_PULL_MODE``; with ``markers`` also ("panel", row_end) once every
     pair with ii < row_end has been yielded.  ``BATCH_TILES`` tiles go into
     one K1 launch.  ``mask`` and ``auto`` pull each tile's packed mask and
-    yield a block per tile with candidates; ``idx`` compacts the batch's
-    masks on the device (K3), pulls 4 bytes a candidate and yields one
-    block per batch.  Both give the pairs tile by tile, row-major within a
-    tile, so the two concatenations are the same sequence."""
+    yield a block per tile with candidates; ``idx`` queues K3 behind each
+    K1 (no pull between them), pulls the counts, then 4 bytes a candidate,
+    and yields one block per batch.  Both give the pairs tile by tile,
+    row-major within a tile, so the two concatenations are the same
+    sequence."""
     from ..device import resolve_device
     pull_mode = os.environ.get("RTC_PULL_MODE", "auto")
     if pull_mode not in PULL_MODES:
@@ -772,37 +976,52 @@ def candidate_pair_blocks(hashes: List[np.ndarray], threshold: float,
         # a row panel's pairs are complete once its diagonal tile is out
         return [("panel", min(r0 + rb, n)) for r0, c0 in batch if c0 == r0]
 
-    def dispatch(batch):
+    idx = pull_mode == "idx"
+    # idx: K3 writes batch b into bufs[b % 2] (``k3_buffer``), so that
+    # batch b + 1's K1 and K3 are queued before the host waits on batch b's
+    # indices
+    bufs = [None, None]
+
+    def dispatch(b):
         r0s = np.zeros(batch_k, dtype=np.int64)
         c0s = np.zeros(batch_k, dtype=np.int64)
         val = np.zeros(batch_k, dtype=np.int64)
-        for t, (r0, c0) in enumerate(batch):
+        for t, (r0, c0) in enumerate(batches[b]):
             r0s[t], c0s[t], val[t] = r0, c0, 1
         counts, packs = batched_mask(sig.xd, sig.cd, sig.sd, r0s, c0s, val,
                                      *scalars, is_containment, rb, bound)
-        return _host_async(counts), packs, r0s, c0s, len(batch)
+        n_valid = len(batches[b])
+        if idx:  # straight behind K1, from its counts on the card; the
+            # padding slots after the batch's tiles are left out
+            out = bufs[b % 2] = k3_buffer(sig.xd.device, bufs[b % 2])
+            compact_masks_into(packs[:n_valid], counts[:n_valid], out,
+                               out.numel())
+        return _host_async(counts), counts, packs, r0s, c0s, n_valid
 
-    pending = dispatch(batches[0]) if batches else None
+    pending = dispatch(0) if batches else None
     for b, batch in enumerate(batches):
-        counts_pending, packs_dev, r0s, c0s, n_valid = pending
+        counts_pending, counts_dev, packs_dev, r0s, c0s, n_valid = pending
         counts = _host_wait(counts_pending)
         account_pull(4 * batch_k)
         sel = [t for t in range(n_valid) if counts[t]]
         pull = None
-        if sel and pull_mode == "idx":
-            pull = _host_async(compact_masks(packs_dev, counts, sel))
+        if sel and idx:
+            total = int(counts.sum())
+            out = bufs[b % 2] = k3_complete(
+                packs_dev[:n_valid], counts_dev[:n_valid], bufs[b % 2], total)
+            pull = _host_async(out[:total])
         elif sel:
             pull = _host_async(packs_dev.index_select(
                 0, _upload(sel, packs_dev.device)))
         if b + 1 < len(batches):
-            pending = dispatch(batches[b + 1])
-        if sel and pull_mode == "idx":
+            pending = dispatch(b + 1)
+        if sel and idx:
             enc = _host_wait(pull).astype(np.int64)
             account_pull(4 * len(enc))
-            t_loc = enc // (rb * rb)
+            t_loc = enc // (rb * rb)  # the tile's slot in the batch
             local = enc - t_loc * (rb * rb)
-            ii = r0s[sel][t_loc] + local // rb
-            jj = c0s[sel][t_loc] + local % rb
+            ii = r0s[t_loc] + local // rb
+            jj = c0s[t_loc] + local % rb
             keep = ii < n
             yield ii[keep], jj[keep]
         elif sel:

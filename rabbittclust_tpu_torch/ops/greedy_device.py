@@ -37,8 +37,9 @@ from ..distance.mash import aaf_distance, mash_distance, \
 from .bitmap import (BLOCK, MASK_COMPACT_SEG, CsrSketches,
                      _check_flat_range, _check_signatures,
                      candidate_pair_blocks, compact_mask_two_level_plain,
-                     pack_bitmaps_packed, tile_geometry, unpack_bits)
-from .intersect import _launch, _upload
+                     launch_k3, pack_bitmaps_packed, tile_geometry,
+                     unpack_bits)
+from .intersect import _upload
 from .pack import _to_device
 
 LAUNCHES = {"greedy_filter": 0}
@@ -425,20 +426,20 @@ def greedy_filter(x_all, batch_idx, rep_idx, coll, sizes, jmin_num,
     _check_flat_range(b, 32 * row_words)
     out = torch.empty((1 + cap,), dtype=torch.int32, device=dev)
     packs = torch.empty((b, row_words), dtype=torch.int32, device=dev)
-    seg = torch.empty(-(-b * row_words // 4 // MASK_COMPACT_SEG),
-                      dtype=torch.int32, device=dev)
     gather = _upload(np.concatenate([batch_idx, rep_idx]), dev)
     from ..kernels._build import load_kernels
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.rtc_greedy_filter, x_all.data_ptr(), x_all.shape[1] // 8,
-                coll.data_ptr(), sizes.data_ptr(), gather.data_ptr(),
-                tile_geometry(dev).data_ptr(), b, r, row_words,
-                *(ctypes.c_float(float(v))
-                  for v in (jmin_num, jmin_den, c_min, radio_f)),
-                int(bool(is_containment)), int(bool(triangular)),
-                packs.data_ptr(), seg.data_ptr(), cap, out.data_ptr(), stream)
+        launch_k3(lib.rtc_greedy_filter, dev,
+                  -(-b * row_words // MASK_COMPACT_SEG), x_all.data_ptr(),
+                  x_all.shape[1] // 8, coll.data_ptr(), sizes.data_ptr(),
+                  gather.data_ptr(), tile_geometry(dev).data_ptr(), b, r,
+                  row_words,
+                  *(ctypes.c_float(float(v))
+                    for v in (jmin_num, jmin_den, c_min, radio_f)),
+                  int(bool(is_containment)), int(bool(triangular)),
+                  packs.data_ptr(), None, cap, out.data_ptr(), stream)
     LAUNCHES["greedy_filter"] += 1
     return out
 

@@ -14,9 +14,9 @@ def _host_async(t: torch.Tensor):
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+    host.copy_(t, non_blocking=True)  # on t's device's current stream
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(t.device))
     return host, ev
 
 

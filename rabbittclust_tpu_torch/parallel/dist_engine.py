@@ -35,8 +35,9 @@ and runs its plain torch version on CPU tensors:
   count into the slab's counts on the device; the self step visits only
   its lower-triangle tiles;
 * ``ring_positions`` (the rest of ``build_ring_bitmap_fn``): after the
-  ring, one pull of a shard's counts, one K3 launch over its slab (counted
-  as ``ops/bitmap.py``'s), one pull of its candidates' positions;
+  ring, one K3 launch over a shard's slab from its counts on the card
+  (counted as ``ops/bitmap.py``'s), one pull of the counts, one of its
+  candidates' positions into a pinned host buffer;
 * ``dist_lp_round`` (``dist_lp_round_fn``): K2 over each shard's slab,
   then the minimum and sum over the shards.
 
@@ -76,6 +77,7 @@ from ..ops.intersect import (_upload, pair_common_launch, pair_counts_plain,
 from ..ops.labelprop import MAX_RB, SENT, _clear_quantum, lp_round
 from ..ops.pack import (GROUP, _to_device, compact_of, keep_compact,
                         pack_sketches)
+from ..ops.transfer import _host_async, _host_wait
 
 # the ring step's launches of the bitmap ring count as "ring_bitmap", of the
 # mask ring as "ring_masks"; the bitmap ring's closing K3 counts in
@@ -378,25 +380,88 @@ def ring_slabs(mesh: Mesh, shards: List[BitShard], scalars, radio: int,
 
 def ring_positions(slab: torch.Tensor, counts: torch.Tensor, los,
                    record: Optional[dict] = None):
-    """The close of ``build_ring_bitmap_fn`` on one shard: one pull of its
-    slab's step counts, then (on the card) one K3 launch over the slab's
-    non-empty steps, which writes each step's positions ``li * rows + vj``
-    in order, step after step, then one pull of them.  ``los``: each
+    """The close of ``build_ring_bitmap_fn`` on one shard: (on the card)
+    one K3 launch over the slab straight from the ring's counts on the
+    card, which writes each step's positions ``li * rows + vj`` in order,
+    step after step (the steps with none are not read), then one pull of
+    the counts and one of the positions (``_close_pulls``).  ``los``: each
     step's (row shard's, visiting shard's) first genome id.  Returns the
     global (ii, jj) int64 of every candidate, step after step.  ``record``,
-    when given, gets the milliseconds of it all appended to
-    ``compact_ms``."""
+    when given, gets the milliseconds up to the positions on the host
+    appended to ``compact_ms``, those of the host decode to ``decode_ms``
+    and, on the card, those of the close's parts to ``counts_ms``,
+    ``k3_ms`` and ``copy_ms``."""
     t0 = time.perf_counter()
     rows = slab.shape[1]
-    cnt = counts.cpu().numpy().astype(np.int64)
-    bm.account_pull(4 * len(cnt))
-    f = bm.compact_steps(slab, cnt).cpu().numpy()
+    parts = {}
+    if slab.device.type == "cuda":
+        f, cnt = _close_pulls(slab, counts,
+                              None if record is None else parts)
+    else:
+        cnt = counts.numpy().astype(np.int64)
+        bm.account_pull(4 * len(cnt))
+        f = bm.compact_steps(slab, counts).numpy()
     bm.account_pull(4 * len(f))
-    if record is not None:
-        record["compact_ms"].append(1e3 * (time.perf_counter() - t0))
+    t1 = time.perf_counter()
     li, vj = np.divmod(f, rows)
     row_lo, vis_lo = np.asarray(los, dtype=np.int64).reshape(-1, 2).T
-    return np.repeat(row_lo, cnt) + li, np.repeat(vis_lo, cnt) + vj
+    ii, jj = np.repeat(row_lo, cnt) + li, np.repeat(vis_lo, cnt) + vj
+    if record is not None:
+        record["compact_ms"].append(1e3 * (t1 - t0))
+        parts["decode_ms"] = 1e3 * (time.perf_counter() - t1)
+        for key, ms in parts.items():
+            record.setdefault(key, []).append(ms)
+    return ii, jj
+
+
+# a pinned host buffer for each device's close positions, kept from call
+# to call
+_CLOSE_HOST: dict = {}
+
+
+def _close_pulls(slab: torch.Tensor, counts: torch.Tensor,
+                 parts: Optional[dict]):
+    """K3 over ``slab`` into a ``bm.k3_buffer``, then one pull of
+    ``counts`` (``bm.k3_complete`` launches K3 again when their total
+    outgrew the buffer), then one pull of the positions into the pinned
+    host buffer; all on the slab's device and its current stream.  Returns
+    (positions, counts) as numpy arrays, the positions a view of the pinned
+    buffer, valid until the next close on the device.  ``parts``, when
+    given, receives the host wait for the counts (``counts_ms``: K3 runs
+    ahead of them) and CUDA events' time of K3 (``k3_ms``) and of the
+    positions copy (``copy_ms``)."""
+    dev = slab.device
+    with torch.cuda.device(dev):
+        ev = None if parts is None else [
+            torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        out = bm.k3_buffer(dev)
+        if ev:
+            ev[0].record()
+        bm.compact_masks_into(slab, counts, out, out.numel(), codes="local")
+        if ev:
+            ev[1].record()
+        t0 = time.perf_counter()
+        cnt = _host_wait(_host_async(counts)).astype(np.int64)
+        bm.account_pull(4 * len(cnt))
+        t1 = time.perf_counter()
+        total = int(cnt.sum())
+        out = bm.k3_complete(slab, counts, out, total, codes="local")
+        host = _CLOSE_HOST.get(dev)
+        if host is None or host.numel() < total:
+            host = _CLOSE_HOST[dev] = torch.empty(
+                max(total, out.numel()), dtype=torch.int32, pin_memory=True)
+        host = host[:total]
+        done = ev[3] if ev else torch.cuda.Event()
+        if ev:
+            ev[2].record()
+        host.copy_(out[:total], non_blocking=True)
+        done.record()
+        done.synchronize()
+    if parts is not None:
+        parts["counts_ms"] = 1e3 * (t1 - t0)
+        parts["k3_ms"] = ev[0].elapsed_time(ev[1])
+        parts["copy_ms"] = ev[2].elapsed_time(ev[3])
+    return host.numpy(), cnt
 
 
 def ring_edges_step_plain(local: PlaneShard, visiting: PlaneShard, t: int,
@@ -424,8 +489,8 @@ def ring_edges_step(local: PlaneShard, visiting: PlaneShard, t: int,
     """One step of ``build_ring_edges_fn``: (positions ``li * rows + vj``,
     exact common counts), int32, row-major, of the (local, visiting) pairs
     with a common hash that pass the gates.  On the card K4's mask mode
-    over the two shards' compact forms, one pull of its count, K3, then K5b
-    on the survivors."""
+    over the two shards' compact forms, K3 from its count on the card, one
+    pull of K3's total, then K5b on the survivors."""
     rows = local.p0.shape[0]
     if local.p0.device.type == "cpu":
         return ring_edges_step_plain(local, visiting, t, n_dev, radio)
@@ -438,7 +503,8 @@ def ring_edges_step(local: PlaneShard, visiting: PlaneShard, t: int,
         local.p0, local.p1, local.sizes, [0], [0], [1], radio, 0, rows, rows,
         cols=(visiting.p0, visiting.p1, visiting.sizes),
         tri=kind == "self")
-    flat = bm.compact_masks(packs, cnts.cpu().numpy(), [0])
+    # K3 from K4's count on the card; the step's one sync is K3's total
+    flat = bm.compact_sized(packs, cnts, codes="local")
     pairs = torch.stack([flat // rows, flat % rows]).contiguous()
     common = pair_common_launch(local.p0, local.p1, pairs,
                                 cols=(visiting.p0, visiting.p1))
@@ -653,8 +719,8 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
     distance <= threshold (and passing the size-ratio prefilter), so
     downstream exact verification reproduces host results bit-exactly.
     The ring's steps fill each shard's slab on its device; after the last
-    step one pull of a shard's counts sizes its output exactly (no
-    ``cap``) and one K3 launch a shard compacts it."""
+    step one K3 launch a shard compacts it from the counts on the card,
+    and its counts and positions are pulled (no ``cap``)."""
     if mesh is None:
         mesh = make_mesh()
     n_dev = mesh.size

@@ -264,3 +264,153 @@ def test_candidate_pairs_threshold_equal_to_jax(monkeypatch):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and np.array_equal(g, w), mode
         assert len(got[0]) > 0
+
+
+def _k3_inputs():
+    """K1's plain counts and packed masks over TILES, and the JAX
+    program's indices of the same tiles (slot t encoded t * rb^2)."""
+    hashes = clustered_sketches(n=300, s=150, n_clusters=10)
+    jax_args, port_args = _filter_args(hashes, 2048, RB, TILES)
+    fused = np.asarray(jax_bm._jitted_batched_filter()(
+        *jax_args, 20000, 1 << 20, RB, "mst"))
+    counts, packs = port_bm.batched_mask(*port_args[:3], *port_args[4:], RB)
+    return counts, packs, fused[2:2 + int(fused[0])]
+
+
+@pytest.mark.parametrize("limit", ["zero", "short", "exact", "over"])
+@pytest.mark.parametrize("codes", ["slots", "local", "ints", "sel"])
+def test_compact_masks_into_plain_limit_and_total(codes, limit):
+    """The contract of K3's non-syncing entry on its plain version: the
+    indices in order up to ``limit`` and nothing written past it, and the
+    head [total, largest count] counts every set bit also when ``limit``
+    falls short.  Exact: against the JAX ``_batched_filter_fn``'s indices
+    re-encoded for each ``codes`` form."""
+    counts, packs, want = _k3_inputs()
+    rb2 = RB * RB
+    cnt = counts.numpy()
+    total = int(cnt.sum())
+    slot, local = want // rb2, want % rb2
+    sel = None
+    if codes == "slots":
+        enc = want
+    elif codes == "local":
+        enc = local
+    elif codes == "ints":
+        codes_v = np.arange(len(cnt)) * 3 + 1
+        enc = codes_v[slot] * rb2 + local
+    else:  # a permuted selection, numbered by its places
+        sel = [4, 0, 2, 1, 3]
+        place = {t: q for q, t in enumerate(sel)}
+        order = np.argsort([place[t] for t in slot], kind="stable")
+        enc = np.array([place[t] for t in slot])[order] * rb2 + local[order]
+        total = int(cnt[sel].sum())
+    n = {"zero": 0, "short": total // 3, "exact": total,
+         "over": total + 7}[limit]
+    out = torch.full((total + 16,), -7, dtype=torch.int32)
+    head = torch.empty(2, dtype=torch.int32)
+    got = port_bm.compact_masks_into(
+        packs, counts, out, n, codes=codes_v if codes == "ints" else
+        ("slots" if codes == "sel" else codes), sel=sel, head=head)
+    assert got is head
+    assert head.tolist() == [total, int(cnt.max())]
+    m = min(n, total)
+    assert np.array_equal(out[:m].numpy(), enc[:m])
+    assert (out[m:] == -7).all()
+
+
+def test_compact_masks_into_plain_skips_tiles_counted_zero():
+    """A tile whose count is 0 is not read, whatever its mask holds (the
+    kernel's blocks of such a tile stop before loading it): its bits are
+    missing from the output and the next tile starts where it would
+    have."""
+    counts, packs, want = _k3_inputs()
+    cnt = counts.clone()
+    cnt[1] = 0
+    out = torch.full((len(want),), -7, dtype=torch.int32)
+    total = port_bm.compact_masks_into(packs, cnt, out, len(want))
+    keep = want // (RB * RB) != 1
+    assert int(total[0]) == int(keep.sum())
+    assert np.array_equal(out[:int(keep.sum())].numpy(), want[keep])
+
+
+@pytest.mark.parametrize("selection", ["every", "sel"])
+def test_k3_capacity_grows_once_and_is_kept(selection, monkeypatch):
+    """``compact_sized`` from a capacity of 4 entries: the first call
+    outgrows its ``k3_buffer`` and launches K3 once more
+    (``k3_complete``), into a buffer that becomes the device's capacity,
+    so the second call launches once; both equal the JAX program's
+    indices (exact).  ``k3_buffer`` hands back a buffer that holds the
+    capacity and replaces one that does not."""
+    monkeypatch.setattr(port_bm, "K3_START_CAPACITY", 4)
+    monkeypatch.setattr(port_bm, "_K3_CAPACITY", {})
+    counts, packs, want = _k3_inputs()
+    sel = None if selection == "every" else [0, 2, 3]
+    if sel is not None:
+        want = want[np.isin(want // (RB * RB), sel)]
+        want = np.searchsorted(sel, want // (RB * RB)) * RB * RB + \
+            want % (RB * RB)
+    assert len(want) > 4
+    port_bm.reset_launches()
+    for relaunches in (1, 1):
+        got = port_bm.compact_sized(packs, counts, sel=sel)
+        assert port_bm.RELAUNCHES["mask_compact"] == relaunches
+        assert np.array_equal(got.numpy(), want)
+    held = port_bm.k3_buffer(CPU)
+    assert held.numel() == len(want)
+    assert port_bm.k3_buffer(CPU, held) is held
+    assert port_bm.k3_buffer(CPU, held[:4]).numel() == len(want)
+
+
+@pytest.mark.parametrize("case", FILTER_CASES[:3],
+                         ids=[c[0] for c in FILTER_CASES[:3]])
+def test_batched_filter_buffer_from_compact_masks_into(case):
+    """The card's ``batched_filter`` buffer built on the CPU the way the
+    card builds it (a -1 buffer, K3 writing the head [total, largest
+    count], the indices at codes ``ts`` and the last tile's encoded
+    padding) against the JAX ``_batched_filter_fn``'s whole buffer: exact,
+    for every sizing under which the card does not refuse."""
+    label, rb, tiles, cap_tile, cap_chunks = case
+    hashes = clustered_sketches(n=300, s=150, n_clusters=10)
+    jax_args, port_args = _filter_args(hashes, 2048, rb, tiles)
+    want = np.asarray(jax_bm._jitted_batched_filter()(
+        *jax_args, cap_tile, cap_chunks, rb, "mst"))
+    counts, packs = port_bm.batched_mask(*port_args[:3], *port_args[4:], rb)
+    ts, valid = np.arange(len(tiles[0])), tiles[2]
+    k = len(ts)
+    out = torch.full((2 + k * cap_tile,), -1, dtype=torch.int32)
+    pad = (cap_tile, int(ts[-1]) * rb * rb - 1) if valid[-1] else None
+    port_bm.compact_masks_into(packs, counts, out[2:], k * cap_tile,
+                               codes=ts, head=out[:2], pad=pad)
+    assert np.array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["mst", "markers"])
+def test_candidate_pair_blocks_idx_grows_from_capacity_one(case,
+                                                           monkeypatch):
+    """RTC_PULL_MODE=idx with K3's buffers starting at one entry: every
+    batch with candidates outgrows its buffer at first, so the generator
+    takes its grow-and-launch-again branch; the blocks equal the JAX
+    generator's under idx, and their concatenation the port's mask pull.
+    Exact."""
+    monkeypatch.setattr(port_bm, "K3_START_CAPACITY", 1)
+    monkeypatch.setattr(port_bm, "_K3_CAPACITY", {})
+    hashes = BLOCK_CASES[case]["hashes"]()
+    kw = dict(BLOCK_CASES[case]["kw"])
+    args = (hashes, 0.05, 21)
+    common = dict(bits=2048, row_block=64, **kw)
+    seqs = {}
+    for mode in ("idx", "mask"):
+        monkeypatch.setenv("RTC_PULL_MODE", mode)
+        port_bm.reset_launches()
+        got = _blocks(port_bm.candidate_pair_blocks(*args, device=CPU,
+                                                    **common))
+        if mode == "idx":
+            assert got == _blocks(jax_bm.candidate_pair_blocks(*args,
+                                                               **common))
+            assert port_bm.RELAUNCHES["mask_compact"] >= 1
+        else:
+            assert port_bm.RELAUNCHES["mask_compact"] == 0
+        pairs = [b for b in got if b[0] == "pairs"]
+        seqs[mode] = (b"".join(b[2] for b in pairs),
+                      b"".join(b[3] for b in pairs))
+    assert seqs["idx"] == seqs["mask"] and len(seqs["idx"][0]) > 0

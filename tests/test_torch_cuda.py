@@ -584,7 +584,8 @@ def _k3_case(hashes, rb, tiles, gpu, bits=2048):
 def test_k3_matches_plain(gpu, rb, n):
     """K3 over K1's masks, ragged n (padded last row block) and a padding
     tile, against the plain compaction; every tile, then only the nonzero
-    ones in a permuted order."""
+    ones in a permuted order.  One launch a call, and one more when the
+    total outgrows the capacity seen so far (``RELAUNCHES``)."""
     hashes = clustered_sketches(n=n, s=150, n_clusters=10)
     n_pad = -(-n // rb) * rb
     tiles = bm.triangle_tiles(n_pad, rb)[:15]
@@ -593,23 +594,29 @@ def test_k3_matches_plain(gpu, rb, n):
     _, _, cnt, packs, sel = _k3_case(hashes, rb, geo, gpu)
     for order in (list(range(len(cnt))), sel[::-1]):
         before = bm.LAUNCHES["mask_compact"]
+        again = bm.RELAUNCHES["mask_compact"]
         got = bm.compact_masks(packs, cnt, order)
         torch.cuda.synchronize()
-        assert bm.LAUNCHES["mask_compact"] == before + 1
+        again = bm.RELAUNCHES["mask_compact"] - again
+        assert again <= 1
+        assert bm.LAUNCHES["mask_compact"] == before + 1 + again
         want = bm.compact_masks_plain(packs, order)
         assert got.dtype == torch.int32 and torch.equal(got, want)
     assert int(cnt.sum()) > 0 and cnt[-1] == 0
 
 
 def test_k3_edge_cases(gpu):
-    """An empty batch, a single set bit in the last column of the last row
-    of the last tile, and an all-zero tile among full ones."""
+    """An empty selection (nothing to launch), tiles counted 0 (one
+    launch: the counts stay on the card, and it finds them 0), a single
+    set bit in the last column of the last row of the last tile, and an
+    all-zero tile among full ones."""
     rb = 256
     packs = torch.zeros((4, rb, rb // 8), dtype=torch.uint8, device=gpu)
     before = bm.LAUNCHES["mask_compact"]
     assert bm.compact_masks(packs, np.zeros(4), []).numel() == 0
-    assert bm.compact_masks(packs, np.zeros(4), [0, 1]).numel() == 0
     assert bm.LAUNCHES["mask_compact"] == before  # nothing to launch
+    assert bm.compact_masks(packs, np.zeros(4), [0, 1]).numel() == 0
+    assert bm.LAUNCHES["mask_compact"] == before + 1
     packs[3, rb - 1, rb // 8 - 1] = 0x80
     got = bm.compact_masks(packs, np.array([0, 0, 0, 1]), [3])
     assert got.tolist() == [rb * rb - 1]
@@ -631,6 +638,197 @@ def test_k3_rejects_int32_wrap_before_launch(gpu):
     with pytest.raises(ValueError, match="int32"):
         bm.compact_masks(packs, np.ones(8, dtype=np.int64), [0])
     assert bm.LAUNCHES["mask_compact"] == before
+
+
+def _hold_k3(packs, counts, limit, cap=None, **kw):
+    """``compact_masks_into`` on the card against its plain version on the
+    same tensors: the whole output buffer (a -7 sentinel past what is
+    written) and the head [total, largest count] equal.  Returns the
+    head."""
+    cap = limit + 64 if cap is None else cap
+    outs, heads = [], []
+    for fn in (bm.compact_masks_into, bm.compact_masks_into_plain):
+        out = torch.full((cap,), -7, dtype=torch.int32, device=packs.device)
+        head = torch.full((2,), -7, dtype=torch.int32, device=packs.device)
+        fn(packs, counts, out, limit, head=head, **kw)
+        outs.append(out)
+        heads.append(head)
+    torch.cuda.synchronize()
+    assert torch.equal(heads[0], heads[1]), (heads[0], heads[1])
+    assert torch.equal(outs[0], outs[1])
+    return heads[0]
+
+
+def _popcounts(packs):
+    """Each tile's set bits, int32 on the packs' device."""
+    table = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int32, device=packs.device)
+    return table[packs.reshape(packs.shape[0], -1).long()].sum(
+        1, dtype=torch.int32)
+
+
+def _random_packs(gpu, k, rb, density, seed):
+    """k random (rb, rb) masks of the given density, packed on the card,
+    the second tile left empty."""
+    gen = torch.Generator(device=gpu).manual_seed(seed)
+    bits = torch.rand((k, rb, rb), generator=gen, device=gpu) < density
+    if k > 1:
+        bits[1] = False
+    return bm.pack_mask_u8(bits)
+
+
+def test_k3_single_pass_all_zero_batch(gpu):
+    """16 tiles with no set bit: one launch, total and largest count 0,
+    nothing written; tiles whose masks hold bits but are counted 0 are
+    not read."""
+    packs = torch.zeros((16, 1024, 128), dtype=torch.uint8, device=gpu)
+    zero = torch.zeros(16, dtype=torch.int32, device=gpu)
+    before = bm.LAUNCHES["mask_compact"]
+    assert _hold_k3(packs, zero, 100).tolist() == [0, 0]
+    assert bm.LAUNCHES["mask_compact"] == before + 1
+    packs.fill_(0xA5)
+    assert _hold_k3(packs, zero, 100).tolist() == [0, 0]
+
+
+def test_k3_single_pass_all_ones_tile(gpu):
+    """One all-ones 4096^2 tile: 16,777,216 indices in order."""
+    rb = 4096
+    packs = torch.full((1, rb, rb // 8), 0xFF, dtype=torch.uint8, device=gpu)
+    counts = torch.tensor([rb * rb], dtype=torch.int32, device=gpu)
+    head = _hold_k3(packs, counts, rb * rb)
+    assert head.tolist() == [rb * rb, rb * rb]
+
+
+@pytest.mark.parametrize("density", [1e-6, 1e-3, 0.05, 0.5])
+@pytest.mark.parametrize("rb,k", [(128, 16), (1024, 16), (4096, 4)])
+def test_k3_single_pass_random_densities(gpu, rb, k, density):
+    """Random masks from 1e-6 to 0.5 at rb 128 to 4096, an empty tile
+    among them, encoded by slot, locally and by host codes, and with a
+    limit short of the total."""
+    packs = _random_packs(gpu, k, rb, density, seed=rb + k)
+    counts = _popcounts(packs)
+    total = int(counts.sum())
+    for kw in ({}, {"codes": "local"},
+               {"codes": list(range(k, 0, -1)), "sel": list(range(k))}):
+        head = _hold_k3(packs, counts, total, **kw)
+        assert int(head[0]) == total
+    _hold_k3(packs, counts, total // 2, cap=total + 64)
+
+
+def test_k3_single_pass_slab_of_16384(gpu):
+    """A slab of 5 steps of 16384^2 (the bitmap ring's close at N =
+    131,072): the look-back spans 2,048 blocks a step, more than one wave;
+    one step empty, one dense."""
+    rb = 16384
+    packs = torch.zeros((5, rb, rb // 8), dtype=torch.uint8, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    for t, density in ((0, 1e-4), (2, 0.02), (3, 0.5), (4, 1e-6)):
+        packs[t] = bm.pack_mask_u8(
+            torch.rand((rb, rb), generator=gen, device=gpu) < density)
+    counts = _popcounts(packs)
+    assert int(counts[1]) == 0
+    total = int(counts.sum())
+    assert int(_hold_k3(packs, counts, total, codes="local")[0]) == total
+    got = bm.compact_steps(packs, counts)
+    assert torch.equal(got, torch.cat([bm.compact_masks_plain(packs, [t])
+                                       for t in (0, 2, 3, 4)]))
+
+
+def test_k3_fifty_calls_without_reset(gpu):
+    """50 launches in a row on one scratch, shapes and grids changing from
+    call to call, nothing cleared between them: each equal to its plain
+    version; the ticket word back at 0 and the epoch 50 further on."""
+    cases = []
+    for i, (rb, k, d) in enumerate(((128, 16, 0.3), (1024, 16, 1e-3),
+                                    (4096, 2, 0.05), (256, 3, 0.5))):
+        packs = _random_packs(gpu, k, rb, d, seed=i)
+        counts = _popcounts(packs)
+        out = torch.full((int(counts.sum()) + 8,), -7, dtype=torch.int32,
+                         device=gpu)
+        bm.compact_masks_into_plain(packs, counts, out, out.numel() - 8)
+        cases.append((packs, counts, out))
+    torch.cuda.synchronize()
+    scratch = bm.k3_scratch(gpu, 1 << 14)
+    epoch = scratch.epoch
+    for i in range(50):
+        packs, counts, want = cases[i % len(cases)]
+        got = torch.full_like(want, -7)
+        bm.compact_masks_into(packs, counts, got, got.numel() - 8)
+        assert torch.equal(got, want), i
+    assert bm.k3_scratch(gpu, 1) is scratch
+    assert int(scratch.words[0]) == 0
+    assert scratch.epoch == epoch + 50
+
+
+@pytest.mark.parametrize("b,r,tri", [(2048, 1024, False),
+                                     (2048, 16384, False),
+                                     (2048, 2048, True), (7, 1024, False)],
+                         ids=["R1024", "R16384", "tri", "B7"])
+def test_k3_row_form_at_k6_shapes(gpu, b, r, tri):
+    """K3's row form inside K6 at the batched greedy's shapes (B = 2,048
+    against 1,024 and 16,384 reps, triangular, B = 7), a cap that the
+    dense case runs past: the whole buffer equal to the plain version."""
+    from rabbittclust_tpu_torch.ops import greedy_device as gd
+    x, coll, sizes, n_pad = _k6_inputs(gpu, n=2500, s_n=60)
+    rng = np.random.default_rng(b + r)
+    bi = rng.integers(0, n_pad, b)
+    ri = bi[:r] if tri else rng.integers(0, n_pad, r)
+    sc = bm.filter_scalars(0.05, 21, "greedy")
+    for cap in (1 << 18, 1000):
+        args = (x, bi, ri, coll, sizes, *sc, False, cap, tri)
+        got = gd.greedy_filter(*args)
+        want = gd.greedy_filter_plain(
+            x, torch.from_numpy(bi).to(gpu, torch.int32),
+            torch.from_numpy(ri).to(gpu, torch.int32), coll, sizes, *sc,
+            False, cap, tri)
+        assert torch.equal(got, want), (cap, int(got[0]), int(want[0]))
+        assert int(want[0]) > 0
+
+
+def test_idx_generator_syncs_not_between_k1_and_k3(gpu, monkeypatch):
+    """Under RTC_PULL_MODE=idx the generator queues K3 straight behind
+    each K1: no host synchronisation from K1's launch until K3's is
+    queued (``torch.cuda.set_sync_debug_mode("error")`` raises on one),
+    K3 once a batch, and the pairs those of the mask pull."""
+    hashes = clustered_sketches(n=3000, s=400, n_clusters=30, seed=4)
+    monkeypatch.setattr(bm, "K3_START_CAPACITY", 1 << 22)  # no regrowth
+    monkeypatch.setattr(bm, "_K3_CAPACITY", {})
+    k1, k3 = bm.batched_mask, bm.compact_masks_into
+    windows = []
+
+    def after_k1(*args, **kwargs):
+        out = k1(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        windows.append("open")
+        return out
+
+    def k3_closes(*args, **kwargs):
+        try:
+            return k3(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            windows.append("closed")
+
+    seqs = {}
+    for mode in ("mask", "idx"):
+        monkeypatch.setenv("RTC_PULL_MODE", mode)
+        if mode == "idx":
+            monkeypatch.setattr(bm, "batched_mask", after_k1)
+            monkeypatch.setattr(bm, "compact_masks_into", k3_closes)
+        bm.reset_launches()
+        try:
+            blocks = list(bm.candidate_pair_blocks(hashes, 0.05, 21,
+                                                   row_block=1024,
+                                                   device=gpu))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seqs[mode] = (np.concatenate([b[0] for b in blocks]),
+                      np.concatenate([b[1] for b in blocks]))
+    n_batches = bm.LAUNCHES["filter_mask"]
+    assert windows == ["open", "closed"] * n_batches
+    assert bm.LAUNCHES["mask_compact"] == n_batches
+    assert all(np.array_equal(a, b) for a, b in zip(seqs["mask"],
+                                                    seqs["idx"]))
 
 
 @pytest.mark.parametrize("rb,n_clusters", [(256, 10), (1024, 750)],
@@ -943,10 +1141,10 @@ def test_device_sketch_cli_on_card(gpu, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 # K6 (greedy_filter) and the batched greedy route
 
-def _k6_inputs(gpu, n=300, bits=1024, containment=False, seed=4):
+def _k6_inputs(gpu, n=300, bits=1024, containment=False, seed=4, s_n=12):
     from rabbittclust_tpu_torch.ops.greedy_device import pack_bitmaps_packed
     hashes = (containment_sketches(n=n, seed=seed) if containment else
-              clustered_sketches(n=n, s=150, n_clusters=12, seed=seed))
+              clustered_sketches(n=n, s=150, n_clusters=s_n, seed=seed))
     xp, coll = pack_bitmaps_packed(hashes, bits=bits, pad_n_to=128)
     sizes = np.zeros(xp.shape[0], dtype=np.int32)
     sizes[:n] = [len(h) for h in hashes]
@@ -1183,6 +1381,59 @@ def test_bitmap_ring_syncs_only_at_its_close(gpu, monkeypatch):
     assert len(got[0]) > 0
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+def test_bitmap_ring_close_off_the_current_device():
+    """The bitmap ring with shards on cuda:1 while cuda:0 is current (a
+    mesh over two cards, and one over cuda:1 alone): each shard's close
+    runs K3, the counts' pull and the positions' copy on its slab's device
+    and stream, so its pairs equal the ring over CPU shards.  Needs two
+    GPUs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    hashes = _ring_corpus(n=3000)
+    want = de.distributed_candidate_pairs_bitmap(
+        hashes, 0.05, 21, mesh=de.make_mesh(devices=[torch.device("cpu")] * 2),
+        bits=2048)
+    assert len(want[0]) > 0
+    for devices in ([0, 1], [1, 1]):
+        with torch.cuda.device(0):
+            got = de.distributed_candidate_pairs_bitmap(
+                hashes, 0.05, 21, bits=2048, mesh=de.make_mesh(
+                    devices=[torch.device("cuda", d) for d in devices]))
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b), devices
+
+
+def test_k3_scratch_one_a_stream(gpu):
+    """K3 on the current stream and on a side stream, 20 launches each
+    with no wait between the two: each stream has a scratch of its own
+    (the ticket word and the epoch hold for one stream's order), and
+    every output equals the plain version's.  Exact."""
+    packs = _random_packs(gpu, 16, 1024, 0.01, seed=11)
+    counts = _popcounts(packs)
+    want = torch.empty(int(counts.sum()), dtype=torch.int32, device=gpu)
+    bm.compact_masks_into_plain(packs, counts, want, want.numel())
+    streams = (torch.cuda.current_stream(gpu), torch.cuda.Stream(gpu))
+    streams[1].wait_stream(streams[0])
+    scratch = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            scratch.append(bm.k3_scratch(gpu, 1 << 14))
+    epochs = [s.epoch for s in scratch]
+    outs = []
+    for i in range(40):
+        with torch.cuda.stream(streams[i % 2]):
+            out = torch.full_like(want, -7)
+            bm.compact_masks_into(packs, counts, out, out.numel())
+            assert bm.k3_scratch(gpu, 1) is scratch[i % 2]
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert scratch[0] is not scratch[1]
+    assert [s.epoch - e for s, e in zip(scratch, epochs)] == [20, 20]
+    for i, out in enumerate(outs):
+        assert torch.equal(out, want), i
 
 
 def test_dist_lp_round_on_card_matches_plain(gpu):
