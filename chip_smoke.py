@@ -115,7 +115,27 @@ Phases, one line or block each; any failure raises (non-zero exit):
    and ``clust-greedy --multihost`` with 2 processes (``parallel/
    launch.py``) over phase 13's list, each ``.cluster`` byte-equal to the
    single-process ``--device -t 2`` run; (c) ``dryrun_multichip(4)`` over
-   ``[cuda:0] * 4`` (the stats ring, then its own 2-process simulation).
+   ``[cuda:0] * 4`` (the stats ring, then its own 2-process simulation);
+18. the state files and RepDB: (a) ``clust-greedy --fast --device --db
+   --build --presketched`` over phase 8a's folder (N = 32,768 sparse, ~16,384
+   representatives), then ``batch_query_device`` on the card (K1, and K3
+   under ``RTC_PULL_MODE=idx``) for 4,096 queries (3,072 from
+   representatives at keep 0.8, 1,024 novel; seed 7), its hits and the
+   assignment from its best hit equal to the serial ``query_topk`` and
+   ``assign`` loops, with the probe's wall, K1's launches, tiles and
+   kernel milliseconds and the host re-scoring seconds; (b) the RepDB
+   CLIs over phase 13's genomes (copies 0-1 built, 2-3 queried):
+   ``--query --device`` (K1 launched) byte-equal to ``--query`` (none),
+   ``--assign``, ``--stats`` and ``--append``, and the MST RepDB built on
+   the dense engine (K4's mask mode, K5b) equal to the host-built one;
+   (c) ``--save-rep`` then ``--append`` of copies 2-3 for clust-mst
+   ``--fast``, clust-greedy ``--fast``, MinHash clust-mst and MinHash
+   clust-greedy: each partition the 32 planted groups (the greedy pass's
+   left-out representatives put back), the MinHash classic append's K4
+   mask mode from start_index 64 on two planes and its MST held to the
+   native ``compute_mst`` as phase 10's is, the source folders unchanged
+   but for the KSSD MST state saved again; (d) ``--db --query/--assign
+   --multihost`` with two ranks on cuda:0 byte-equal to (b)'s TSVs.
 
 Phase 3d holds K3 (``compact_masks``, ``compact_steps``, and K1 + K3 as
 ``batched_filter``) to its plain versions on batches of 16 tiles at rb
@@ -160,7 +180,7 @@ step) to the plain step on a band of 256 rows for each step kind at 4
 shards of N = 16,384, and times the whole steps beside their bounds and
 K4's counts mode: the count equal, the float32 minimum within 4 ulp.
 
-Each of phases 8-12 and 15-17 prints its kernels' launch counts on a line
+Each of phases 8-12 and 15-18 prints its kernels' launch counts on a line
 of its own.
 
 The line before the last is the kernels' JSON; the last line is
@@ -174,6 +194,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3480,6 +3501,357 @@ def phase_multiprocess(hashes, want, host_mst, dense_mst, dev, tmp, card,
     return {"ring_stats": launches["ring_stats"]}
 
 
+def cluster_groups(path):
+    """The genome file names of each cluster of a by-file ``.cluster`` file
+    (``a<group>_<copy>.fna``, ``write_fasta_genomes``' names)."""
+    clusters = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("the cluster"):
+                clusters.append([])
+            elif line.startswith("\t"):
+                clusters[-1].append(os.path.basename(
+                    line.split("\t")[4].strip()))
+    return clusters
+
+
+def hold_groups(path, files, what):
+    """The clusters of ``path`` are the planted groups of ``files``; a file
+    the writer left out (a representative created by the incremental pass
+    is not a member of its own cluster) is put back into its group's
+    cluster first.  Returns how many were put back."""
+    clusters = cluster_groups(path)
+    names = [os.path.basename(f) for f in files]
+    printed = [n for cl in clusters for n in cl]
+    missing = sorted(set(names) - set(printed))
+    if len(printed) != len(set(printed)) or set(printed) - set(names):
+        raise AssertionError(f"{what}: members repeated or unknown")
+    groups = [{n.split("_")[0] for n in cl} for cl in clusters]
+    for n in missing:
+        home = [cl for cl, g in zip(clusters, groups)
+                if g == {n.split("_")[0]}]
+        if len(home) != 1:
+            raise AssertionError(f"{what}: {n} has no cluster of its group")
+        home[0].append(n)
+    want = sorted(sorted(n for n in names if n.split("_")[0] == g)
+                  for g in {n.split("_")[0] for n in names})
+    if sorted(sorted(cl) for cl in clusters) != want:
+        raise AssertionError(f"{what}: clusters are not the planted groups")
+    return len(missing)
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """Run the ``with`` body from ``path`` (made if missing): the CLIs
+    make their run folders in the working directory."""
+    os.makedirs(path, exist_ok=True)
+    back = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(back)
+
+
+def run_card_cli(main, argv, cwd):
+    """``run_cli`` from ``cwd``: (wall, launches, K4 mask-mode spy)."""
+    with working_dir(cwd):
+        wall, launches, _, k4, _ = run_cli(main, argv, {})
+    return wall, launches, k4
+
+
+def repdb_probe(st, queries, dev, pull):
+    """``batch_query_device`` under ``RTC_PULL_MODE=pull`` from launch
+    counts set to 0: (hits, wall, launches, K1 tiles, seconds in the
+    candidate generator)."""
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.state.greedy_state import batch_query_device
+    os.environ["RTC_PULL_MODE"] = pull
+    bm.reset_launches()
+    try:
+        with Spy(bm, "candidate_pairs_threshold") as cand, \
+                Spy(bm, "batched_mask") as k1:
+            t0 = time.perf_counter()
+            hits = batch_query_device(st, queries, 3, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("RTC_PULL_MODE", None)
+    tiles = sum(int(np.count_nonzero(a[5])) for a, _ in k1.calls)
+    return hits, wall, dict(bm.LAUNCHES), tiles, cand.seconds
+
+
+def phase_state_repdb(tmp, dev, card):
+    """18: the state files and RepDB on the card: (a) the greedy RepDB of
+    phase 8a's corpus and its device probe at 4,096 queries against the
+    serial loops; (b) the RepDB CLIs over phase 13's genomes; (c) each
+    --save-rep / --append arm; (d) the RepDB serving path with two
+    ranks on cuda:0."""
+    say("== phase 18: the state files and RepDB on the card")
+    from rabbittclust_tpu_torch.cli import clust_greedy, clust_mst
+    from rabbittclust_tpu_torch.cli.repdb import write_query_tsv
+    from rabbittclust_tpu_torch.cluster.mst import (clusters_from_forest,
+                                                    compute_mst, cut_forest)
+    from rabbittclust_tpu_torch.io.fasta import read_file_list
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.parallel import launch as pl
+    from rabbittclust_tpu_torch.sketch.kssd import sketch_files_kssd
+    from rabbittclust_tpu_torch.sketch.minhash import sketch_files_minhash
+    from rabbittclust_tpu_torch.state import sketch_io
+    from rabbittclust_tpu_torch.state.greedy_state import KssdClusterState
+    from rabbittclust_tpu_torch.state.mst_state import MstState
+    work = os.path.join(tmp, "state18")
+    launches = {}
+    # (a) the RepDB of phase 8a's sparse corpus, N = 32,768
+    db = os.path.join(work, "a", "rep.db")
+    wall, _, _ = run_card_cli(
+        clust_greedy.main, ["--fast", "--device", "--db", db, "--build",
+                            "--presketched", os.path.join(tmp, "greedy_8a"),
+                            "-o", os.path.join(work, "a", "build.cluster"),
+                            "-d", str(THRESHOLD)], os.path.join(work, "a"))
+    t0 = time.perf_counter()
+    st = KssdClusterState.load_repdb(db)
+    load_s = time.perf_counter() - t0
+    n_reps = len(st.representative_ids)
+    say(f"18a --db --build --presketched (phase 8a's {len(st.hashes)} "
+        f"genomes): {n_reps} representatives, {len(st.inverted_index)} "
+        f"indexed hashes, REPDB002 {os.path.getsize(db)} B; CLI {wall:.3f} "
+        f"s, load_repdb {load_s:.3f} s")
+    rng = np.random.default_rng(SEED)
+    reps = [st.hashes[g] for g in st.representative_ids]
+    planted = [reps[r][rng.random(len(reps[r])) < 0.8]
+               for r in rng.choice(n_reps, 3072, replace=False)]
+    novel = [np.unique(rng.integers(0, 2 ** 31, SKETCH).astype(np.uint32))
+             for _ in range(1024)]
+    queries = planted + novel
+    t0 = time.perf_counter()
+    want = [st.query_topk(q, 3) for q in queries]
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_assign = [st.assign(q) for q in queries]
+    serial_assign_s = time.perf_counter() - t0
+    if serial_s > 60:
+        raise AssertionError(f"18a: the serial loop took {serial_s:.1f} s")
+    for pull in ("mask", "idx"):
+        hits, wall, got_l, tiles, cand_s = repdb_probe(st, queries, dev,
+                                                       pull)
+        if hits != want:
+            raise AssertionError(f"18a ({pull}): the device probe differs "
+                                 "from the serial query_topk loop")
+        if got_l["filter_mask"] <= 0 or \
+                (got_l["mask_compact"] > 0) != (pull == "idx"):
+            raise AssertionError(f"18a ({pull}): launches {got_l}")
+        # the assignment from the probe's best hit (state.assign's rule)
+        assign = [h[0] if h and h[0]["distance"] <= st.threshold else
+                  {"rep_idx": -1, "genome_id": -1,
+                   "genome_name": "unassigned", "distance": -1.0,
+                   "cluster_id": -1, "cluster_size": 0} for h in hits]
+        if assign != want_assign:
+            raise AssertionError(f"18a ({pull}): the probe's assignment "
+                                 "differs from the serial assign loop")
+        if pull == "mask":
+            launches["filter_mask"] = got_l["filter_mask"]
+        else:
+            launches["mask_compact"] = got_l["mask_compact"]
+        say(f"18a batch_query_device RTC_PULL_MODE={pull}, {len(queries)} "
+            f"queries ({len(planted)} from representatives, keep 0.8; "
+            f"{len(novel)} novel) against {n_reps} representatives: hits "
+            f"= the serial query_topk loop field for field, assignment = "
+            f"the serial assign loop; wall {wall:.3f} s (candidates "
+            f"{cand_s:.3f} s, host re-scoring {wall - cand_s:.3f} s); "
+            f"K1 launches {got_l['filter_mask']} over {tiles} tiles, K3 "
+            f"launches {got_l['mask_compact']}")
+    combined = reps + queries
+    _, k1_ms, call_ms, parts = device_ms(
+        lambda: bm.candidate_pairs_threshold(
+            combined, st.threshold, st.kmer_size, return_shared=True,
+            device=dev), reps=1)
+    k1_kern = sum(v for k_, v in parts.items() if "filter" in k_)
+    say(f"18a the probe's candidates (mask pull): K1 kernels {k1_kern:.3f} "
+        f"ms, all kernels {k1_ms:.3f} ms, call {call_ms:.3f} ms; serial "
+        f"query_topk loop {serial_s:.3f} s, assign loop "
+        f"{serial_assign_s:.3f} s; card {card}")
+    del st, reps, combined
+    # (b) the RepDB CLIs over phase 13's genomes: copies 0-1 build, 2-3 query
+    src13 = os.path.join(tmp, "sketch13")
+    files = {m: [os.path.join(src13, f"a{c}_{m}.fna") for c in range(32)]
+             for m in range(4)}
+    lists = {}
+    for name, ms in (("build", (0, 1)), ("query", (2, 3))):
+        lists[name] = os.path.join(work, f"{name}.list")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(files[m][c] for c in range(32) for m in ms)
+                    + "\n")
+    wb = os.path.join(work, "b")
+    g = ["--fast", "--db", os.path.join(wb, "g.db"), "-d", str(THRESHOLD)]
+    q = ["-l", "-i", lists["query"]]
+    walls = {}
+    walls["build"], _, _ = run_card_cli(
+        clust_greedy.main, g + ["--build", "-l", "-i", lists["build"], "-o",
+                                os.path.join(wb, "g.cluster")], wb)
+    walls["query --device"], qd_l, _ = run_card_cli(
+        clust_greedy.main, g + ["--query", "--device", "-o",
+                                os.path.join(wb, "qd.tsv")] + q, wb)
+    walls["query"], qh_l, _ = run_card_cli(
+        clust_greedy.main, g + ["--query", "-o", os.path.join(wb, "q.tsv")]
+        + q, wb)
+    # the serial query_topk loop's TSV, written on the host
+    gst = KssdClusterState.load_repdb(os.path.join(wb, "g.db"))
+    qss, _ = sketch_files_kssd(read_file_list(lists["query"]), 10000,
+                               gst.kmer_size, gst.params.drlevel,
+                               os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    write_query_tsv(gst, qss, os.path.join(wb, "q_serial.tsv"), 5)
+    walls["query, serial loop"] = time.perf_counter() - t0
+    for name in ("qd.tsv", "q.tsv"):
+        if not same_file(os.path.join(wb, name),
+                         os.path.join(wb, "q_serial.tsv")):
+            raise AssertionError(f"18b: {name} differs from the serial "
+                                 "query_topk loop's TSV")
+    if qd_l["filter_mask"] <= 0 or qh_l["filter_mask"] <= 0:
+        raise AssertionError(f"18b: K1 launches {qd_l['filter_mask']} "
+                             f"under --device, {qh_l['filter_mask']} "
+                             "without")
+    walls["assign"], _, _ = run_card_cli(
+        clust_greedy.main, g + ["--assign", "-o",
+                                os.path.join(wb, "a.tsv")] + q, wb)
+    walls["stats"], _, _ = run_card_cli(clust_greedy.main, g + ["--stats"],
+                                        wb)
+    # the append grows its RepDB in place: a copy, so that (d) queries the
+    # RepDB the TSVs above came from
+    shutil.copy(os.path.join(wb, "g.db"), os.path.join(wb, "g_app.db"))
+    walls["append"], _, _ = run_card_cli(
+        clust_greedy.main, g[:2] + [os.path.join(wb, "g_app.db")] + g[3:]
+        + ["--append", lists["query"], "-l", "-o",
+           os.path.join(wb, "app.cluster")], wb)
+    # the MST RepDB built by the CLI, which takes the dense engine with or
+    # without --device, and on the host from the native compute_mst
+    mst_db = {}
+    for how, flag in (("device", ["--device"]), ("no_device", [])):
+        mst_db[how] = os.path.join(wb, f"m_{how}.db")
+        walls[f"MST build ({how})"], ml, k4 = run_card_cli(
+            clust_mst.main, ["--fast", "--db", mst_db[how], "--build", "-l",
+                             "-i", lists["build"], "-d", str(THRESHOLD),
+                             "-o", os.path.join(wb, f"m_{how}.cluster")]
+            + flag, wb)
+        if ml["pair_mask_tiles"] <= 0 or ml["pair_common"] <= 0:
+            raise AssertionError(f"18b MST build ({how}): launches {ml}")
+        if how == "device":
+            launches["pair_mask_tiles"] = ml["pair_mask_tiles"]
+            launches["pair_common"] = ml["pair_common"]
+    mss, mp = sketch_files_kssd(read_file_list(lists["build"]), 10000, 21,
+                                3, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    forest = cut_forest(compute_mst(mss.hashes, THRESHOLD, mp.kmer_size).mst,
+                        THRESHOLD)
+    MstState.from_clustering(
+        mss, "kssd", forest, clusters_from_forest(forest, len(mss)),
+        THRESHOLD, kmer_size=mp.kmer_size, half_k=mp.half_k,
+        half_subk=mp.half_subk, drlevel=mp.drlevel).save(
+            os.path.join(wb, "m_host.db"))
+    walls["MST build (host compute_mst)"] = time.perf_counter() - t0
+    built = {how: MstState.load(path) for how, path in mst_db.items()}
+    host = MstState.load(os.path.join(wb, "m_host.db"))
+    for how, st_ in built.items():
+        if st_.clusters != host.clusters or \
+                st_.representative_ids != host.representative_ids:
+            raise AssertionError(f"18b: the MST RepDB built on the card "
+                                 f"({how}) differs from the host-built one")
+    hold_groups(os.path.join(wb, "m_device.cluster"), files[0] + files[1],
+                "18b MST build")
+    say(f"18b RepDB CLIs over 64 + 64 genomes of 4 Mb: --query (K1 "
+        f"launches {qd_l['filter_mask']} with --device, "
+        f"{qh_l['filter_mask']} without) byte-equal to the serial "
+        f"query_topk loop's TSV; --assign, --stats, --append exit 0; the "
+        f"MST RepDB built on the card (K4 mask mode "
+        f"{launches['pair_mask_tiles']}, K5b {launches['pair_common']}, "
+        f"with or without --device) = the one built on the host from "
+        f"compute_mst (clusters, representatives; files byte-equal: "
+        + str([same_file(p_, os.path.join(wb, "m_host.db"))
+               for p_ in mst_db.values()]) + "); walls (s) "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in walls.items()))
+    # (c) --save-rep, then --append of copies 2-3
+    builds = files[0] + files[1]
+    for tag, main, flags, state in (
+            ("clust-mst --fast", clust_mst.main, ["--fast"],
+             "mst_cluster_state.bin"),
+            ("clust-greedy --fast", clust_greedy.main, ["--fast"],
+             "cluster_state.bin"),
+            ("MinHash clust-mst", clust_mst.main, [], None),
+            ("MinHash clust-greedy", clust_greedy.main, [],
+             "cluster_state.bin")):
+        wc = os.path.join(work, "c", tag.replace(" ", "_"))
+        argv = flags + ["--device", "-d", str(THRESHOLD), "-l"]
+        w_src, _, _ = run_card_cli(
+            main, argv + ["--save-rep", "-i", lists["build"], "-o",
+                          os.path.join(wc, "src.cluster")],
+            os.path.join(wc, "src"))
+        (src,) = [os.path.join(wc, "src", d) for d in
+                  os.listdir(os.path.join(wc, "src"))
+                  if os.path.isdir(os.path.join(wc, "src", d))]
+        if state and not os.path.exists(os.path.join(src, state)):
+            raise AssertionError(f"18c {tag}: --save-rep wrote no {state}")
+        before = folder_digest(src)
+        out = os.path.join(wc, "app.cluster")
+        w_app, al, k4 = run_card_cli(
+            main, argv + ["--presketched", src, "--append", lists["query"],
+                          "-o", out], os.path.join(wc, "app"))
+        changed = {k_ for k_ in set(before) | set(folder_digest(src))
+                   if before.get(k_) != folder_digest(src).get(k_)}
+        # the KSSD MST state is saved again in its folder after the append
+        if changed != ({state} if tag == "clust-mst --fast" else set()):
+            raise AssertionError(f"18c {tag}: the append changed {changed} "
+                                 "in its source folder")
+        back = hold_groups(out, builds + files[2] + files[3], f"18c {tag}")
+        note = ""
+        if state is None:
+            # the classic MinHash append: K4's mask mode from start_index
+            starts = {(a[1] is not None, a[7]) for a, _ in k4.calls}
+            if al["pair_mask_tiles"] <= 0 or starts != {(True, 64)}:
+                raise AssertionError(f"18c {tag}: K4 launches "
+                                     f"{al['pair_mask_tiles']}, (two "
+                                     f"planes, start_index) {starts}")
+            ss, p = sketch_io.load_minhash_sketches(src)
+            ss.extend(sketch_files_minhash(read_file_list(lists["query"]),
+                                           10000, p, os.cpu_count() or 1))
+            t0 = time.perf_counter()
+            ref = compute_mst(ss.hashes, THRESHOLD, p.kmer_size,
+                              start_index=64,
+                              pre_edges=sketch_io.load_mst(src))
+            host_s = time.perf_counter() - t0
+            (new,) = [os.path.join(wc, "app", d) for d in
+                      os.listdir(os.path.join(wc, "app"))
+                      if os.path.isdir(os.path.join(wc, "app", d))]
+            rel = hold_mst(sketch_io.load_mst(new), ref.mst, len(ss), tag)
+            launches["pair_mask_tiles_append"] = al["pair_mask_tiles"]
+            note = (f"; K4 mask mode launches {al['pair_mask_tiles']} on two "
+                    f"planes from start_index 64, the MST = the native "
+                    f"compute_mst(start_index=64, pre_edges) (weights "
+                    f"within {rel:.3e}; host {host_s:.3f} s)")
+        say(f"18c {tag}: --save-rep {w_src:.3f} s, --append of 64 "
+            f"{'through ' + state if state else '(classic)'} {w_app:.3f} "
+            f"s: the 32 planted groups ({back} representatives put back); "
+            f"source folder {'unchanged' if not changed else 'changed in ' + str(sorted(changed))}"
+            + note)
+    # (d) --db --query/--assign --multihost, two ranks on cuda:0
+    for verb, single in (("--query", "q.tsv"), ("--assign", "a.tsv")):
+        multi = os.path.join(work, f"multi_{single}")
+        t0 = time.perf_counter()
+        rc = pl.launch(2, g + [verb, "-o", multi] + q, module="greedy",
+                       timeout=600)
+        multi_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"18d {verb} --multihost returned {rc}")
+        if not same_file(multi, os.path.join(wb, single)):
+            raise AssertionError(f"18d {verb} --multihost differs from the "
+                                 "single-process TSV")
+        say(f"18d --db {verb} --multihost, 2 processes on cuda:0: TSV "
+            f"byte-equal to 18b's single-process one; wall {multi_s:.3f} s")
+    say("launches (phase 18): " + ", ".join(
+        f"{k_}={v}" for k_, v in launches.items()))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
@@ -3559,7 +3931,7 @@ def main() -> int:
 
 
 def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
-    """Phases 3-16; returns (launches, kernel records)."""
+    """Phases 3-18; returns (launches, kernel records)."""
     rec = phase_kernels(hashes, dev)
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
@@ -3595,6 +3967,7 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
                                                          oracles, dev)
         launches.update(phase_multiprocess(hashes, want, host_mst,
                                            dense_mst, dev, tmp, card, rec))
+        phase_state_repdb(tmp, dev, card)
     return launches, rec
 
 

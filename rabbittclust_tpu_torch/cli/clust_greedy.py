@@ -7,11 +7,17 @@ torch device (reference src/main.cpp:291-390 dispatch).
 KSSD (``--fast``) and MinHash, from genomes or ``--presketched``, run on
 the device sweep of ``ops/greedy_device.py`` (KSSD under
 ``RTC_GREEDY_DEVICE``: ``auto`` probes the corpus density and may take the
-native engine, ``native`` always does, ``force`` never).  ``--multihost``
-runs one rank of the multi-process greedy (``workflows_dist.py``).  The
-arms of
-``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
-will port them.
+native engine, ``native`` always does, ``force`` never); ``--save-rep``
+writes ``cluster_state.bin``.  ``--append`` runs the incremental state
+machine on the host (``workflows.append_clust_greedy_fast``; MinHash:
+``workflows_minhash_append.append_clust_greedy``, whose classic mode
+re-clusters on the device and alone needs ``--device``), as the JAX
+package does.  ``--db`` runs the greedy RepDB verbs (``cli/repdb.py``,
+with or without ``--device``: the KSSD ``--query`` on the CLI's device,
+the others on the host; with ``--multihost`` each rank probes its block
+of the queries on the host).
+``--multihost`` otherwise runs one rank of the multi-process greedy
+(``workflows_dist.py``).
 """
 
 from __future__ import annotations
@@ -24,12 +30,7 @@ import torch
 from ..device import resolve_device
 from .. import workflows as wf
 from .clust_mst import run_multihost
-from .common import (
-    base_parser,
-    make_output_options,
-    refuse_unported,
-    validate_common,
-)
+from .common import base_parser, make_output_options, validate_common
 
 
 # Source: rabbittclust_tpu/cli/clust_greedy.py::main
@@ -50,16 +51,37 @@ def main(argv=None, device: Optional[torch.device] = None,
         print("can only support MinHash and KSSD with greedy incremental "
               "clust", file=sys.stderr)
         return 1
-    if args.multihost and not args.repdb_path:
+    if args.repdb_path:
+        from .repdb import run_greedy_repdb
+        return run_greedy_repdb(args, opts, device)
+    if args.multihost:
         return run_multihost(args, is_containment, module, device)
-    if refuse_unported(args, module):
+    if args.append and not args.presketched:
+        print("ERROR option --append, option --presketched needed",
+              file=sys.stderr)
         return 1
-    if not args.use_device:
+    host_append = bool(args.append) and wf.append_on_host(
+        args.presketched, "greedy", args.is_fast)
+    if not (args.use_device or host_append):
         print("ERROR: rabbittclust_tpu_torch runs the device engine only: "
               "pass --device (the host engine is rabbittclust_tpu's "
               "clust-greedy)", file=sys.stderr)
         return 1
-    device = resolve_device(device)
+    if not host_append:
+        device = resolve_device(device)
+    if args.append:
+        if args.is_fast:
+            wf.append_clust_greedy_fast(args.presketched, args.append,
+                                        args.output, args.sketch_by_file,
+                                        args.min_len, args.threshold,
+                                        args.threads, opts)
+        else:
+            from ..workflows_minhash_append import append_clust_greedy
+            append_clust_greedy(args.presketched, args.append, args.output,
+                                args.sketch_by_file, args.min_len,
+                                args.threshold, args.threads, opts, device,
+                                stats)
+        return 0
     if args.presketched:
         if args.is_fast:
             wf.clust_from_sketch_fast(args.presketched, args.output,

@@ -5,14 +5,18 @@ torch device (reference src/main.cpp:524-651 dispatch).
         -l -i genomes.list -o out.cluster -d 0.05
 
 The flags are the reference's (``cli/common.py``, a copy of the JAX
-package's parser).  KSSD (``--fast``: fresh genomes, ``--presketched``,
-``--premsted``, the classic ``--append``), MinHash (no ``--fast``: fresh
-genomes, ``--presketched``, ``--premsted``), ``--sketch-func
-WMH|HLL|OMH`` (fresh genomes; WMH and OMH on the card with or without
-``--device``) and ``--multihost`` (``run_multihost``: one rank of a
-multi-process run, ``workflows_dist.py``) run; the arms of
-``common.NOT_PORTED`` exit with status 1 and name the ROADMAP item that
-will port them.
+package's parser).  Every arm of the JAX CLI runs: KSSD (``--fast``: fresh
+genomes, ``--presketched``, ``--premsted``, ``--append`` classic or over a
+saved ``mst_cluster_state.bin``, ``--save-rep``, ``--buildDB``), MinHash
+(no ``--fast``: the same, ``workflows_minhash_append.py`` for
+``--append``), the MST RepDB verbs (``--db``, ``cli/repdb.py``),
+``--sketch-func WMH|HLL|OMH`` (fresh genomes; WMH and OMH on the card with
+or without ``--device``) and ``--multihost`` (``run_multihost``: one rank
+of a multi-process run, ``workflows_dist.py``).  The clustering arms need
+``--device``.  ``--premsted``, ``--buildDB``, an ``--append`` through a
+saved state and the RepDB verbs run without it: on the host where the JAX
+package does, but for the RepDB ``--build``, which takes the dense engine
+on the CLI's device either way.
 """
 
 from __future__ import annotations
@@ -24,12 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .. import workflows as wf
-from .common import (
-    base_parser,
-    make_output_options,
-    refuse_unported,
-    validate_common,
-)
+from .common import base_parser, make_output_options, validate_common
 
 
 def main(argv=None, device: Optional[torch.device] = None,
@@ -46,10 +45,26 @@ def main(argv=None, device: Optional[torch.device] = None,
 
     if args.sketch_func in ("WMH", "HLL", "OMH"):
         return _extra_sketch_arm(args, device, stats)
-    if args.multihost and not args.repdb_path:
+    if args.repdb_path:
+        from .repdb import run_mst_repdb
+        return run_mst_repdb(args, opts, device)
+    if args.multihost:
         return run_multihost(args, is_containment, "mst", device)
-    if refuse_unported(args, "mst"):
-        return 1
+    if args.is_fast and args.build_db:
+        # Source: rabbittclust_tpu/cli/clust_mst.py::main (the --buildDB arm)
+        if not args.sketch_by_file:
+            print("ERROR: --buildDB currently requires -l/--list",
+                  file=sys.stderr)
+            return 1
+        if not args.input:
+            print("ERROR: --buildDB requires -i/--input", file=sys.stderr)
+            return 1
+        from ..workflows_db import build_kssd_db_fast
+        build_kssd_db_fast(args.input, args.build_db,
+                           args.kmer_size is not None, is_containment,
+                           args.min_len, args.kmer_size or 21,
+                           args.drlevel, args.threads)
+        return 0
     if args.premsted and not args.append:
         # MinHash runs omit the threshold header (kssd=False)
         wf.clust_from_mst_fast(args.premsted, args.output, args.threshold,
@@ -59,12 +74,15 @@ def main(argv=None, device: Optional[torch.device] = None,
         print("ERROR: option --append, option --presketched or "
               "--premsted needed", file=sys.stderr)
         return 1
-    if not args.use_device:
+    host_append = bool(args.append) and wf.append_on_host(
+        args.presketched or args.premsted, "mst", args.is_fast)
+    if not (args.use_device or host_append):
         print("ERROR: rabbittclust_tpu_torch runs the device engine only: "
               "pass --device (the host engine is rabbittclust_tpu's "
               "clust-mst)", file=sys.stderr)
         return 1
-    device = resolve_device(device)
+    if not host_append:
+        device = resolve_device(device)
     if args.is_fast:
         if args.append:
             wf.append_clust_mst_fast(args.presketched or args.premsted,
@@ -93,6 +111,12 @@ def main(argv=None, device: Optional[torch.device] = None,
         return 0
 
     # MinHash (default) arm
+    if args.append:
+        from ..workflows_minhash_append import append_clust_mst
+        append_clust_mst(args.presketched or args.premsted, args.append,
+                         args.output, args.sketch_by_file, args.min_len,
+                         args.threshold, args.threads, opts, device, stats)
+        return 0
     if args.presketched:
         wf.clust_from_sketches(args.presketched, args.output, args.threshold,
                                args.threads, opts, device, stats)

@@ -51,9 +51,12 @@ a process (the plain versions); without it a process takes
 process id) and raises when there is no GPU.  ``launch_local_sim`` spawns
 N local processes running the self-test ``_sim_child``.
 
-Left out: ``multihost_repdb_query`` and ``multihost_repdb_assign``, which
-need the RepDB state (``state/greedy_state.py``), not ported yet; the JAX
-function's ``cap`` (each step's output is sized from the step's count).
+RepDB serving (``multihost_repdb_query``, ``multihost_repdb_assign``):
+each process probes its block of the queries against its replica of the
+state on the host and the hits are allgathered, as in the JAX package.
+
+Left out: the JAX function's ``cap`` (each step's output is sized from
+the step's count).
 """
 
 from __future__ import annotations
@@ -801,6 +804,70 @@ def multihost_dbscan(local_hashes: List[np.ndarray], n_total: int,
     return result_from_labels(labels, n_total, k, drop_empty=minhash)
 
 
+# Source: rabbittclust_tpu/parallel/multihost.py::multihost_repdb_query
+def multihost_repdb_query(state, local_query_hashes: List[np.ndarray],
+                          topk: int) -> List[List[dict]]:
+    """Sharded RepDB probe (distributed serving of --db --query).
+
+    Every process holds a replica of the RepDB state (loaded from the same
+    file — the reference serving model, sub_command.cpp query verb) and
+    probes ONLY its contiguous query shard; per-query hit rows
+    (rep_idx, distance) are allgathered and every host reconstructs the
+    full ordered hit lists from its replica — identical to the serial
+    ``[state.query_topk(q, topk) for q in queries]`` over the concatenated
+    query shards.  Works for both KssdClusterState and MinHashClusterState
+    (same query_topk contract)."""
+    counts: List[int] = []
+    reps: List[int] = []
+    dists: List[float] = []
+    for q in local_query_hashes:
+        hits = state.query_topk(q, topk)
+        counts.append(len(hits))
+        for h in hits:
+            reps.append(h["rep_idx"])
+            dists.append(h["distance"])
+    gc = np.concatenate(_allgather_ragged(
+        np.asarray(counts, dtype=np.int64)))
+    gr = np.concatenate(_allgather_ragged(np.asarray(reps, dtype=np.int64)))
+    gd = np.concatenate(_allgather_ragged(
+        np.asarray(dists, dtype=np.float64)))
+    out: List[List[dict]] = []
+    off = 0
+    for c in gc.tolist():
+        row = []
+        for t in range(c):
+            rep_idx = int(gr[off + t])
+            gid = state.representative_ids[rep_idx]
+            row.append({
+                "rep_idx": rep_idx, "genome_id": gid,
+                "genome_name": state.file_names[gid],
+                "distance": float(gd[off + t]), "cluster_id": rep_idx,
+                "cluster_size": len(state.clusters[rep_idx]),
+            })
+        out.append(row)
+        off += c
+    return out
+
+
+# Source: rabbittclust_tpu/parallel/multihost.py::multihost_repdb_assign
+def multihost_repdb_assign(state,
+                           local_query_hashes: List[np.ndarray]
+                           ) -> List[dict]:
+    """Sharded RepDB assignment: top-1 probe + the threshold acceptance of
+    ``state.assign`` replayed on the gathered hits (identical to the
+    serial assign loop over the concatenated query shards)."""
+    res = multihost_repdb_query(state, local_query_hashes, 1)
+    out = []
+    for hits in res:
+        if hits and hits[0]["distance"] <= state.threshold:
+            out.append(hits[0])
+        else:
+            out.append({"rep_idx": -1, "genome_id": -1,
+                        "genome_name": "unassigned", "distance": -1.0,
+                        "cluster_id": -1, "cluster_size": 0})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Local simulation: N processes on one machine running the self-test
 
@@ -973,8 +1040,7 @@ def _dbscan_record(res) -> dict:
             "noise": [int(x) for x in res.noise]}
 
 
-# Source: rabbittclust_tpu/parallel/multihost.py::_sim_child (without the
-# RepDB block)
+# Source: rabbittclust_tpu/parallel/multihost.py::_sim_child
 def _sim_child(process_id: int, num_processes: int, port: int,
                devices_per_proc: int, n_genomes: int,
                out_dir: str = "") -> None:
@@ -1069,6 +1135,29 @@ def _sim_child(process_id: int, num_processes: int, port: int,
         "spread corpus failed to form big+subset clusters (bad fixture)"
     assert dbs_mh.labels.tolist() == dbs_host.labels.tolist(), \
         "multihost containment dbscan (size spread) != single-host"
+    # multihost RepDB probe/assign == the serial query loop over the same
+    # replica (sharded serving; every process loads the identical state)
+    from ..sketch.base import SketchSet
+    from ..sketch.kssd import KssdParams
+    from ..state.greedy_state import KssdClusterState
+    p_db = KssdParams.from_kmer_size(21, 3)
+    ss_db = SketchSet("kssd", p_db, True, False)
+    for i, h in enumerate(hashes):
+        ss_db.append_genome(file_name=f"g{i}.fna", name=f"g{i}", comment="",
+                            seq0_len=1000, total_len=1000, num_seqs=1,
+                            hashes=h)
+    ss_db2 = ss_db.reorder(ss_db.kssd_greedy_order())
+    st = KssdClusterState.from_clustering(
+        ss_db2, p_db, greedy_cluster(ss_db2.hashes, 0.05, 21,
+                                     presorted=True), 0.05)
+    queries = _make_sim_sketches(n_genomes, seed=7)
+    qlo, qhi = shard_bounds(len(queries), num_processes, process_id)
+    q_mh = multihost_repdb_query(st, queries[qlo:qhi], 3)
+    q_host = [st.query_topk(q, 3) for q in queries]
+    assert q_mh == q_host, "multihost repdb query != serial query loop"
+    a_mh = multihost_repdb_assign(st, queries[qlo:qhi])
+    a_host = [st.assign(q) for q in queries]
+    assert a_mh == a_host, "multihost repdb assign != serial assign loop"
     g_mh = [[int(x) for x in c] for c in g_mh]
     cl_mh = [[int(x) for x in c] for c in cl_mh]
     digest = hashlib.sha256(repr(
@@ -1085,6 +1174,7 @@ def _sim_child(process_id: int, num_processes: int, port: int,
                 ("plain", db_mh), ("max_posting", dbp_mh), ("knn", dbk_mh),
                 ("minhash", dbm_mh), ("containment", dbc_mh),
                 ("spread", dbs_mh))},
+            "repdb_query": q_mh, "repdb_assign": a_mh,
             "ring": dict(RING_LAST), "digest": digest}
         with open(os.path.join(out_dir, f"proc{process_id}.pkl"), "wb") as f:
             pickle.dump(result, f)

@@ -32,8 +32,7 @@ def stdsort_size_desc(sizes: np.ndarray) -> np.ndarray:
     return out.astype(np.int64)
 
 
-# Source: rabbittclust_tpu/sketch/base.py::SketchSet (without
-# sort_by_size_desc)
+# Source: rabbittclust_tpu/sketch/base.py::SketchSet
 @dataclass
 class SketchSet:
     kind: str                      # "kssd" | "minhash"
@@ -92,6 +91,13 @@ class SketchSet:
                 total_len=self.total_lens[i], num_seqs=self.num_seqs[i],
                 hashes=self.hashes[i], param_size=self.param_sizes[i])
         return out
+
+    def sort_by_size_desc(self) -> np.ndarray:
+        """Deterministic greedy ordering: sketch size descending, id
+        ascending on ties.  Used where the reference's comparator also
+        breaks ties by id (cmpGenomeSize/cmpSeqSize, SketchInfo.cpp:35-58)
+        or where no parity constraint applies."""
+        return np.lexsort((np.arange(len(self)), -self.sizes))
 
     def kssd_greedy_order(self) -> np.ndarray:
         """KSSD greedy ordering with REFERENCE tie order (see

@@ -21,7 +21,8 @@ Launch (one command per card):
 
 ``python -m rabbittclust_tpu_torch.parallel.launch`` starts N such
 processes on one machine; ``RTC_VIRTUAL_CPU_DEVICES=M`` runs each on M
-CPU shards.
+CPU shards.  ``repdb_query_multihost`` serves ``--db --query/--assign
+--multihost`` the same way: each process probes its block of the queries.
 """
 
 from __future__ import annotations
@@ -198,6 +199,60 @@ def clust_mst_multihost(input_file: str, output_file: str,
             log(f"-----write the cluster result into: {output_file}")
             log(f"-----the number of clusters is: {len(clusters)}")
         return clusters, ss
+    finally:
+        mh.shutdown_multihost()
+
+
+# Source: rabbittclust_tpu/workflows_dist.py::repdb_query_multihost
+def repdb_query_multihost(db_path: str, input_file: str, output_file: str,
+                          coordinator: str, num_processes: int,
+                          process_id: int, *, sketch_by_file: bool = True,
+                          topk: int = 5, assign: bool = False,
+                          min_len: int = 10000, threads: int = 0,
+                          devices: Optional[Sequence] = None):
+    """Distributed RepDB serving (--db --query/--assign --multihost):
+    every process loads the same RepDB replica, sketches ONLY its block of
+    the query list, probes it on the host (``query_topk``, as the JAX
+    package's processes do), and the gathered hits are written by process 0
+    — TSV byte-identical to the single-host query/assign verbs (reference
+    sub_command.cpp:337-450 writers).  ``devices``: this process's shards,
+    as ``clust_mst_multihost`` takes them (they choose the transport)."""
+    import torch.distributed as dist
+
+    from .cli.repdb import write_assign_tsv, write_query_tsv
+    from .parallel import multihost as mh
+    from .state.greedy_state import KssdClusterState
+
+    mh.init_multihost(coordinator, num_processes, process_id, devices)
+    try:
+        state = KssdClusterState.load_repdb(db_path)
+        if sketch_by_file:
+            files = read_file_list(input_file)
+            lo, hi = mh.shard_bounds(len(files), num_processes, process_id)
+            log(f"-----process {process_id}: sketching query files "
+                f"[{lo}, {hi}) of {len(files)}")
+            local_ss, _ = sketch_files_kssd(files[lo:hi], min_len,
+                                            state.kmer_size,
+                                            state.params.drlevel, threads)
+            ss = gather_global_sketches(local_ss, state.params, True)
+        else:
+            ss, _ = sketch_sequences_kssd(input_file, min_len,
+                                          state.kmer_size,
+                                          state.params.drlevel, threads)
+            lo, hi = mh.shard_bounds(len(ss), num_processes, process_id)
+            local_ss = ss.reorder(np.arange(lo, hi))
+        if assign:
+            res = mh.multihost_repdb_assign(state, local_ss.hashes)
+        else:
+            res = mh.multihost_repdb_query(state, local_ss.hashes, topk)
+        if dist.get_rank() == 0:
+            if assign:
+                write_assign_tsv(state, ss, output_file, precomputed=res)
+            else:
+                write_query_tsv(state, ss, output_file, topk,
+                                precomputed=res)
+            log(f"-----write the query result into: {output_file}")
+        return res, ss
     finally:
         mh.shutdown_multihost()
 

@@ -299,52 +299,64 @@ def test_classic_append_preserves_source_folder(synthetic_genomes, tmp_path,
                 if p.name.startswith("20")]) == 2
 
 
+def _cli_exit(fn, argv, capsys, **kw):
+    """(exit code, last line of stderr) of ``fn(argv)`` as the console
+    entry ``cli()`` reports it: a FileNotFoundError or ValueError is
+    ``ERROR: <message>`` and exit code 1."""
+    capsys.readouterr()
+    try:
+        rc = fn(argv, **kw)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        rc = 1
+    return rc, capsys.readouterr().err.strip().splitlines()[-1]
+
+
 @pytest.mark.parametrize("extra", [
     ["--append", "x.list", "--presketched", "dir"],
-    ["--fast", "--save-rep"],
+    ["--fast", "--save-rep", "--presketched", "dir"],
     ["--fast", "--buildDB", "db"],
     ["--fast", "--db", "rep.db"],
     ["--fast", "--sketch-func", "HLL"],
     ["--fast", "--multihost", "localhost:1,1,0"],
 ], ids=["append", "save-rep", "buildDB", "db", "sketch-func", "multihost"])
 def test_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
-    """Arms not ported yet exit 1 naming their ROADMAP item; ``append`` is
-    the MinHash --append (no --fast).  The extra sketches and --multihost
-    are ported: ``--fast --sketch-func`` exits 1 with the JAX CLI's error
-    (fresh genome input only), and ``--multihost`` without ``-i`` with the
-    JAX CLI's ``run_multihost`` refusal."""
+    """Arms given what they cannot run exit 1 with the JAX CLI's exit code
+    and error: ``append`` (the MinHash --append) and ``save-rep`` over a
+    missing folder, ``--buildDB`` without ``-l``, ``--db`` without a verb,
+    ``--fast --sketch-func`` (fresh genome input only) and ``--multihost``
+    without ``-i`` (the JAX CLI's ``run_multihost`` refusal).  Every arm
+    is ported: none says "not ported"."""
     argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
-    assert port_main(argv, device=CPU) == 1
-    err = capsys.readouterr().err
+    want = _cli_exit(jax_main, argv, capsys)
+    got = _cli_exit(port_main, argv, capsys, device=CPU)
+    assert got == want and got[0] == 1
+    assert "not ported" not in got[1]
     if "--sketch-func" in extra:
-        assert "supports fresh genome input only" in err
-        assert "not ported" not in err
+        assert "supports fresh genome input only" in got[1]
     elif "--multihost" in extra:
-        assert "--multihost requires -i/--input genomes" in err
-        assert "not ported" not in err
-    else:
-        assert "not ported" in err and "ROADMAP Queue 1 item" in err
+        assert "--multihost requires -i/--input genomes" in got[1]
     assert not (tmp_path / "o.cluster").exists()
 
 
 @pytest.mark.parametrize("extra", [
     ["--fast", "--append", "x.list", "--presketched", "dir"],
     ["--append", "x.list", "--presketched", "dir"],
-    ["--fast", "--save-rep"],
+    ["--fast", "--save-rep", "--presketched", "dir"],
     ["--fast", "--db", "rep.db"],
     ["--fast", "--multihost", "localhost:1,1,0"],
 ], ids=["append", "minhash-append", "save-rep", "db", "multihost"])
 def test_greedy_cli_arms_outside_the_slice_exit_1(extra, tmp_path, capsys):
-    """As clust-mst's: ``--multihost`` (ported) without ``-i`` exits 1 with
-    the JAX CLI's refusal."""
+    """As clust-mst's: the port's exit code and error are the JAX CLI's
+    (the KSSD and MinHash --append and --save-rep over a missing folder,
+    --db without a verb, --multihost without ``-i``)."""
     argv = ["--device", "-o", str(tmp_path / "o.cluster")] + extra
-    assert port_greedy_main(argv, device=CPU) == 1
-    err = capsys.readouterr().err
+    want = _cli_exit(jax_greedy_main, argv, capsys)
+    got = _cli_exit(port_greedy_main, argv, capsys, device=CPU)
+    assert got == want and got[0] == 1
+    assert "not ported" not in got[1]
     if "--multihost" in extra:
-        assert "--multihost requires -i/--input genomes" in err
-        assert "not ported" not in err
-    else:
-        assert "not ported" in err and "ROADMAP Queue 1 item 1" in err
+        assert "--multihost requires -i/--input genomes" in got[1]
     assert not (tmp_path / "o.cluster").exists()
 
 
@@ -389,26 +401,36 @@ def test_cli_multihost_refusals_match_jax(module, argv, message, tmp_path,
 
 @pytest.mark.parametrize("module", ["mst", "greedy"])
 def test_cli_db_multihost_waits_for_repdb(module, tmp_path, capsys):
-    """``--db ... --multihost`` (the RepDB serving path) stays unported: it
-    exits 1 under the ``--db`` row, ROADMAP Queue 1 item 10."""
+    """``--db ... --multihost`` takes the JAX CLIs' RepDB dispatch:
+    clust-mst's MST RepDB verbs (which run in each process) fail on the
+    missing RepDB file, clust-greedy's serving path refuses a verb other
+    than --query/--assign, both before any process group is joined and as
+    the JAX CLIs do (``tests/test_torch_multihost_workflow.py`` serves
+    --query and --assign)."""
     out = str(tmp_path / "o.cluster")
+    verb = "--query" if module == "mst" else "--stats"
+    argv = ["--fast", "-l", "-i", "x.list", "--db",
+            str(tmp_path / "rep.db"), verb, "-o", out] + MULTIHOST
+    jax_fn = jax_main if module == "mst" else jax_greedy_main
     port_fn = port_main if module == "mst" else port_greedy_main
-    assert port_fn(["--fast", "-l", "-i", "x.list", "--db", "rep.db",
-                    "--query", "-o", out] + MULTIHOST, device=CPU) == 1
-    err = capsys.readouterr().err
-    assert "--db (RepDB) is not ported" in err
-    assert "ROADMAP Queue 1 item 10" in err
+    want = _cli_exit(jax_fn, argv, capsys)
+    got = _cli_exit(port_fn, argv, capsys, device=CPU)
+    assert got == want and got[0] == 1
+    assert ("No such file" in got[1]) == (module == "mst")
     assert not os.path.exists(out)
 
 
 def test_cli_mst_state_append_exits_1(tmp_path, capsys):
-    """An --append over a folder with a saved mst_cluster_state.bin (only
-    --save-rep writes one) takes the state machine, which is not ported."""
+    """An --append over a folder with a saved mst_cluster_state.bin takes
+    the state machine: an empty state file is refused with the JAX CLI's
+    error."""
     (tmp_path / "mst_cluster_state.bin").write_bytes(b"")
-    assert port_main(["--fast", "--device", "--presketched", str(tmp_path),
-                      "--append", "x.list", "-o",
-                      str(tmp_path / "o.cluster")], device=CPU) == 1
-    assert "item 10" in capsys.readouterr().err
+    argv = ["--fast", "--device", "--presketched", str(tmp_path),
+            "--append", "x.list", "-o", str(tmp_path / "o.cluster")]
+    want = _cli_exit(jax_main, argv, capsys)
+    got = _cli_exit(port_main, argv, capsys, device=CPU)
+    assert got == want == (1, f"ERROR: bad MST state magic in "
+                              f"{tmp_path / 'mst_cluster_state.bin'}")
 
 
 def test_cli_minhash_arm_and_missing_device_exit_1(tmp_path, capsys):
@@ -429,6 +451,45 @@ def test_cli_device_none_requires_cuda(synthetic_genomes, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         port_main(_fresh_args(synthetic_genomes) +
                   ["-e", "-o", str(tmp_path / "o.cluster")])
+
+
+@pytest.mark.parametrize("verb", ["greedy-query", "mst-build"])
+def test_repdb_device_programs_require_cuda(verb, synthetic_genomes,
+                                            tmp_path, monkeypatch):
+    """The RepDB verbs with a device program, the greedy KSSD --query and
+    the MST --build, run it on the CLI's device with or without --device:
+    ``device=None`` without a GPU raises, as on the clustering arms."""
+    db = str(tmp_path / "rep.db")
+    args = ["--fast", "-l", "-i", synthetic_genomes.list_file, "-d", "0.05",
+            "--drlevel", "2", "-m", "1000", "--db", db, "-o",
+            str(tmp_path / "o.txt")]
+    if verb == "greedy-query":  # the build is host code
+        assert port_greedy_main(args + ["--build"]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if verb == "greedy-query":
+            port_greedy_main(args + ["--query"])
+        else:
+            port_main(args + ["--build"])
+
+
+@pytest.mark.parametrize("module", ["mst", "greedy"])
+def test_cli_append_device_policy(module, tmp_path, monkeypatch, capsys):
+    """Without --device, an --append that would re-cluster on the device
+    engines (the MinHash classic append) exits 1 asking for it; a host
+    append (the KSSD greedy append, here over an empty folder) runs as the
+    JAX CLI's does and fails as it does, on the missing sketches."""
+    fns = {"mst": (port_main, jax_main),
+           "greedy": (port_greedy_main, jax_greedy_main)}[module]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--presketched", str(tmp_path), "--append", "x.list", "-l",
+            "-o", str(tmp_path / "o.cluster")]
+    assert fns[0](argv) == 1
+    assert "pass --device" in capsys.readouterr().err
+    if module == "greedy":
+        want = _cli_exit(fns[1], ["--fast"] + argv, capsys)
+        got = _cli_exit(fns[0], ["--fast"] + argv, capsys)
+        assert got == want and got[0] == 1
 
 
 def test_port_never_imports_jax():

@@ -1650,3 +1650,88 @@ def test_two_process_sim_on_the_card():
     assert len({o.split("digest=")[1] for o in outs}) == 1
     assert all(int(o.split("ring_launches=")[1].split()[0]) > 0
                for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# The state files' device paths: the RepDB probe and the MinHash append
+
+@pytest.mark.parametrize("pull", ["mask", "idx"])
+def test_batch_query_device_on_card_matches_serial(gpu, monkeypatch, pull):
+    """``batch_query_device`` on cuda:0 (K1, and K3 under idx) equals the
+    serial ``query_topk`` loop field for field, distances exactly."""
+    from rabbittclust_tpu_torch.cluster.greedy import greedy_cluster
+    from rabbittclust_tpu_torch.sketch.base import SketchSet
+    from rabbittclust_tpu_torch.sketch.kssd import KssdParams
+    from rabbittclust_tpu_torch.state.greedy_state import (
+        KssdClusterState, batch_query_device)
+    monkeypatch.setenv("RTC_PULL_MODE", pull)
+    hashes = clustered_sketches(n=600, s=400, n_clusters=150, seed=17)
+    p = KssdParams.from_kmer_size(21, 3)
+    ss = SketchSet("kssd", p, True, False)
+    for i, h in enumerate(hashes[:400]):
+        ss.append_genome(file_name=f"g{i}.fna", name=f"g{i}", comment="",
+                         seq0_len=1, total_len=1, num_seqs=1, hashes=h)
+    ss2 = ss.reorder(ss.kssd_greedy_order())
+    st = KssdClusterState.from_clustering(
+        ss2, p, greedy_cluster(ss2.hashes, 0.05, p.kmer_size,
+                               presorted=True), 0.05)
+    rng = np.random.default_rng(2)
+    reps = [st.hashes[g] for g in st.representative_ids]
+    novel = clustered_sketches(n=8, s=400, n_clusters=8, seed=99)
+    queries = hashes[400:] + novel + [
+        np.union1d(a[rng.random(len(a)) < 0.7], b[rng.random(len(b)) < 0.7])
+        for a, b in zip(reps[0::2], reps[1::2])]
+    bm.reset_launches()
+    got = batch_query_device(st, queries, 3, device=gpu)
+    torch.cuda.synchronize()
+    assert bm.LAUNCHES["filter_mask"] > 0
+    assert (bm.LAUNCHES["mask_compact"] > 0) == (pull == "idx")
+    assert got == [st.query_topk(q, 3) for q in queries]
+    assert any(len(r) > 1 for r in got) and any(not r for r in got)
+
+
+def test_minhash_classic_append_on_card_matches_native(gpu, tmp_path,
+                                                       monkeypatch):
+    """MinHash ``clust-mst --device --append`` over a folder without a
+    state: K4's mask mode on two planes from start_index, and the new
+    folder's MST equal to the native ``compute_mst`` with the same
+    start_index and the saved edges (edges equal, weights to 1e-12)."""
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.io.fasta import read_file_list
+    from rabbittclust_tpu_torch.sketch.minhash import sketch_files_minhash
+    from rabbittclust_tpu_torch.state import sketch_io
+    files, _ = _write_genomes(tmp_path, 4, 4, 20_000, 12)
+    lists = {}
+    for name, part in (("build", files[:10]), ("add", files[10:])):
+        lists[name] = str(tmp_path / f"{name}.list")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(part) + "\n")
+    for wd in ("src", "app"):
+        (tmp_path / wd).mkdir()
+    monkeypatch.chdir(tmp_path / "src")
+    args = ["--device", "-l", "-d", "0.05", "-m", "1000", "-s", "300"]
+    assert main(args + ["-i", lists["build"], "-o", "src.cluster"]) == 0
+    (src,) = [p for p in (tmp_path / "src").iterdir() if p.is_dir()]
+    calls = []
+    real = engine.pair_mask_tiles
+
+    def spy(*a, **kw):
+        calls.append((a[1] is not None, a[7]))
+        return real(*a, **kw)
+    monkeypatch.setattr(engine, "pair_mask_tiles", spy)
+    monkeypatch.chdir(tmp_path / "app")
+    ix.reset_launches()
+    assert main(args + ["--presketched", str(src), "--append",
+                        lists["add"], "-o", "app.cluster"]) == 0
+    torch.cuda.synchronize()
+    assert ix.LAUNCHES["pair_mask_tiles"] > 0 and set(calls) == {(True, 10)}
+    (new,) = [p for p in (tmp_path / "app").iterdir() if p.is_dir()]
+    ss, p = sketch_io.load_minhash_sketches(str(src))
+    ss.extend(sketch_files_minhash(read_file_list(lists["add"]), 1000, p))
+    want = compute_mst(ss.hashes, 0.05, p.kmer_size, start_index=10,
+                       pre_edges=sketch_io.load_mst(str(src))).mst
+    got = sketch_io.load_mst(str(new))
+    assert got[0].tolist() == want[0].tolist()
+    assert got[1].tolist() == want[1].tolist()
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-12, atol=0)
+    assert len(_cluster_ids(str(tmp_path / "app" / "app.cluster"))) == 4

@@ -11,7 +11,9 @@ package.
 * ``shard_bounds`` and the byte-exact ragged allgather (one gloo rank).
 * ``launch_local_sim``: every child asserts its results against the port's
   single-process engines and writes them to a file; here they are held to
-  the JAX package's single-host engines on the same inputs.
+  the JAX package's single-host engines on the same inputs (the RepDB
+  probe and assignment to the JAX state's serial ``query_topk`` and
+  ``assign`` loops).
 * ``dryrun_multichip`` over CPU shards.
 """
 
@@ -208,6 +210,24 @@ def _jax_results(n):
     return hashes, res, order, srt, db
 
 
+def _jax_repdb(hashes):
+    """The JAX package's RepDB state of the simulation's corpus, and its
+    queries (the child's RepDB block)."""
+    from rabbittclust_tpu.sketch.base import SketchSet
+    from rabbittclust_tpu.sketch.kssd import KssdParams
+    from rabbittclust_tpu.state.greedy_state import KssdClusterState
+    p = KssdParams.from_kmer_size(21, 3)
+    ss = SketchSet("kssd", p, True, False)
+    for i, h in enumerate(hashes):
+        ss.append_genome(file_name=f"g{i}.fna", name=f"g{i}", comment="",
+                         seq0_len=1000, total_len=1000, num_seqs=1, hashes=h)
+    ss2 = ss.reorder(ss.kssd_greedy_order())
+    st = KssdClusterState.from_clustering(
+        ss2, p, jax_greedy(ss2.hashes, THRESHOLD, 21, presorted=True),
+        THRESHOLD)
+    return st, jmh._make_sim_sketches(len(hashes), seed=7)
+
+
 @pytest.mark.parametrize("nproc,per,n", [(2, 2, 48), (3, 2, 50)])
 def test_local_sim_equals_jax(nproc, per, n, tmp_path):
     outs = mh.launch_local_sim(nproc, per, n, device="cpu",
@@ -245,6 +265,9 @@ def test_local_sim_equals_jax(nproc, per, n, tmp_path):
         assert mine["labels"] == ref.labels.tolist(), name
         assert mine["clusters"] == ref.clusters, name
         assert mine["noise"] == ref.noise, name
+    st, queries = _jax_repdb(hashes)
+    assert got["repdb_query"] == [st.query_topk(q, 3) for q in queries]
+    assert got["repdb_assign"] == [st.assign(q) for q in queries]
     for ring in rings:
         assert ring["transport"] == "gloo" and ring["n_dev"] == nproc * per
         assert len(ring["hop_bytes"]) == pde._n_ring_steps(nproc * per) - 1

@@ -4,7 +4,8 @@ sketching only its block of the genome list, must write a ``.cluster``
 file byte-identical to the JAX CLI's single-host run at ``-t 2`` (the
 deterministic (distance, id) tie order the merged Kruskal keeps), as
 ``tests/test_multihost_workflow.py`` holds the JAX package's own
-multi-process run."""
+multi-process run; and the RepDB serving path (``--db --query/--assign
+--multihost``), each rank probing its block of the queries."""
 
 import os
 import signal
@@ -12,6 +13,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from rabbittclust_tpu_torch.parallel import launch as pl
 from rabbittclust_tpu_torch.parallel.multihost import RanksTimedOut, run_ranks
@@ -108,6 +110,43 @@ def test_module_entry_byte_equal(tmp_path, jittered_genomes):
         timeout=600, cwd=REPO)
     assert rcs == [0, 0], errs
     assert open(out).read() == want
+
+
+@pytest.mark.parametrize("verb", ["--query", "--assign"])
+def test_multihost_repdb_byte_equal_single_host(verb, tmp_path,
+                                                jittered_genomes):
+    """``clust-greedy --fast --db --query/--assign --multihost`` with 2
+    ranks, each probing its block of the queries: the TSV byte-equal to
+    the single-process verb's, the port's and the JAX CLI's."""
+    from rabbittclust_tpu.cli.clust_greedy import main as jax_main
+    from rabbittclust_tpu_torch.cli.clust_greedy import main as port_main
+    files = jittered_genomes.files
+    lists = {}
+    for name, part in (("build", files[::2]), ("query", files)):
+        lists[name] = str(tmp_path / f"{name}.list")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(part) + "\n")
+    db = str(tmp_path / "rep.db")
+    base = ["--fast", "--db", db, "-m", "1000", "-l"]
+    assert port_main(base + ["--build", "-i", lists["build"], "-o",
+                             str(tmp_path / "db.cluster")]) == 0
+    outs = {}
+    # the port's single-process --query probes on the CLI's device (K1's
+    # plain version on the CPU); the ranks probe on the host
+    for side, fn, kw in (("jax", jax_main, {}),
+                         ("port", port_main, {"device": torch.device("cpu")})):
+        outs[side] = str(tmp_path / f"{side}.tsv")
+        assert fn(base + [verb, "--top-k", "3", "-i", lists["query"], "-o",
+                          outs[side]], **kw) == 0
+    multi = str(tmp_path / "multi.tsv")
+    rc = pl.launch(2, base + [verb, "--top-k", "3", "-i", lists["query"],
+                              "-o", multi],
+                   module="greedy", virtual_cpu_devices=1, timeout=600.0)
+    assert rc == 0
+    want = open(outs["jax"]).read()
+    assert open(outs["port"]).read() == want
+    assert open(multi).read() == want
+    assert want.count("\n") > len(files)  # hits of several reps a query
 
 
 def test_launch_kills_every_child_at_its_timeout(tmp_path, monkeypatch,

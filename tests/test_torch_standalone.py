@@ -5,8 +5,9 @@ copies of the host code it needs.
 
 (a) reads every source with ``ast``; (b) runs each of the port's clust-mst,
 clust-greedy, clust-dbscan and clust-leiden arms (the device sketcher's
-``RTC_DEVICE_SKETCH=1``, ``--sketch-func WMH|OMH|HLL`` and the mesh rings
-under ``RTC_MESH=1`` among them) on
+``RTC_DEVICE_SKETCH=1``, ``--sketch-func WMH|OMH|HLL``, the mesh rings
+under ``RTC_MESH=1``, the RepDB verbs, ``--buildDB`` and the state-file
+``--save-rep`` / ``--append`` arms among them) on
 the CPU in a fresh process and lists what that process loaded;
 (c) the port copies none of the JAX package's NumPy fallbacks: its loader
 of the shared native library raises when the library cannot be had.
@@ -80,6 +81,11 @@ def test_the_static_check_sees_imports(tmp_path):
 _FRESH = ["--fast", "--device", "-l", "-i", "{list}", "-d", "0.05",
           "--drlevel", "2", "-m", "1000"]
 _MINHASH = ["--device", "-l", "-i", "{list}", "-d", "0.05", "-m", "1000"]
+_HALF = ["-l", "-i", "{half}", "-d", "0.05", "-m", "1000"]
+_APPEND = ["--device", "--presketched", "{run}", "--append", "{rest}", "-l",
+           "-d", "0.05", "-m", "1000"]
+_DB = ["--fast", "--drlevel", "2", "-m", "1000", "--db", "rep.db"]
+_MHDB = ["-m", "1000", "-s", "300", "--db", "mh.db"]
 ARMS = {
     "default_save": [("mst", _FRESH)],
     "e": [("mst", _FRESH + ["-e", "-t", "2"])],
@@ -127,6 +133,36 @@ ARMS = {
                                    "RTC_PULL_MODE": "idx"}),
                ("leiden", ["--pregraph", "{run}"]),
                ("leiden", _FRESH + ["--louvain", "-e"])],
+    "repdb_greedy": [
+        ("mst", ["--fast", "--buildDB", "db", "-l", "-i", "{half}", "-m",
+                 "1000", "--drlevel", "2"]),
+        ("greedy", _DB + ["--build", "--presketched", "{run}"]),
+        ("greedy", _DB + ["--query", "--device", "-l", "-i", "{rest}"]),
+        ("greedy", _DB + ["--query", "-l", "-i", "{rest}"]),
+        ("greedy", _DB + ["--assign", "-l", "-i", "{rest}"]),
+        ("greedy", _DB + ["--stats"]),
+        ("greedy", _DB + ["--append", "{rest}", "-l"])],
+    "repdb_mst": [
+        ("mst", _DB + ["--build", "--device", "-l", "-i", "{half}"]),
+        ("mst", _DB + ["--query", "-l", "-i", "{rest}"]),
+        ("mst", _DB + ["--stats"]),
+        ("mst", _DB + ["--append", "{rest}", "-l"]),
+        ("mst", _MHDB + ["--build", "--device", "-l", "-i", "{half}"]),
+        ("mst", _MHDB + ["--assign", "-l", "-i", "{rest}"])],
+    "repdb_minhash": [
+        ("greedy", _MHDB + ["--build", "-l", "-i", "{half}"]),
+        ("greedy", _MHDB + ["--query", "-l", "-i", "{rest}"]),
+        ("greedy", _MHDB + ["--stats"]),
+        ("greedy", _MHDB + ["--append", "{rest}", "-l"])],
+    "state_append_mst": [("mst", ["--fast", "--device", "--save-rep"] + _HALF),
+                         ("mst", ["--fast"] + _APPEND)],
+    "state_append_greedy": [
+        ("greedy", ["--fast", "--device", "--save-rep"] + _HALF),
+        ("greedy", ["--fast", "--save-rep"] + _APPEND)],
+    "minhash_append": [("mst", ["--device", "-s", "300"] + _HALF),
+                       ("mst", _APPEND)],
+    "minhash_greedy_append": [("greedy", ["--device", "--save-rep"] + _HALF),
+                              ("greedy", _APPEND)],
 }
 
 _RUNNER = r"""
@@ -156,7 +192,8 @@ for k, (cli, argv, *env) in enumerate(runs):
     rc = mains[cli](argv + ["-o", f"out{k}.cluster"],
                     device=torch.device("cpu"))
     assert rc == 0, (argv, rc)
-    assert os.path.getsize(f"out{k}.cluster") > 0
+    if "--stats" not in argv and "--buildDB" not in argv:
+        assert os.path.getsize(f"out{k}.cluster") > 0
     if run_dir is None:
         dirs = [d for d in os.listdir(".") if os.path.isdir(d)]
         run_dir = os.path.abspath(dirs[0]) if len(dirs) == 1 else None
@@ -211,6 +248,11 @@ if arm in ("mst", "greedy"):
     assert main(["--fast", "-l", "-i", list_file, "-m", "1000", "-d",
                  "0.05", "-o", "out.cluster", "--multihost",
                  f"{coord},2,{pid}"]) == 0
+elif arm == "repdb":
+    from rabbittclust_tpu_torch.cli import clust_greedy
+    assert clust_greedy.main(["--fast", "--db", "rep.db", "--assign", "-l",
+                              "-i", list_file, "-m", "1000", "-o", "a.tsv",
+                              "--multihost", f"{coord},2,{pid}"]) == 0
 elif arm == "sim":
     from rabbittclust_tpu_torch.parallel.multihost import _sim_child
     _sim_child(pid, 2, int(coord.split(":")[1]), 2, 20)
@@ -224,13 +266,20 @@ assert not bad, bad
 """
 
 
-@pytest.mark.parametrize("arm", ["mst", "greedy", "sim", "dryrun"])
+@pytest.mark.parametrize("arm", ["mst", "greedy", "repdb", "sim",
+                                 "dryrun"])
 def test_multihost_ranks_load_no_jax_package(arm, synthetic_genomes,
                                              tmp_path):
-    """Each rank of a ``--multihost`` CLI run and of the simulation, and the
-    dry run (whose own simulation's children run ``_sim_child``), load
-    nothing of JAX or the JAX package."""
+    """Each rank of a ``--multihost`` CLI run (``repdb``: the RepDB probe,
+    ``--db --assign``) and of the simulation, and the dry run (whose own
+    simulation's children run ``_sim_child``), load nothing of JAX or the
+    JAX package."""
     from rabbittclust_tpu_torch.parallel.multihost import free_port, run_ranks
+    if arm == "repdb":
+        from rabbittclust_tpu_torch.cli.clust_greedy import main
+        assert main(["--fast", "--db", str(tmp_path / "rep.db"), "--build",
+                     "-l", "-i", synthetic_genomes.list_file, "-m", "1000",
+                     "-o", str(tmp_path / "db.cluster")]) == 0
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=REPO, RTC_VIRTUAL_CPU_DEVICES="2")
     coord = f"127.0.0.1:{free_port()}"
