@@ -135,7 +135,25 @@ Phases, one line or block each; any failure raises (non-zero exit):
    mask mode from start_index 64 on two planes and its MST held to the
    native ``compute_mst`` as phase 10's is, the source folders unchanged
    but for the KSSD MST state saved again; (d) ``--db --query/--assign
-   --multihost`` with two ranks on cuda:0 byte-equal to (b)'s TSVs.
+   --multihost`` with two ranks on cuda:0 byte-equal to (b)'s TSVs;
+19. the profiler hook, the ``-t 1`` arms and the malloc tuning: (a) under
+   ``RTC_PROFILE_DIR`` phase 6's ``-e`` run at N = 131,072 (LP), the
+   stream engine forced at N = 16,384 and a dense-engine ``-e`` run
+   (``RTC_MST_CLUSTERS_FAST=0``) at N = 2,048, each writing one JSON trace
+   in its phase's directory (``labelprop_cluster`` holding K1's and K2's
+   kernels, ``bitmap_filter_cluster`` K1's, ``dense_mst_device_compact``
+   K4's and K5b's, found by name), then the same run untraced, which must
+   make nothing: the traces' sizes and device events, both walls; all in
+   a process of its own, as a CLI run is (``chip_smoke.py --trace-child
+   TMP``: on the card's machine a profiler session that starts long after
+   its process's first loses the card's records); (b)
+   ``clust-mst --fast -l --device -e -t 1`` at 2048 bits on 400 genomes
+   (rb 256: the varied corpus at the tuned k and at ``-k 21``, the tie
+   corpus at ``-k 21``) and 5,000 genomes (rb 512), the corpora of
+   tests/test_torch_scale*.py's parameters drawn with numpy: K1 launched,
+   the ``.cluster`` byte-equal to the port's CPU run's; (c) ``import
+   rabbittclust_tpu_torch`` in a child process makes glibc's two
+   ``mallopt`` calls, and none under ``RTC_MALLOC_REUSE=0``.
 
 Phase 3d holds K3 (``compact_masks``, ``compact_steps``, and K1 + K3 as
 ``batched_filter``) to its plain versions on batches of 16 tiles at rb
@@ -180,8 +198,8 @@ step) to the plain step on a band of 256 rows for each step kind at 4
 shards of N = 16,384, and times the whole steps beside their bounds and
 K4's counts mode: the count equal, the float32 minimum within 4 ulp.
 
-Each of phases 8-12 and 15-18 prints its kernels' launch counts on a line
-of its own.
+Each of phases 8-12, 15-18 and 19a prints its kernels' launch counts on a
+line of its own.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a visible GPU it exits 2 and
@@ -1972,6 +1990,26 @@ def phase_append(tmp, n_old):
     say_launches("append", launches, k4=k4, k5b=k5b)
 
 
+@contextlib.contextmanager
+def environment(env):
+    """``os.environ`` updated by ``env`` inside the ``with`` (a None value
+    removes the variable)."""
+    saved = {key: os.environ.get(key) for key in env}
+    for key, val in env.items():
+        if val is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = val
+    try:
+        yield
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
 def run_pairs_cli(main, argv, env):
     """One clust-dbscan / clust-leiden run under the environment ``env``
     from launch and pull counts set to 0: (wall, stats, launches, K3 spy,
@@ -1979,25 +2017,16 @@ def run_pairs_cli(main, argv, env):
     build, pulled bytes)."""
     from rabbittclust_tpu_torch.cluster import leiden
     from rabbittclust_tpu_torch.ops import bitmap as bm
-    saved = {key: os.environ.get(key) for key in env}
-    os.environ.update(env)
     bm.reset_launches()
     bm.reset_pull_stats()
     stats = {}
-    try:
-        with Spy(bm, "compact_masks_into") as k3, \
-                Spy(bm, "candidate_pairs_threshold") as pairs, \
-                Spy(leiden, "build_similarity_graph") as graph:
-            t0 = time.perf_counter()
-            rc = main(argv, stats=stats)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for key, val in saved.items():
-            if val is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = val
+    with environment(env), Spy(bm, "compact_masks_into") as k3, \
+            Spy(bm, "candidate_pairs_threshold") as pairs, \
+            Spy(leiden, "build_similarity_graph") as graph:
+        t0 = time.perf_counter()
+        rc = main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{argv[:3]}... returned {rc}")
     return (wall, stats, dict(bm.LAUNCHES), k3, pairs.seconds, graph.seconds,
@@ -2301,26 +2330,16 @@ def run_sketch_cli(main, argv, env, dev, cwd):
     from K7's launch counts set to 0: (wall, stats, K7's launch counts (the
     windows' and the keep bitmap's), spy of the device sketcher)."""
     from rabbittclust_tpu_torch.ops import sketch_device as sd
-    saved = {key: os.environ.get(key) for key in env}
-    os.environ.update(env)
-    back = os.getcwd()
-    os.chdir(cwd)  # the run folder is created in the working directory
     sd.reset_launches()
     stats = {}
-    try:
-        with Spy(sd, "sketch_files_kssd_device") as spy:
-            t0 = time.perf_counter()
-            rc = main(argv, device=dev, stats=stats)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        os.chdir(back)
-        for key, val in saved.items():
-            if val is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = val
+    # the run folder is created in the working directory
+    with environment(env), working_dir(cwd), \
+            Spy(sd, "sketch_files_kssd_device") as spy:
+        t0 = time.perf_counter()
+        rc = main(argv, device=dev, stats=stats)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{argv[:3]}... returned {rc}")
     return wall, stats, dict(sd.LAUNCHES), spy
@@ -3852,12 +3871,273 @@ def phase_state_repdb(tmp, dev, card):
     return launches
 
 
+# the phase directories RTC_PROFILE_DIR writes and the csrc kernels each
+# trace must hold (names by substring: templated kernels carry their
+# signature)
+TRACED_KERNELS = {
+    "labelprop_cluster": ("filter_mask_kernel", "lp_round_kernel"),
+    "bitmap_filter_cluster": ("filter_mask_kernel",),
+    "dense_mst_device_compact": ("pair_tiles_kernel", "pair_common_kernel"),
+}
+
+
+def read_trace(folder):
+    """(path, bytes, device events, kernel names) of the one JSON trace in
+    ``folder``."""
+    files = os.listdir(folder)
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"{folder}: {files}, not one JSON trace")
+    path = os.path.join(folder, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = sorted({e.get("name", "") for e in device
+                      if e.get("cat") == "kernel"})
+    return path, os.path.getsize(path), len(device), kernels
+
+
+def traced_cli_run(main, argv, cwd, prof):
+    """One CLI run from ``cwd`` with RTC_PROFILE_DIR at ``prof`` (None:
+    unset); (wall, stats, traces written, the profiler's start, stop and
+    export seconds)."""
+    from rabbittclust_tpu_torch.utils import profiling
+    stats = {}
+    before = profiling.TRACE_STATS["traces"]
+    before_s = profiling.TRACE_STATS["trace_s"]
+    with environment({"RTC_PROFILE_DIR": prof}), working_dir(cwd):
+        t0 = time.perf_counter()
+        rc = main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{argv[:4]}... returned {rc}")
+    return (wall, stats, profiling.TRACE_STATS["traces"] - before,
+            profiling.TRACE_STATS["trace_s"] - before_s)
+
+
+def write_scale_genomes(folder, n_clusters, per_cluster, length, mutation,
+                        seed, length_jitter=0):
+    """tests/torch_port_data.py::write_scale_genomes: ``n_clusters`` random
+    ancestors copied ``per_cluster`` times at ``mutation`` point mutations,
+    each cut to ``length - U[0, length_jitter]``, one FASTA file each;
+    returns the list file's path."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    os.makedirs(folder, exist_ok=True)
+    files = []
+    for c in range(n_clusters):
+        base = rng.integers(0, 4, length, dtype=np.uint8)
+        for m in range(per_cluster):
+            g = base.copy()
+            hit = rng.random(length) < mutation
+            g[hit] = rng.integers(0, 4, int(hit.sum()), dtype=np.uint8)
+            cut = length - int(rng.integers(0, length_jitter + 1))
+            files.append(os.path.join(folder, f"g{c}_{m}.fna"))
+            with open(files[-1], "wb") as f:
+                f.write(f">genome_{c}_{m} cluster{c}\n".encode())
+                seq = acgt[g[:cut]].tobytes()
+                for k in range(0, cut, 80):
+                    f.write(seq[k:k + 80] + b"\n")
+    lst = os.path.join(folder, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return lst
+
+
+MALLOC_PROBE = r"""
+import ctypes, json
+calls = []
+real = ctypes.CDLL
+class Libc:
+    def __init__(self, lib):
+        self.lib = lib
+    def mallopt(self, param, value):
+        calls.append([param, value, self.lib.mallopt(param, value)])
+def cdll(name, *args, **kwargs):
+    lib = real(name, *args, **kwargs)
+    return Libc(lib) if name == "libc.so.6" else lib
+ctypes.CDLL = cdll
+import rabbittclust_tpu_torch
+print(json.dumps(calls))
+"""
+
+
+def trace_child(tmp):
+    """19a, run by ``chip_smoke.py --trace-child TMP`` in a process of its
+    own, as a CLI run is: on the card's machine the card's clock drifts from
+    the host's, and a process's profiler sessions lose the card's records
+    as out of their window once they start more than about 30 s after its
+    first one (PERF.md)."""
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    from rabbittclust_tpu_torch.ops import intersect as ix
+    from rabbittclust_tpu_torch.ops import labelprop as lp
+    work = os.path.join(tmp, "phase19")
+    runs = [("labelprop_cluster", "-e, N=131,072 (phase 6's folder)",
+             os.path.join(tmp, "slice_sketches"), {}),
+            ("bitmap_filter_cluster", "-e, stream engine forced, N=16,384",
+             os.path.join(tmp, "sketches"), {"RTC_CLUSTER_ENGINE": "stream"}),
+            ("dense_mst_device_compact", "dense engine, N=2,048",
+             os.path.join(tmp, "dense2k_sketches"),
+             {"RTC_MST_CLUSTERS_FAST": "0"})]
+    for phase, what, folder, env in runs:
+        argv = ["--fast", "--device", "--presketched", folder, "-o",
+                "out.cluster", "-d", str(THRESHOLD), "-e"]
+        prof = os.path.join(work, phase, "prof")
+        walls, timers = {}, {}
+        with environment(env):
+            for arm in ("traced", "plain"):
+                cwd = os.path.join(work, phase, arm)
+                bm.reset_launches()
+                ix.reset_launches()
+                lp.reset_launches()
+                walls[arm], stats, traces, trace_s = traced_cli_run(
+                    main, argv, cwd, prof if arm == "traced" else None)
+                timer = (lp.LP_STATS["total_s"]
+                         if phase == "labelprop_cluster"
+                         else stats.get("clusters_s", stats.get("mst_s")))
+                made = sorted(os.listdir(cwd))
+                if made != ["out.cluster"]:
+                    raise AssertionError(f"19a {phase} {arm}: the working "
+                                         f"directory holds {made}")
+                if traces != (arm == "traced"):
+                    raise AssertionError(f"19a {phase} {arm}: {traces} "
+                                         "traces written")
+                timers[arm] = timer
+                if arm == "traced":
+                    launches = {"K1": bm.LAUNCHES["filter_mask"],
+                                "K2": lp.LAUNCHES["labelprop_round"],
+                                "K4 mask": ix.LAUNCHES["pair_mask_tiles"],
+                                "K5b": ix.LAUNCHES["pair_common"]}
+                    traced_s = trace_s
+                if not same_file(os.path.join(cwd, "out.cluster"),
+                                 os.path.join(work, phase, "traced",
+                                              "out.cluster")):
+                    raise AssertionError(f"19a {phase}: the traced and "
+                                         "untraced .cluster files differ")
+        if sorted(os.listdir(prof)) != [phase]:
+            raise AssertionError(f"19a: {prof} holds "
+                                 f"{sorted(os.listdir(prof))}, not {phase}")
+        path, size, n_device, kernels = read_trace(os.path.join(prof, phase))
+        missing = [k for k in TRACED_KERNELS[phase]
+                   if not any(k in name for name in kernels)]
+        if missing:
+            raise AssertionError(f"19a {phase}: no {missing} in the trace "
+                                 f"(kernels: {kernels[:20]})")
+        say(f"19a {phase} ({what}): trace {size} B, {n_device} device "
+            f"events, kernels {[k[:60] for k in kernels]}; launches "
+            f"{launches}; wall traced {walls['traced']:.3f} s, untraced "
+            f"{walls['plain']:.3f} s (x"
+            f"{walls['traced'] / walls['plain']:.3f}); the profiler's "
+            f"start, stop and export {traced_s:.3f} s, kept out of the "
+            f"engine's timer ({timers['traced']:.3f} s traced, "
+            f"{timers['plain']:.3f} s untraced)")
+
+
+def phase_traces_and_arms(corpus, tmp, dev):
+    """19: (a) RTC_PROFILE_DIR's traces of the three engine phases on the
+    card, each against the same run untraced, in a process of its own
+    (``trace_child``); (b) the -t 1 MST-free arms at 400 and 5,000 genomes
+    on the card against the port's CPU runs; (c) the malloc tuning at
+    import."""
+    say("== phase 19: RTC_PROFILE_DIR traces, the -t 1 arms, the malloc "
+        "tuning at import")
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    from rabbittclust_tpu_torch.ops import bitmap as bm
+    save_presketched(corpus[:2048], os.path.join(tmp, "dense2k_sketches"))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--trace-child", tmp], cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+    for line in child.stdout.splitlines():
+        if line.startswith("19a "):
+            say(line)
+    if child.returncode != 0:
+        raise RuntimeError(f"19a failed (rc {child.returncode}): "
+                           f"{child.stderr.strip()[-1500:]}")
+    say(f"19a's process: {time.perf_counter() - t0:.3f} s")
+    work = os.path.join(tmp, "phase19")
+    # (b) the -t 1 arms (test_torch_scale.py / test_torch_scale5k.py's
+    # parameters, the corpora drawn with numpy)
+    t0 = time.perf_counter()
+    varied = write_scale_genomes(os.path.join(work, "varied"), 20, 20,
+                                 25000, 0.012, 99, length_jitter=5000)
+    tie = write_scale_genomes(os.path.join(work, "tie"), 20, 20, 25000,
+                              0.012, 99)
+    five_k = write_scale_genomes(os.path.join(work, "5k"), 200, 25, 11000,
+                                 0.02, 20260820)
+    say(f"19b corpora written in {time.perf_counter() - t0:.3f} s")
+    arms = [("varied --drlevel 2", varied, ["--drlevel", "2"], "256", 20),
+            ("varied --drlevel 2 -k 21", varied,
+             ["--drlevel", "2", "-k", "21"], "256", 20),
+            ("tie --drlevel 2 -k 21", tie, ["--drlevel", "2", "-k", "21"],
+             "256", 20),
+            ("5k -k 21 --drlevel 2", five_k, ["--drlevel", "2", "-k", "21"],
+             "512", 200)]
+    for tag, lst, extra, rb, n_clusters in arms:
+        argv = ["--fast", "-l", "-i", lst, "-d", str(THRESHOLD), *extra,
+                "-e", "--device", "-t", "1"]
+        outs, walls = {}, {}
+        with environment({"RTC_CLUSTER_BITS": "2048", "RTC_CLUSTER_RB": rb,
+                          "RTC_MST_CLUSTERS_FAST": None}):
+            for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                cwd = os.path.join(work, "arms", tag.replace(" ", "_"), side)
+                outs[side] = os.path.join(cwd, "o.cluster")
+                bm.reset_launches()
+                with working_dir(cwd):
+                    t0 = time.perf_counter()
+                    rc = main(argv + ["-o", outs[side]], device=d)
+                    if d.type == "cuda":
+                        torch.cuda.synchronize()
+                    walls[side] = time.perf_counter() - t0
+                if rc != 0:
+                    raise RuntimeError(f"19b {tag} on the {side} returned "
+                                       f"{rc}")
+                if side == "card":
+                    launched = bm.LAUNCHES["filter_mask"]
+        if launched <= 0:
+            raise AssertionError(f"19b {tag}: K1 was not launched")
+        if not same_file(outs["card"], outs["cpu"]):
+            raise AssertionError(f"19b {tag}: the card's .cluster differs "
+                                 "from the CPU run's")
+        got = len(read_cluster_file(outs["card"]))
+        if got != n_clusters:
+            raise AssertionError(f"19b {tag}: {got} clusters, not "
+                                 f"{n_clusters}")
+        say(f"19b -e --device -t 1, {tag} (2048 bits, rb {rb}): .cluster "
+            f"byte-equal to the CPU run's, {got} clusters; K1 launches "
+            f"{launched}; wall card {walls['card']:.3f} s, cpu "
+            f"{walls['cpu']:.3f} s")
+    # (c) the malloc tuning: the two mallopt calls at import, none under
+    # RTC_MALLOC_REUSE=0
+    for value, want in ((None, [[-3, 1 << 30, 1], [-1, 1 << 30, 1]]),
+                        ("0", [])):
+        env = {k: v for k, v in os.environ.items() if k != "RTC_MALLOC_REUSE"}
+        if value is not None:
+            env["RTC_MALLOC_REUSE"] = value
+        probe = subprocess.run([sys.executable, "-c", MALLOC_PROBE],
+                               cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=300)
+        if probe.returncode != 0:
+            raise RuntimeError(f"19c probe failed: {probe.stderr[-800:]}")
+        calls = json.loads(probe.stdout.strip().splitlines()[-1])
+        if calls != want:
+            raise AssertionError(f"19c RTC_MALLOC_REUSE={value}: mallopt "
+                                 f"calls {calls}, not {want}")
+        say(f"19c import under RTC_MALLOC_REUSE={value or 'unset'}: mallopt "
+            f"calls (param, value, result) {calls}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible "
               "(torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     import rabbittclust_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--trace-child"]:
+        trace_child(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--mesh-child"]:
         mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                    sys.argv[5], sys.argv[6])
@@ -3931,7 +4211,7 @@ def main() -> int:
 
 
 def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
-    """Phases 3-18; returns (launches, kernel records)."""
+    """Phases 3-19; returns (launches, kernel records)."""
     rec = phase_kernels(hashes, dev)
     b1_ops = phase_filter_kernel(hashes, dev, rec, card)
     phase_round_kernel(corpus, dev, rec, card, b1_ops)
@@ -3968,6 +4248,7 @@ def run_phases(corpus, hashes, sparse, greedy_corpora, oracles, dev, card):
         launches.update(phase_multiprocess(hashes, want, host_mst,
                                            dense_mst, dev, tmp, card, rec))
         phase_state_repdb(tmp, dev, card)
+        phase_traces_and_arms(corpus, tmp, dev)
     return launches, rec
 
 

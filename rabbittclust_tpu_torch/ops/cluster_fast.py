@@ -19,9 +19,11 @@ import torch
 
 from ..cluster.mst import clusters_from_forest, cut_forest, kruskal
 from ..cluster.union_find import UnionFind
+from ..device import resolve_device
 from ..distance.mash import aaf_distance, mash_distance
 from ..utils import native as native_mod
 from ..utils.native import native_intra_mst, native_mst
+from ..utils.profiling import maybe_trace
 from .bitmap import CsrSketches, candidate_pair_blocks
 
 ENGINES = ("auto", "stream", "lp")
@@ -70,18 +72,20 @@ def threshold_clusters_device(
         return threshold_clusters_device_lp(
             hashes, threshold, kmer_size, is_containment=is_containment,
             bits=bits, row_block=max(row_block, 4096), device=device)
+    device = resolve_device(device)
     sizes = np.array([len(h) for h in hashes], dtype=np.int64)
     uf = UnionFind(n)
     kept_i: List[int] = []
     kept_j: List[int] = []
     kept_d: List[float] = []
     csr = CsrSketches(hashes)  # built once, reused by every block
-    for ii, jj in candidate_pair_blocks(
-            hashes, threshold, kmer_size, is_containment=is_containment,
-            bits=bits, row_block=row_block, device=device):
-        _gated_verify_block(uf, csr, sizes, ii, jj, threshold, kmer_size,
-                            is_containment, kept_i, kept_j, kept_d,
-                            verify_chunk)
+    with maybe_trace("bitmap_filter_cluster", device):
+        for ii, jj in candidate_pair_blocks(
+                hashes, threshold, kmer_size, is_containment=is_containment,
+                bits=bits, row_block=row_block, device=device):
+            _gated_verify_block(uf, csr, sizes, ii, jj, threshold,
+                                kmer_size, is_containment, kept_i, kept_j,
+                                kept_d, verify_chunk)
     # the kept edges span every component: BFS from the lowest id
     forest = kruskal((np.asarray(kept_i, dtype=np.int64),
                       np.asarray(kept_j, dtype=np.int64),

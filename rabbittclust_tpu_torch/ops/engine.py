@@ -22,6 +22,7 @@ import torch
 
 from ..cluster.mst import DENSE_SPAN, Edges, MstResult, concat_edges, kruskal
 from ..distance.mash import aaf_distance, mash_distance, size_ratio_limit
+from ..utils.profiling import maybe_trace
 from .bitmap import _decode_packed_mask
 from .intersect import _upload, pair_common, pair_mask_tiles
 from .pack import DevicePlanes, pack_sketches, planes_to_device
@@ -65,7 +66,8 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
     filter.  ``device`` is explicit (see ``device.resolve_device``).
     ``stats``, when given, receives phase seconds (``pack_s``, ``h2d_s``,
     ``compact_s``, ``dispatch_s``, ``sweep_wait_s``, ``decode_s``,
-    ``pair_common_s``, ``edges_s``, ``kruskal_s``), the device time of the
+    ``pair_common_s``, ``edges_s``, ``kruskal_s``; ``trace_s``, the
+    profiler's under ``RTC_PROFILE_DIR``), the device time of the
     tile sweep and of the pair gathers (``sweep_ms``, ``pair_common_ms``,
     CUDA only) and counts (``tiles``, ``batches``, ``candidates``)."""
     from ..device import resolve_device
@@ -151,46 +153,49 @@ def compute_mst_device(hashes: List[np.ndarray], threshold: float,
     budget = 0
 
     # one-batch lookahead: batch b+1 is queued before the host decodes b
-    pending = dispatch(0) if batches else None
-    for b in range(len(batches)):
-        cnts_pending, packs_dev, r0s, c0s, n_valid = pending
-        t0 = clock()
-        cnts = _host_wait(cnts_pending)
-        st["sweep_wait_s"] += clock() - t0
-        sel = [t for t in range(n_valid) if cnts[t]]
-        packs_pending = _host_async(packs_dev.index_select(
-            0, _upload(sel, packs_dev.device))) if sel else None
-        if b + 1 < len(batches):
-            pending = dispatch(b + 1)
-        if not sel:
-            continue
-        t0 = clock()
-        packs = np.ascontiguousarray(_host_wait(packs_pending))
-        ii_all, jj_all = [], []
-        for s_i, t in enumerate(sel):
-            ti, tj = _decode_packed_mask(packs[s_i], rb, int(r0s[t]),
-                                         int(c0s[t]), n, int(cnts[t]))
-            ii_all.append(ti)
-            jj_all.append(tj)
-        ii = np.concatenate(ii_all)
-        jj = np.concatenate(jj_all)
-        st["decode_s"] += clock() - t0
-        t0 = clock()
-        common = timed(common_events, _pair_common, planes, ii,
-                       jj).astype(np.int64)
-        st["pair_common_s"] += clock() - t0
-        t0 = clock()
-        d = _edges_from_pairs(ii, jj, common, sizes, threshold, kmer_size,
-                              is_containment, with_dense, dense, ani, radii)
-        partial.append((ii.astype(np.int64), jj.astype(np.int64), d))
-        st["candidates"] += len(ii)
-        st["edges_s"] += clock() - t0
-        budget += len(ii)
-        if budget > 4 * n:
+    with maybe_trace("dense_mst_device_compact", device) as trace:
+        pending = dispatch(0) if batches else None
+        for b in range(len(batches)):
+            cnts_pending, packs_dev, r0s, c0s, n_valid = pending
             t0 = clock()
-            partial = [kruskal(concat_edges(partial), n)]
-            budget = len(partial[0][0])
-            st["kruskal_s"] += clock() - t0
+            cnts = _host_wait(cnts_pending)
+            st["sweep_wait_s"] += clock() - t0
+            sel = [t for t in range(n_valid) if cnts[t]]
+            packs_pending = _host_async(packs_dev.index_select(
+                0, _upload(sel, packs_dev.device))) if sel else None
+            if b + 1 < len(batches):
+                pending = dispatch(b + 1)
+            if not sel:
+                continue
+            t0 = clock()
+            packs = np.ascontiguousarray(_host_wait(packs_pending))
+            ii_all, jj_all = [], []
+            for s_i, t in enumerate(sel):
+                ti, tj = _decode_packed_mask(packs[s_i], rb, int(r0s[t]),
+                                             int(c0s[t]), n, int(cnts[t]))
+                ii_all.append(ti)
+                jj_all.append(tj)
+            ii = np.concatenate(ii_all)
+            jj = np.concatenate(jj_all)
+            st["decode_s"] += clock() - t0
+            t0 = clock()
+            common = timed(common_events, _pair_common, planes, ii,
+                           jj).astype(np.int64)
+            st["pair_common_s"] += clock() - t0
+            t0 = clock()
+            d = _edges_from_pairs(ii, jj, common, sizes, threshold,
+                                  kmer_size, is_containment, with_dense,
+                                  dense, ani, radii)
+            partial.append((ii.astype(np.int64), jj.astype(np.int64), d))
+            st["candidates"] += len(ii)
+            st["edges_s"] += clock() - t0
+            budget += len(ii)
+            if budget > 4 * n:
+                t0 = clock()
+                partial = [kruskal(concat_edges(partial), n)]
+                budget = len(partial[0][0])
+                st["kruskal_s"] += clock() - t0
+    st["trace_s"] = trace.seconds  # RTC_PROFILE_DIR's cost, in no timer
 
     t0 = clock()
     mst = kruskal(concat_edges(partial), n)

@@ -31,6 +31,7 @@ import torch
 
 from ..cluster.mst import clusters_from_forest, sort_edges
 from ..cluster.union_find import UnionFind
+from ..utils.profiling import maybe_trace
 from .bitmap import (
     CsrSketches,
     account_pull,
@@ -64,10 +65,11 @@ WARPS = 8
 
 # the last run's phases (host seconds), counts and the device milliseconds
 # of the builds and rounds (CUDA events); pulled bytes are in
-# ops.bitmap.PULL_STATS
+# ops.bitmap.PULL_STATS; trace_s is RTC_PROFILE_DIR's profiler, in no phase
 LP_STATS = {"pack_s": 0.0, "stage_s": 0.0, "csr_s": 0.0, "pull_s": 0.0,
             "verify_s": 0.0, "finish_s": 0.0, "total_s": 0.0, "rounds": 0,
-            "panels": 0, "proposals": 0, "build_ms": 0.0, "round_ms": 0.0}
+            "panels": 0, "proposals": 0, "build_ms": 0.0, "round_ms": 0.0,
+            "trace_s": 0.0}
 
 
 def reset_launches() -> None:
@@ -381,106 +383,109 @@ def threshold_clusters_device_lp(
         return roots
 
     next_build = None
-    for p_idx, panel in enumerate(panels):
-        LP_STATS["panels"] += 1
-        t_off = p_idx * t_cap  # global index of the panel's first tile
-        packs, geo = next_build if next_build is not None else build(panel)
-        next_build = None
-        if csr is None:
-            t0 = clock()
-            csr = CsrSketches(hashes)
-            LP_STATS["csr_s"] += clock() - t0
-        r0s_d, c0s_d, val_d = geo
-        empty = np.empty(0, dtype=np.int64)
-        clr = _encode_clear(empty, empty, rb, t_off)
-        r_lo = min(panel_geo[p_idx][0], n_pad - span) if multi else 0
-        fused_buf = work = out = None
-        if cuda:  # the round's outputs, once per panel
-            fused_buf = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
-                                    device=device)
-            if multi:
-                work = fused_buf
-                out = torch.empty(2 + span + 2 * cap, dtype=torch.int32,
-                                  device=device)
-        rounds = 0
-        converged = False
-        while rounds < max_rounds:
-            rounds += 1
-            LP_STATS["rounds"] += 1
-            # panel 0 round 1: full pull; later rounds: compact pull
-            use_compact = multi and not (p_idx == 0 and rounds == 1)
-            labels_d = _upload(labels_arr(), device)
-            clr_d = _upload(np.stack([clr[0], clr[1], clr[2],
-                                      clr[3].astype(np.int32)]), device)
-            if use_compact:
-                res = timed(round_events, lp_round_compact, packs, labels_d,
-                            clr_d, r0s_d, c0s_d, val_d, r_lo, rb, span, cap,
-                            work=work, out=out)
-            else:
-                res = timed(round_events, lp_round, packs, labels_d, clr_d,
-                            r0s_d, c0s_d, val_d, rb, fused=fused_buf)
-            pending = _host_async(res)
-            if prefetch and rounds == 1 and p_idx + 1 < len(panels):
-                # the next panel's build queues behind this round and runs
-                # while the host verifies
-                next_build = build(panels[p_idx + 1])
-            t0 = clock()
-            fused = _host_wait(pending)
-            LP_STATS["pull_s"] += clock() - t0
-            account_pull(fused.nbytes)
-            if int(fused[0]) == 0:
-                converged = True
-                break
-            t0 = clock()
-            if use_compact:
-                ncol = int(fused[1])
-                row_p = np.full(n_pad, SENT, dtype=np.int32)
-                row_p[r_lo:r_lo + span] = fused[2:2 + span]
-                col_p = np.full(n_pad, SENT, dtype=np.int32)
-                k = min(ncol, cap)
-                col_p[fused[2 + span:2 + span + k]] = \
-                    fused[2 + span + cap:2 + span + cap + k]
-            else:
-                row_p = fused[1:1 + n_pad]
-                col_p = fused[1 + n_pad:]
-            rp = row_p < SENT
-            cp = col_p < SENT
-            # rows first: they star-collapse most components, and the
-            # re-gate below then drops most column proposals
-            ri, rj = g[rp], row_p[rp].astype(np.int64)
-            LP_STATS["proposals"] += len(ri)
-            ki, kj, kd, ok_r = gated_verify_merge(
-                uf, csr, sizes64, ri, rj, threshold, kmer_size,
-                is_containment)
-            kept_i.extend(ki.tolist())
-            kept_j.extend(kj.tolist())
-            kept_d.extend(kd.tolist())
-            ci, cj = col_p[cp].astype(np.int64), g[cp]
-            roots = uf.roots_array()
-            alive = roots[ci] != roots[cj]
-            ci, cj = ci[alive], cj[alive]
-            LP_STATS["proposals"] += len(ci)
-            ki, kj, kd, ok_c = gated_verify_merge(
-                uf, csr, sizes64, ci, cj, threshold, kmer_size,
-                is_containment)
-            kept_i.extend(ki.tolist())
-            kept_j.extend(kj.tolist())
-            kept_d.extend(kd.tolist())
-            # failed pairs -> the next round's clear list, each bit once
-            fi = np.concatenate([ri[~ok_r], ci[~ok_c]])
-            fj = np.concatenate([rj[~ok_r], cj[~ok_c]])
-            if len(fi):
-                _, sel = np.unique(fi * n_pad + fj, return_index=True)
-                fi, fj = fi[sel], fj[sel]
-            clr = _encode_clear(fi, fj, rb, t_off)
-            LP_STATS["verify_s"] += clock() - t0
-        if not converged:  # the exact host finish, from the pulled masks
-            host_packs = packs.cpu().numpy()
-            account_pull(host_packs.nbytes)
-            _lp_fallback(host_packs, panel, rb, n, uf, csr, sizes64,
-                         threshold, kmer_size, is_containment, kept_i,
-                         kept_j, kept_d)
-        del packs  # free this panel's masks before the next build
+    with maybe_trace("labelprop_cluster", device) as trace:
+        for p_idx, panel in enumerate(panels):
+            LP_STATS["panels"] += 1
+            t_off = p_idx * t_cap  # global index of the panel's first tile
+            packs, geo = next_build if next_build is not None else build(panel)
+            next_build = None
+            if csr is None:
+                t0 = clock()
+                csr = CsrSketches(hashes)
+                LP_STATS["csr_s"] += clock() - t0
+            r0s_d, c0s_d, val_d = geo
+            empty = np.empty(0, dtype=np.int64)
+            clr = _encode_clear(empty, empty, rb, t_off)
+            r_lo = min(panel_geo[p_idx][0], n_pad - span) if multi else 0
+            fused_buf = work = out = None
+            if cuda:  # the round's outputs, once per panel
+                fused_buf = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
+                                        device=device)
+                if multi:
+                    work = fused_buf
+                    out = torch.empty(2 + span + 2 * cap, dtype=torch.int32,
+                                      device=device)
+            rounds = 0
+            converged = False
+            while rounds < max_rounds:
+                rounds += 1
+                LP_STATS["rounds"] += 1
+                # panel 0 round 1: full pull; later rounds: compact pull
+                use_compact = multi and not (p_idx == 0 and rounds == 1)
+                labels_d = _upload(labels_arr(), device)
+                clr_d = _upload(np.stack([clr[0], clr[1], clr[2],
+                                          clr[3].astype(np.int32)]), device)
+                if use_compact:
+                    res = timed(round_events, lp_round_compact, packs,
+                                labels_d, clr_d, r0s_d, c0s_d, val_d, r_lo,
+                                rb, span, cap, work=work, out=out)
+                else:
+                    res = timed(round_events, lp_round, packs, labels_d, clr_d,
+                                r0s_d, c0s_d, val_d, rb, fused=fused_buf)
+                pending = _host_async(res)
+                if prefetch and rounds == 1 and p_idx + 1 < len(panels):
+                    # the next panel's build queues behind this round and runs
+                    # while the host verifies
+                    next_build = build(panels[p_idx + 1])
+                t0 = clock()
+                fused = _host_wait(pending)
+                LP_STATS["pull_s"] += clock() - t0
+                account_pull(fused.nbytes)
+                if int(fused[0]) == 0:
+                    converged = True
+                    break
+                t0 = clock()
+                if use_compact:
+                    ncol = int(fused[1])
+                    row_p = np.full(n_pad, SENT, dtype=np.int32)
+                    row_p[r_lo:r_lo + span] = fused[2:2 + span]
+                    col_p = np.full(n_pad, SENT, dtype=np.int32)
+                    k = min(ncol, cap)
+                    col_p[fused[2 + span:2 + span + k]] = \
+                        fused[2 + span + cap:2 + span + cap + k]
+                else:
+                    row_p = fused[1:1 + n_pad]
+                    col_p = fused[1 + n_pad:]
+                rp = row_p < SENT
+                cp = col_p < SENT
+                # rows first: they star-collapse most components, and the
+                # re-gate below then drops most column proposals
+                ri, rj = g[rp], row_p[rp].astype(np.int64)
+                LP_STATS["proposals"] += len(ri)
+                ki, kj, kd, ok_r = gated_verify_merge(
+                    uf, csr, sizes64, ri, rj, threshold, kmer_size,
+                    is_containment)
+                kept_i.extend(ki.tolist())
+                kept_j.extend(kj.tolist())
+                kept_d.extend(kd.tolist())
+                ci, cj = col_p[cp].astype(np.int64), g[cp]
+                roots = uf.roots_array()
+                alive = roots[ci] != roots[cj]
+                ci, cj = ci[alive], cj[alive]
+                LP_STATS["proposals"] += len(ci)
+                ki, kj, kd, ok_c = gated_verify_merge(
+                    uf, csr, sizes64, ci, cj, threshold, kmer_size,
+                    is_containment)
+                kept_i.extend(ki.tolist())
+                kept_j.extend(kj.tolist())
+                kept_d.extend(kd.tolist())
+                # failed pairs -> the next round's clear list, each bit once
+                fi = np.concatenate([ri[~ok_r], ci[~ok_c]])
+                fj = np.concatenate([rj[~ok_r], cj[~ok_c]])
+                if len(fi):
+                    _, sel = np.unique(fi * n_pad + fj, return_index=True)
+                    fi, fj = fi[sel], fj[sel]
+                clr = _encode_clear(fi, fj, rb, t_off)
+                LP_STATS["verify_s"] += clock() - t0
+            if not converged:  # the exact host finish, from the pulled masks
+                host_packs = packs.cpu().numpy()
+                account_pull(host_packs.nbytes)
+                _lp_fallback(host_packs, panel, rb, n, uf, csr, sizes64,
+                             threshold, kmer_size, is_containment, kept_i,
+                             kept_j, kept_d)
+            del packs  # free this panel's masks before the next build
+
+    LP_STATS["trace_s"] = trace.seconds
 
     t0 = clock()
     # the kept edges are union-find-gated, so they form a spanning forest
@@ -496,7 +501,8 @@ def threshold_clusters_device_lp(
                                    for a, z in build_events)
         LP_STATS["round_ms"] = sum(a.elapsed_time(z)
                                    for a, z in round_events)
-    LP_STATS["total_s"] = clock() - t_all
+    # the profiler's start, stop and export are in no timer
+    LP_STATS["total_s"] = clock() - t_all - LP_STATS["trace_s"]
     return clusters
 
 

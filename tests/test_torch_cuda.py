@@ -8,6 +8,8 @@ absent:
         tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,8 @@ from rabbittclust_tpu_torch.ops import intersect as ix
 from rabbittclust_tpu_torch.ops import labelprop as lp
 from rabbittclust_tpu_torch.ops.pack import pack_sketches, planes_to_device
 from torch_port_data import clear_list, clustered_sketches, \
-    containment_sketches, dense_keep_table, kssd_window, planted_tokens
+    containment_sketches, dense_keep_table, kssd_window, planted_tokens, \
+    write_scale_genomes
 
 pytestmark = pytest.mark.cuda
 
@@ -1735,3 +1738,56 @@ def test_minhash_classic_append_on_card_matches_native(gpu, tmp_path,
     assert got[1].tolist() == want[1].tolist()
     np.testing.assert_allclose(got[2], want[2], rtol=1e-12, atol=0)
     assert len(_cluster_ids(str(tmp_path / "app" / "app.cluster"))) == 4
+
+
+def _trace_kernels(path):
+    """Names of the device kernels in one Chrome trace of torch.profiler."""
+    import json
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events
+            if e.get("cat") == "kernel"]
+
+
+def test_maybe_trace_holds_k1(gpu, tmp_path, monkeypatch):
+    """RTC_PROFILE_DIR around one K1 launch: one JSON trace in the phase's
+    directory, with K1's kernel on its device timeline."""
+    from rabbittclust_tpu_torch.utils.profiling import maybe_trace
+    hashes = clustered_sketches(n=300)
+    sig = _signatures(hashes, 1024, 128, gpu)
+    sc = bm.filter_scalars(0.05, 21)
+    monkeypatch.setenv("RTC_PROFILE_DIR", str(tmp_path / "prof"))
+    before = bm.LAUNCHES["filter_mask"]
+    with maybe_trace("k1 phase", gpu) as trace:
+        bm.batched_mask(sig.xd, sig.cd, sig.sd, *TILES, *sc, False, 128)
+        torch.cuda.synchronize()
+    assert bm.LAUNCHES["filter_mask"] == before + 1
+    assert os.listdir(tmp_path / "prof") == ["k1_phase"]
+    assert os.path.dirname(trace.path) == str(tmp_path / "prof" /
+                                              "k1_phase")
+    names = _trace_kernels(trace.path)
+    assert any("filter_mask_kernel" in n for n in names), names[:20]
+
+
+def test_mst_free_t1_on_card_equals_cpu(gpu, tmp_path, monkeypatch):
+    """``clust-mst --fast -l --device -e -t 1`` at 400 genomes (the scale
+    corpus's parameters) under RTC_CLUSTER_BITS=2048, RTC_CLUSTER_RB=256:
+    the card's run launches K1 and writes the CPU run's bytes."""
+    from rabbittclust_tpu_torch.cli.clust_mst import main
+    lst = write_scale_genomes(str(tmp_path))
+    monkeypatch.setenv("RTC_CLUSTER_BITS", "2048")
+    monkeypatch.setenv("RTC_CLUSTER_RB", "256")
+    monkeypatch.delenv("RTC_MST_CLUSTERS_FAST", raising=False)
+    outs = {}
+    for side, dev in (("cpu", torch.device("cpu")), ("card", gpu)):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        bm.reset_launches()
+        outs[side] = tmp_path / side / "o.cluster"
+        assert main(["--fast", "-l", "-i", lst, "-d", "0.05", "--drlevel",
+                     "2", "-k", "21", "-e", "--device", "-t", "1", "-o",
+                     str(outs[side])], device=dev) == 0
+        launched = bm.LAUNCHES["filter_mask"]
+        assert (launched > 0) == (side == "card"), (side, launched)
+    assert outs["card"].read_bytes() == outs["cpu"].read_bytes()
+    assert outs["card"].read_text().count("the cluster") == 20

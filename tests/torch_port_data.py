@@ -3,6 +3,8 @@ JAX reference and the port see the same inputs)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -104,3 +106,32 @@ def planted_tokens(n, s, c, seed):
         tok[1, :, 0] = tok[0, :, 0]
         tok[3] = tok[2]
     return tok
+
+
+def write_scale_genomes(folder, n_clusters=20, per_cluster=20, length=25000,
+                        mutation=0.012, seed=99, length_jitter=5000):
+    """The 400-genome scale corpus's parameters (tests/test_torch_scale.py)
+    drawn with numpy: ``n_clusters`` random ancestors, each copied
+    ``per_cluster`` times with point mutations at ``mutation``, each copy
+    cut to ``length - U[0, length_jitter]``.  One FASTA file a genome;
+    returns the path of their list."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    files = []
+    for c in range(n_clusters):
+        base = rng.integers(0, 4, length, dtype=np.uint8)
+        for m in range(per_cluster):
+            g = base.copy()
+            hit = rng.random(length) < mutation
+            g[hit] = rng.integers(0, 4, int(hit.sum()), dtype=np.uint8)
+            cut = length - int(rng.integers(0, length_jitter + 1))
+            files.append(os.path.join(folder, f"g{c}_{m}.fna"))
+            with open(files[-1], "wb") as f:
+                f.write(f">genome_{c}_{m} cluster{c}\n".encode())
+                seq = acgt[g[:cut]].tobytes()
+                for k in range(0, cut, 80):
+                    f.write(seq[k:k + 80] + b"\n")
+    lst = os.path.join(folder, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return lst
