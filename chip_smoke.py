@@ -20,9 +20,13 @@ Phases, one line or block each; any failure raises (non-zero exit):
    rate of both forms, mma.sync and wgmma, first, and every .b1 bound
    takes the faster).  K4 and K5b read the planes' compact
    form (its build timed on its own line), and their bounds count the
-   bytes of that form.  K4 at W = 12, K = 1024, rb = 4096, 1 and 2 planes:
-   counts and the mask
-   mode (with start_index and a ragged n cutting the tile); K5b over 10^5
+   bytes of that form; K4's operations are the entries its sorted join
+   visits and the matches it makes, counted from this run's inputs, at
+   the INT32 rate (the nested loop's compares beside them).  K4 at
+   W = 12, K = 1024, rb = 4096, 1 and 2 planes: counts and the mask
+   mode (with start_index and a ragged n cutting the tile), and beside
+   them the library call, one ``torch.sparse.mm`` of the two sides' CSR
+   0/1 incidences (genomes x distinct hashes); K5b over 10^5
    random pairs; K1 at rb = 4096 and 8192 bits (diagonal, off-diagonal and
    padded tiles, an invalid slot; small cases of its three bounds and both
    distances, ragged rb of 96 and 160 and 64 to 8192 bits; rb = 8192),
@@ -187,16 +191,26 @@ case's kernel time
 (CUDA events), and the same two times of the ``torch.mm``.
 ``python3 chip_smoke.py --parent DIR`` (DIR holding the parent
 commit's ``rabbittclust_tpu_torch/``) also builds that package from its
-own sources and times its K2 over panels 0 and 1 (phase 3c), its K3
+own sources and times its compact form's build and its K4 in the counts
+and mask modes (phase 3), its K2 over panels 0 and 1 (phase 3c), its K3
 (phase 3d, its count pull in its call),
 its K7 windows, its K8, its K6, its slab step (alone and with its close),
-its ring and its LP slab round in turns with this tree's, equal outputs
+its ring, its exact ring's steps, its LP slab round and its stats ring's
+steps and band (phase 3i) in turns with this tree's, equal outputs
 required.  Phases 3h and 15 print the bitmap ring's closes by part
 (counts pull, K3, positions copy, host decode).
+Phase 3h's exact ring packs the shards its cases read (their compact
+forms' build timed, all four at N = 16,384, three of the eight at
+N = 131,072) and times each step kind's kernels and call
+(``device_ms``), with the library call at the interior 4096^2 step (the
+kernels line's case).
 Phase 3i holds K4's stats mode (``pair_stats_tiles``, the stats ring's
 step) to the plain step on a band of 256 rows for each step kind at 4
-shards of N = 16,384, and times the whole steps beside their bounds and
-K4's counts mode: the count equal, the float32 minimum within 4 ulp.
+shards of N = 16,384, and times the whole steps and the band beside their
+bounds and K4's counts mode: the count equal, the float32 minimum within
+4 ulp; the library call on the interior step's band (the kernels line's
+case).  Each library call's line gives its ratio to the kernel's time on
+the same rows and columns.
 
 Each of phases 8-12, 15-18 and 19a prints its kernels' launch counts on a
 line of its own.
@@ -230,6 +244,9 @@ HBM_BPS = 3.35e12       # device memory, bytes/s
 INT8_TC_OPS = 1979e12   # int8 tensor-core operations/s
 CORE_OPS = 67e12        # operations/s outside the tensor cores (float32;
 #                         an int32 compare is issued at most at this rate)
+# INT32 operations/s: 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock
+# (CORE_OPS is 132 x 128 float32 lanes x 2, a multiply-add, x that clock)
+INT32_OPS = 132 * 64 * 1.98e9
 # name: (source, the JAX function it replaces)
 KERNELS = {
     "pair_counts_tiles": ("rabbittclust_tpu_torch/csrc/pair_counts.cu",
@@ -374,9 +391,11 @@ def fmt_parts(parts):
 
 
 # the parent commit's port package when the script runs with --parent DIR
-# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3c, 3d, 3e,
-# 3f, 3g and 3h then time its K2 panel round, its K3, its K7, its K8, its
-# K6, its ring step and its LP slab round in the same call
+# (DIR/rabbittclust_tpu_torch, imported as rtc_parent): phases 3, 3c, 3d,
+# 3e, 3f, 3g, 3h and 3i then time its compact form's build and K4 (counts
+# and mask modes), its K2 panel round, its K3, its K7, its K8, its K6, its
+# ring steps (the slab step and the exact ring's), its LP slab round and
+# its stats ring's steps in the same call
 PARENT = {}
 
 
@@ -394,6 +413,8 @@ def load_parent(root):
     spec.loader.exec_module(mod)
     built = importlib.import_module("rtc_parent.kernels._build").build()
     PARENT.update(
+        ix=importlib.import_module("rtc_parent.ops.intersect"),
+        pack=importlib.import_module("rtc_parent.ops.pack"),
         bm=importlib.import_module("rtc_parent.ops.bitmap"),
         gd=importlib.import_module("rtc_parent.ops.greedy_device"),
         de=importlib.import_module("rtc_parent.parallel.dist_engine"),
@@ -424,6 +445,87 @@ def ab_times(change, parent=None, reps=20):
 
 def fmt_ms(xs):
     return " / ".join(f"{x:.4f}" for x in xs)
+
+
+def same_output(a, b):
+    """Tensors, arrays, or tuples of them, equal throughout."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_output, a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return torch.equal(a, b)
+
+
+def parent_turns(ab, what, want, pick=lambda out: out):
+    """The parent's part of a line (empty without --parent) from
+    ``ab_times``' result: its kernel and call ms in turns with this
+    tree's, and this tree's kernel time as a share of it (the faster turn
+    of each); its output (``pick`` of it) must equal ``want``."""
+    if "parent" not in ab:
+        return ""
+    if not same_output(pick(ab["parent"][0]), want):
+        raise AssertionError(f"the parent's {what} differ from this tree's")
+    return (f"; the parent's kernels {fmt_ms(ab['parent'][1])} ms ("
+            f"{fmt_parts(ab['parent'][3])}), call "
+            f"{fmt_ms(ab['parent'][2])} ms (in turns parent, this, this, "
+            f"parent; {what} equal), this at "
+            f"{min(ab['change'][1]) / min(ab['parent'][1]):.3f} of it")
+
+
+def build_turns(plane_sets):
+    """The compact forms' build (``compact_planes`` of each (plane0,
+    plane1) of ``plane_sets``, host clock to a synchronise), twice, in
+    turns with the parent's build of its own forms under --parent: a
+    line's text, with the ms a form."""
+    from rabbittclust_tpu_torch.ops import pack
+    ppack = PARENT.get("pack")
+    order = ([("the parent's", ppack), ("this", pack), ("this", pack),
+              ("the parent's", ppack)] if ppack else [("this", pack)] * 2)
+    ms = {}
+    for who, mod in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p0, p1 in plane_sets:
+            mod.compact_planes(p0, p1)
+        torch.cuda.synchronize()
+        ms.setdefault(who, []).append(1e3 * (time.perf_counter() - t0))
+    k = len(plane_sets)
+    return "builds again in turns: " + "; ".join(
+        f"{who} {fmt_ms(v)} ms ({fmt_ms([x / k for x in v])} ms a form)"
+        for who, v in ms.items())
+
+
+def library_call(rec, kernels, rows, cols, check, what):
+    """Time ``incidence_product`` of ``rows`` and ``cols`` (each (form,
+    first genome, genomes)) (kernels and call, ``device_ms``) as the
+    ``library_ms`` of the records ``kernels`` names, after ``check`` (a
+    function of its dense counts) has held it to the kernel's counts; each
+    record's kernel time (``kernels[name]``) is from the same rows and
+    columns, and the line gives its ratio to the library call's.  Where
+    PyTorch refuses the product, ``library_note`` says so."""
+    for name in kernels:
+        rec.setdefault(name, {"err": 0, "ms": [], "plain_ms": [],
+                              "bound": []})
+    call, dense, why = incidence_product(rows, cols)
+    if call is None:
+        for name in kernels:
+            rec[name].setdefault("library_note", f"refused: {why}")
+        say(f"{what}: the library call, torch.sparse.mm of two CSR "
+            f"incidences, refused on the card: {why}")
+        return
+    if not check(dense):
+        raise AssertionError(f"{what}: the library call's counts differ "
+                             "from the kernel's")
+    _, l_dev, l_call, parts = ab_times(call, reps=5)["change"]
+    for name in kernels:
+        rec[name].setdefault("library_ms", l_dev[0])
+        rec[name].setdefault("library_call_ms", l_call[0])
+    say(f"{what}: the library call, torch.sparse.mm of the two sides' CSR "
+        f"0/1 incidences (genomes x distinct hashes, float32): counts equal "
+        f"to the kernel's; kernels {fmt_ms(l_dev)} ms ({fmt_parts(parts)}),"
+        f" call {fmt_ms(l_call)} ms; on the same rows and columns " +
+        ", ".join(f"{name}'s kernels {ms:.4f} ms, library / kernel "
+                  f"{l_dev[0] / ms:.3f}" for name, ms in kernels.items()))
 
 
 def fmt_close(record):
@@ -572,24 +674,152 @@ def _k4_plain_tile(pl, r0, c0, rb, rows=512):
     return out
 
 
-def block_compares(occ, r0, c0, rb, mask_args=None):
-    """The compares K4 needs on tile (r0, c0): for every block of GROUP x
-    GROUP pairs, its rows' real entries of each bucket against its
-    columns' (sum_k R_k C_k); in the mask mode only over the blocks it
-    computes (some pair j < i, some row in [start_index, n))."""
+def live_blocks(i0, j0, tri, start_index=0, n=None):
+    """(rows, cols) bool over the GROUP x GROUP blocks with row origins
+    ``i0`` and column origins ``j0`` (1-D int64 tensors): those K4's mask
+    and stats modes compute (some pair j < i with ``tri``; some row in
+    [start_index, n) when ``n`` is given).  The counts mode computes all."""
     from rabbittclust_tpu_torch.ops.pack import GROUP
-    k = occ.shape[1]
-    rows = occ[r0:r0 + rb].view(-1, GROUP, k).sum(1).double()
-    cols = occ[c0:c0 + rb].view(-1, GROUP, k).sum(1).double()
+    live = torch.ones((len(i0), len(j0)), dtype=torch.bool, device=i0.device)
+    if tri:
+        live &= j0[None, :] < i0[:, None] + GROUP - 1
+    if n is not None:
+        live &= ((i0 + GROUP > start_index) & (i0 < n))[:, None]
+    return live
+
+
+def origins(lo, count):
+    """The block origins lo, lo + GROUP, ... of ``count`` rows."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP
+    return lo + GROUP * torch.arange(count // GROUP, device="cuda")
+
+
+def block_compares(occ, r0, nr, c0, nc, live=None):
+    """The nested loop's work, K4's join before its segments were sorted:
+    for every block of GROUP x GROUP pairs of rows [r0, r0 + nr) against
+    columns [c0, c0 + nc), its rows' real entries of each bucket against
+    its columns' (sum_k R_k C_k), over the blocks ``live`` (all by
+    default).  ``occ`` (G, K) holds the entries of each (genome, bucket),
+    or is ``(occ_rows, occ_cols)`` where the columns are another form's."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP
+    o_r, o_c = occ if isinstance(occ, tuple) else (occ, occ)
+    k = o_r.shape[1]
+    rows = o_r[r0:r0 + nr].view(-1, GROUP, k).sum(1).double()
+    cols = o_c[c0:c0 + nc].view(-1, GROUP, k).sum(1).double()
     need = rows @ cols.T  # exact: sums below 2^53
-    if mask_args is not None:
-        start_index, n = mask_args
-        i0 = r0 + GROUP * torch.arange(need.shape[0], device=occ.device)
-        j0 = c0 + GROUP * torch.arange(need.shape[1], device=occ.device)
-        live = (j0[None, :] < i0[:, None] + GROUP - 1) & \
-            (i0[:, None] + GROUP > start_index) & (i0[:, None] < n)
+    if live is not None:
         need = need * live
     return int(need.sum())
+
+
+def entry_ids(key, bucket):
+    """int64 ids of entries, equal where both the bucket and the value
+    (``sort_key``) are: a stored value is a hash's bits below its
+    bucket's, so values of two buckets may be equal."""
+    _, rank = torch.unique(key, return_inverse=True)
+    return bucket * (int(rank.max()) + 1 if len(rank) else 1) + rank
+
+
+def group_keys(cf, g0, g1):
+    """The grouped entries of genomes [g0, g1) (whole groups) of form
+    ``cf``: their keys (``sort_key``), the bucket and the group (from 0)
+    of each, and the entries of each group."""
+    from rabbittclust_tpu_torch.ops.pack import GROUP, sort_key
+    lo, hi = int(cf.start[g0]), int(cf.start[g1])
+    key = sort_key(cf.g0[lo:hi], None if cf.g1 is None else cf.g1[lo:hi])
+    seg = cf.goff[g0 // GROUP:g1 // GROUP].long().diff(dim=1)
+    k = seg.shape[1]
+    bucket = torch.repeat_interleave(
+        torch.arange(k, device=key.device).repeat(len(seg)), seg.flatten())
+    per = cf.start[g0:g1 + 1:GROUP].diff()
+    return key, bucket, torch.repeat_interleave(
+        torch.arange(len(per), device=key.device), per), per
+
+
+def join_work(rf, r0, nr, cf, c0, nc, live=None, chunk=1 << 20):
+    """(entries visited, matches) of K4's sorted join over the GROUP x
+    GROUP blocks of rows [r0, r0 + nr) of form ``rf`` against columns
+    [c0, c0 + nc) of form ``cf``, over the blocks ``live`` (all by
+    default): a block reads its row group's and its column group's
+    entries once and steps once a match.  A block's matches are the sum,
+    over its values, of the row genomes holding the value times the
+    column genomes holding it: a float64 product (exact) of the two
+    sides' group-by-value incidences, ``chunk`` values at a time."""
+    kr, br, gr, er = group_keys(rf, r0, r0 + nr)
+    kc, bc, gc, ec = group_keys(cf, c0, c0 + nc)
+    _, inv = torch.unique(entry_ids(torch.cat([kr, kc]),
+                                    torch.cat([br, bc])),
+                          return_inverse=True)
+    sides = ((inv[:len(kr)], gr, len(er)), (inv[len(kr):], gc, len(ec)))
+    d = int(inv.max()) + 1 if len(inv) else 0
+    m = torch.zeros((len(er), len(ec)), dtype=torch.float64,
+                    device=kr.device)
+    for lo in range(0, d, chunk):
+        inc = []
+        for ids, grp, n_g in sides:
+            sel = (ids >= lo) & (ids < lo + chunk)
+            a = torch.zeros((n_g, chunk), dtype=torch.float64,
+                            device=kr.device)
+            a.index_put_((grp[sel], ids[sel] - lo), torch.ones(
+                int(sel.sum()), dtype=torch.float64, device=kr.device),
+                accumulate=True)
+            inc.append(a)
+        m += inc[0] @ inc[1].T
+        del inc
+    if live is None:
+        live = torch.ones_like(m, dtype=torch.bool)
+    visits = ((er[:, None] + ec[None, :]).double() * live).sum()
+    return int(visits), int((m * live).sum())
+
+
+def join_bound(n_bytes, work):
+    """K4's bound: ``n_bytes`` (each compact form read once, the output
+    written once) over the memory rate, or the entries visited plus the
+    matches (``work``, from ``join_work``) at the INT32 rate."""
+    return bound(n_bytes, sum(work), INT32_OPS)
+
+
+def incidence_product(rows, cols):
+    """The library call beside K4 (the port never calls it): one
+    ``torch.sparse.mm`` of the two sides' CSR 0/1 incidence matrices,
+    genomes x distinct hashes in float32 (exact below 2^24), ``rows``
+    against ``cols``, each (compact form, first genome, genomes); the hash
+    ids from ``torch.unique(..., return_inverse=True)`` over the
+    genome-major values, outside the call.  Returns (the call, its first
+    result as a dense (rows, cols) int32 tensor, None), or (None, None,
+    why) when PyTorch refuses the product here."""
+    from rabbittclust_tpu_torch.ops.pack import sort_key
+    keys, buckets, genomes = [], [], []
+    for f, g0, m in (rows, cols):
+        lo, hi = int(f.start[g0]), int(f.start[g0 + m])
+        keys.append(sort_key(f.v0[lo:hi], None if f.v1 is None else
+                             f.v1[lo:hi]))
+        occ = f.occ[g0:g0 + m].long()
+        buckets.append(torch.repeat_interleave(torch.arange(
+            occ.shape[1], device=occ.device).repeat(m), occ.flatten()))
+        genomes.append(torch.repeat_interleave(
+            torch.arange(m, device=occ.device), occ.sum(1)))
+    _, inv = torch.unique(entry_ids(torch.cat(keys), torch.cat(buckets)),
+                          return_inverse=True)
+    d = int(inv.max()) + 1
+    ids = (inv[:len(keys[0])], inv[len(keys[0]):])
+    ones = [torch.ones(len(k_), dtype=torch.float32, device=k_.device)
+            for k_ in keys]
+    try:
+        a = torch.sparse_coo_tensor(torch.stack([genomes[0], ids[0]]),
+                                    ones[0], (rows[2], d)).coalesce()
+        bt = torch.sparse_coo_tensor(torch.stack([ids[1], genomes[1]]),
+                                     ones[1], (d, cols[2])).coalesce()
+        a, bt = a.to_sparse_csr(), bt.to_sparse_csr()
+
+        def call():
+            return torch.sparse.mm(a, bt)
+
+        out = call().to_dense().to(torch.int32)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return call, out, None
 
 
 def compact_bytes(cf, g0, g1, planes):
@@ -633,6 +863,7 @@ def phase_kernels(hashes, dev):
         torch.cuda.synchronize()
         build_ms = 1e3 * (time.perf_counter() - t0)
         build_peak = torch.cuda.max_memory_allocated() - held
+        builds = build_turns([(pl.plane0, pl.plane1)])
         form = sum(t.numel() * t.element_size() for t in (
             cf.v0, cf.v1, cf.g0, cf.g1, cf.gid, cf.occ, cf.start, cf.goff,
             cf.padsq) if t is not None)
@@ -640,25 +871,37 @@ def phase_kernels(hashes, dev):
             f"{cf.entries} real entries of {pk.n * pk.width * pk.k} slots, "
             f"{form} B (planes {pk.n * pk.width * pk.k * 4 * planes} B), "
             f"built on the card in {build_ms:.3f} ms (peak {build_peak} B "
-            f"above the planes)")
-        got, ms = cuda_ms(lambda: ix.pair_counts_tiles(
-            pl.plane0, pl.plane1, [r0], [c0], [1], rb), reps=3)
+            f"above the planes); {builds}")
+        # K4 in turns with the parent's kernel (over the parent's own,
+        # unsorted form) under --parent, outputs equal
+        pix = PARENT.get("ix")
+        tiles = ([r0], [c0], [1])
+        ab = ab_times(lambda: ix.pair_counts_tiles(
+            pl.plane0, pl.plane1, *tiles, rb), pix and (
+            lambda: pix.pair_counts_tiles(pl.plane0, pl.plane1, *tiles,
+                                          rb)), reps=5)
+        got, k_dev, k_call, _ = ab["change"]
         want, plain_ms = cuda_ms(lambda: _k4_plain_tile(pl, r0, c0, rb),
                                  warmup=False)
         hold_exact(rec, "pair_counts_tiles", got[0], want, f"{label} tile")
         occ = occupancy(pl)
-        need = block_compares(occ, r0, c0, rb)
+        nested = block_compares(occ, r0, rb, c0, rb)
+        work = join_work(cf, r0, rb, cf, c0, rb)
         read = compact_bytes(cf, r0, r0 + rb, planes) + (
             0 if r0 == c0 else compact_bytes(cf, c0, c0 + rb, planes))
-        k4_bound = bound(read + rb * rb * 4, need, CORE_OPS)
-        note("pair_counts_tiles", ms, plain_ms, k4_bound)
+        k4_bound = join_bound(read + rb * rb * 4, work)
+        note("pair_counts_tiles", k_dev[0], plain_ms, k4_bound)
+        rec["pair_counts_tiles"].setdefault("call_ms", k_call[0])
         say(f"K4 {label}: tile ({r0},{c0}) of rb={rb}: exact; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms; pairs with common>0: "
-            f"{int((want > 0).sum())}; compares needed {need} (the plain "
-            f"form makes W^2 K rb^2 = {pk.width ** 2 * pk.k * rb * rb}); "
-            f"bytes of the compact form read {read}; bound "
-            f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), kernel at "
-            f"{k4_bound[0] / ms:.4f} of it")
+            f"{fmt_ms(k_dev)} ms, call {fmt_ms(k_call)} ms"
+            f"{parent_turns(ab, 'counts', want, lambda o: o[0])}; plain "
+            f"{plain_ms:.3f} ms; pairs with common>0: "
+            f"{int((want > 0).sum())}; the join visits {work[0]} entries "
+            f"and makes {work[1]} matches (the nested loop's compares "
+            f"{nested}; the plain form's W^2 K rb^2 = "
+            f"{pk.width ** 2 * pk.k * rb * rb}); bytes of the compact form "
+            f"read {read}; bound {k4_bound[0]:.4f} ms ({k4_bound[1]}), "
+            f"kernel at {k4_bound[0] / k_dev[0]:.4f} of it")
         del got
         # the mask mode at the same tile: the timed full tile, then
         # start_index and a ragged n cutting through it; each beside an
@@ -667,8 +910,9 @@ def phase_kernels(hashes, dev):
         for m, (start, n) in enumerate(mask_cases):
             args = (pl.plane0, pl.plane1, pl.sizes, [r0, 0], [c0, 0], [1, 0],
                     radio, start, n, rb)
-            (cnt, packs), ms_m = cuda_ms(lambda: ix.pair_mask_tiles(*args),
-                                         reps=3)
+            ab = ab_times(lambda: ix.pair_mask_tiles(*args), pix and (
+                lambda: pix.pair_mask_tiles(*args)), reps=5)
+            (cnt, packs), m_dev, m_call, parts = ab["change"]
             (want_c, want_p), epi_ms = cuda_ms(lambda: ix.mask_epilogue(
                 counts, pl.sizes, [r0, 0], [c0, 0], [1, 0], radio, start, n,
                 rb), warmup=False)
@@ -679,16 +923,30 @@ def phase_kernels(hashes, dev):
             if ones != int(cnt.sum()):
                 raise AssertionError(f"{what}: count {cnt.tolist()} is not "
                                      f"the popcount {ones} of the mask")
-            need_m = block_compares(occ, r0, c0, rb, (start, n))
-            bound_m = bound(read + 2 * rb * 4 + rb * rb // 8 + 8, need_m,
-                            CORE_OPS)
+            live = live_blocks(origins(r0, rb), origins(c0, rb), True, start,
+                               n)
+            nested_m = block_compares(occ, r0, rb, c0, rb, live)
+            work_m = join_work(cf, r0, rb, cf, c0, rb, live)
+            bound_m = join_bound(read + 2 * rb * 4 + rb * rb // 8 + 8,
+                                 work_m)
             if m == 0:
-                note("pair_mask_tiles", ms_m, plain_ms + epi_ms, bound_m)
+                note("pair_mask_tiles", m_dev[0], plain_ms + epi_ms, bound_m)
+                rec["pair_mask_tiles"].setdefault("call_ms", m_call[0])
+                m_ms = m_dev[0]
             say(f"K4 mask {what}: counts {cnt.tolist()}: exact, popcount of "
-                f"the mask; kernel {ms_m:.3f} ms, plain counts + epilogue "
-                f"{plain_ms + epi_ms:.3f} ms; compares needed {need_m}; bound "
-                f"{bound_m[0]:.4f} ms ({bound_m[1]}), kernel at "
-                f"{bound_m[0] / ms_m:.4f} of it")
+                f"the mask; kernels {fmt_ms(m_dev)} ms ({fmt_parts(parts)}),"
+                f" call {fmt_ms(m_call)} ms"
+                f"{parent_turns(ab, 'masks', (want_c, want_p))}; plain "
+                f"counts + epilogue {plain_ms + epi_ms:.3f} ms; the join "
+                f"visits {work_m[0]} entries and makes {work_m[1]} matches "
+                f"(the nested loop's compares {nested_m}); bound "
+                f"{bound_m[0]:.4f} ms ({bound_m[1]}), kernels at "
+                f"{bound_m[0] / m_dev[0]:.4f} of it")
+        if label == "1plane":  # off the diagonal: no pad term in want
+            library_call(rec, {"pair_counts_tiles": k_dev[0],
+                               "pair_mask_tiles": m_ms}, (cf, r0, rb),
+                         (cf, c0, rb), lambda d: torch.equal(d, want),
+                         f"K4 {label} tile ({r0},{c0})")
         del counts, want
         rng = np.random.default_rng(1)
         ii = rng.integers(0, len(hs), size=100_000)
@@ -2637,31 +2895,42 @@ def band_shard(shard, r, rows):
                          shard.sizes[r:r + rows], shard.lo + r)
 
 
-def exact_step_bound(loc, vis, kind, n_out):
-    """The exact ring step's bound: both shards' compact forms read once
-    (values and ids, bucket offsets), ``n_out`` (position, count) pairs
-    written, and the compares ``ring_compares`` counts."""
+def step_live(vis, kind, row0, rows):
+    """``live_blocks`` of a ring step: rows [row0, row0 + rows) of the
+    local shard against all of ``vis`` (on the self step the blocks with
+    some j < i)."""
+    return live_blocks(origins(row0, rows), origins(0, vis.p0.shape[0]),
+                       kind == "self")
+
+
+def step_work(loc, vis, kind, row0=0, rows=None):
+    """``join_work`` of a ring step between two one-plane shards over the
+    blocks it computes: rows [row0, row0 + rows) of ``loc`` (all of them
+    by default; a band of a step's rows) against all of ``vis``."""
     from rabbittclust_tpu_torch.ops.pack import compact_of
-    forms = [compact_of(s.p0, None) for s in (loc, vis)]
-    return bound(sum(f.entries * 5 + f.goff.numel() * 4 for f in forms)
-                 + 8 * n_out, ring_compares(loc, vis, kind), CORE_OPS)
+    rows = loc.p0.shape[0] if rows is None else rows
+    return join_work(compact_of(loc.p0, None), row0, rows,
+                     compact_of(vis.p0, None), 0, vis.p0.shape[0],
+                     step_live(vis, kind, row0, rows))
 
 
-def ring_compares(loc, vis, kind, row0=0):
-    """The compares K4 needs for a ring step between two one-plane shards:
-    for every block of 128 x 128 pairs it computes (all of them, or on the
-    self step those with some j < i), its rows' real entries of each bucket
-    against its columns'.  ``row0``: where ``loc``'s rows start in the
-    visiting shard (a band of a self step's rows)."""
-    from rabbittclust_tpu_torch.ops.pack import GROUP
-    occ = [(s.p0 >= 0).sum(1, dtype=torch.int64).view(
-        -1, GROUP, s.p0.shape[2]).sum(1).double() for s in (loc, vis)]
-    need = occ[0] @ occ[1].T
-    if kind == "self":
-        i0 = row0 + GROUP * torch.arange(need.shape[0], device=need.device)
-        j0 = GROUP * torch.arange(need.shape[1], device=need.device)
-        need = need * (j0[None, :] < i0[:, None] + GROUP - 1)
-    return int(need.sum())
+def ring_compares(loc, vis, kind, row0=0, rows=None):
+    """The nested loop's compares (``block_compares``) of the ring step
+    ``step_work`` counts."""
+    rows = loc.p0.shape[0] if rows is None else rows
+    return block_compares(tuple((s.p0 >= 0).sum(1, dtype=torch.int64)
+                                for s in (loc, vis)), row0,
+                          rows, 0, vis.p0.shape[0],
+                          step_live(vis, kind, row0, rows))
+
+
+def step_bytes(loc, vis, row0=0, rows=None):
+    """The compact forms a ring step reads once: rows [row0, row0 + rows)
+    of ``loc`` and all of ``vis`` (values and ids, bucket offsets)."""
+    from rabbittclust_tpu_torch.ops.pack import compact_of
+    rows = loc.p0.shape[0] if rows is None else rows
+    return compact_bytes(compact_of(loc.p0, None), row0, row0 + rows, 1) + \
+        compact_bytes(compact_of(vis.p0, None), 0, vis.p0.shape[0], 1)
 
 
 def ring_step_shapes(hashes, wide, mesh, cases, sc, radio, dev, rec, card):
@@ -2724,7 +2993,7 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
         "(logical shards on one card)")
     from rabbittclust_tpu_torch.ops import bitmap as bm
     from rabbittclust_tpu_torch.ops import labelprop as lp
-    from rabbittclust_tpu_torch.ops.pack import pack_sketches
+    from rabbittclust_tpu_torch.ops.pack import compact_of, pack_sketches
     from rabbittclust_tpu_torch.parallel import dist_engine as de
     sc_all = bm.filter_scalars(THRESHOLD, kssd_params().kmer_size)
     sc, radio = sc_all[:3], int(sc_all[3])
@@ -2968,7 +3237,9 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
                              card)
         # the exact ring: planes of the shards the cases read (all four at
         # N = 16,384; shards 3, 6 and 7 at N = 131,072, whose empty case
-        # reads shards 0 and 4 only for their ids)
+        # reads shards 0 and 4 only for their ids), their compact forms
+        # built in turns with the parent's, then each step kind against
+        # the parent's step in turns
         need = sorted({d for _, d, _ in cases} | {(d - t) % n_dev
                                                   for _, d, t in cases})
         if n == N_SLICE:
@@ -2984,6 +3255,11 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
                 torch.from_numpy(pk.plane0[sl].view(np.int32)).to(dev), None,
                 torch.from_numpy(pk.sizes[sl].astype(np.int32)).to(dev),
                 d * shard)
+        del pk
+        say(f"the exact ring's {n_dev} shards of N={n}: shards {need} "
+            f"packed in {pack_s:.3f} s; their {len(need)} compact forms of "
+            f"{shard} genomes, " + build_turns(
+                [(planes[d].p0, None) for d in need]))
         for d in range(n_dev):
             if d not in planes:  # the empty case's ids only
                 planes[d] = de.PlaneShard(planes[need[0]].p0, None,
@@ -2992,11 +3268,22 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
             loc, vis = planes[d], planes[(d - t) % n_dev]
             kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
             what = f"{n_dev} shards of N={n} {label} ({kind})"
-            (flat, common), ms = cuda_ms(lambda: de.ring_edges_step(
-                loc, vis, t, n_dev, radio), reps=1)
-            # the plain step on the whole tile for the first case, else on
-            # a band of rows (K4's plain form takes seconds a band)
-            whole = not rec.get("ring_edges", {}).get("ms")
+
+            def step():
+                return de.ring_edges_step(loc, vis, t, n_dev, radio)
+
+            if kind == "none":
+                flat, common = step()
+            else:
+                ab = ab_times(step, pde and (lambda: pde.ring_edges_step(
+                    loc, vis, t, n_dev, radio)),
+                    reps=5 if n == N_SLICE else 10)
+                (flat, common), k_dev, k_call, parts = ab["change"]
+            # the plain step on the whole tile for the interior step at
+            # N = 16,384 (the kernels line's case, beside the library call
+            # on the same step), else on a band of rows (K4's plain form
+            # takes seconds a band)
+            whole = n == N_GENOMES and label == "interior"
             r, rows = (0, shard) if whole else (shard // 2 - band // 2, band)
             (pf, pc), plain_ms = cuda_ms(lambda: de.ring_edges_step_plain(
                 band_shard(loc, r, rows), vis, t, n_dev, radio),
@@ -3011,20 +3298,37 @@ def phase_ring_kernels(corpus, wide, dev, rec, card, b1_ops):
             if kind == "none":
                 say(f"exact ring step {what}: empty on both: exact")
                 continue
-            b_ex = exact_step_bound(loc, vis, kind, flat.numel())
+            work = step_work(loc, vis, kind)
+            b_ex = join_bound(step_bytes(loc, vis) + 8 * flat.numel(), work)
+            k4 = sum(v for key, v in parts.items()
+                     if key.startswith("pair_tiles_kernel"))
             if whole:
-                rec["ring_edges"]["ms"].append(ms)
+                rec["ring_edges"]["ms"].append(k_dev[0])
                 rec["ring_edges"]["plain_ms"].append(plain_ms)
                 rec["ring_edges"]["bound"].append(b_ex)
+                rec["ring_edges"]["call_ms"] = k_call[0]
             say(f"exact ring step {what}: {flat.numel()} pairs (K4 mask "
                 f"mode, K3, K5b), {rows_of} against the plain step: exact; "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for those rows;"
-                f" bound {b_ex[0]:.4f} ms ({b_ex[1]}), kernel at "
-                f"{b_ex[0] / ms:.3f} of it; planes packed in {pack_s:.3f} s"
-                f"; card {card}")
+                f"kernels {fmt_ms(k_dev)} ms ({fmt_parts(parts)}), call "
+                f"{fmt_ms(k_call)} ms"
+                f"{parent_turns(ab, 'pairs and counts', (flat, common))}; "
+                f"plain {plain_ms:.3f} ms for those rows; the join visits "
+                f"{work[0]} entries and makes {work[1]} matches (the nested "
+                f"loop's compares {ring_compares(loc, vis, kind)}); bound "
+                f"{b_ex[0]:.4f} ms ({b_ex[1]}), kernels at "
+                f"{b_ex[0] / k_dev[0]:.3f} of it, K4 alone at "
+                f"{b_ex[0] / k4:.3f}; card {card}")
+            if whole:
+                library_call(
+                    rec, {"ring_edges": k_dev[0]},
+                    (compact_of(loc.p0, None), 0, shard),
+                    (compact_of(vis.p0, None), 0, shard),
+                    lambda dense: torch.equal(dense.flatten()[flat.long()],
+                                              common),
+                    f"exact ring step {what}")
         if n == N_GENOMES:
             phase_stats_kernel(planes, cases, n_dev, rec, card)
-        del planes, pk
+        del planes
         torch.cuda.empty_cache()
 
 
@@ -3049,15 +3353,20 @@ def hold_stats(rec, got, want, what):
 
 def phase_stats_kernel(planes, cases, n_dev, rec, card):
     """3i: K4's stats mode alone (the stats ring's step) at 4 shards of
-    N = 16,384: each step kind over the whole 4096^2 tile, timed, beside
-    its bound and K4's counts mode over a 4096^2 tile; the kernel held to
-    the plain step on a band of 256 rows (16 tiles of 256^2 through
+    N = 16,384: each step kind over the whole 4096^2 tile, timed (with
+    --parent in turns with the parent's step, outputs equal), beside its
+    bound and K4's counts mode over a 4096^2 tile; the kernel held to the
+    plain step on a band of 256 rows (16 tiles of 256^2 through
     ``pair_stats_tiles``, whose ``tri`` compares positions in the shard),
-    both timed on that band."""
+    both timed on that band (the kernel in turns with the parent's).  The
+    interior step's band is the kernels line's case, beside the library
+    call on the same band (its counts held to the plain counts)."""
     say("== phase 3i: K4's stats mode (the stats ring's steps) against the "
         "plain step")
     from rabbittclust_tpu_torch.ops import intersect as ix
+    from rabbittclust_tpu_torch.ops.pack import compact_of
     from rabbittclust_tpu_torch.parallel import dist_engine as de
+    pde, pix = PARENT.get("de"), PARENT.get("ix")
     k = kssd_params().kmer_size
     radio = de.size_ratio_limit(THRESHOLD, k - 1)
     band = 256
@@ -3065,39 +3374,66 @@ def phase_stats_kernel(planes, cases, n_dev, rec, card):
         loc, vis = planes[d], planes[(d - t) % n_dev]
         kind = de._step_kind(t, n_dev, loc.lo, vis.lo)
         what = f"{n_dev} shards of N={N_GENOMES} {label} ({kind})"
-        got, ms = cuda_ms(lambda: de.ring_stats_step(
-            loc, vis, t, n_dev, THRESHOLD, k, radio), reps=3)
+        step_args = (loc, vis, t, n_dev, THRESHOLD, k, radio)
         shard = loc.p0.shape[0]
         r = shard // 2 - band // 2
         live = int(kind != "none")
         tiles = ([r] * (shard // band), list(range(0, shard, band)),
                  [live] * (shard // band))
-        part, band_ms = cuda_ms(lambda: ix.pair_stats_tiles(
-            loc.p0, loc.sizes, *tiles, radio, THRESHOLD, k, band,
-            cols=(vis.p0, vis.sizes), tri=kind == "self"), reps=3)
+        band_args = (loc.p0, loc.sizes, *tiles, radio, THRESHOLD, k, band)
+        band_kw = {"cols": (vis.p0, vis.sizes), "tri": kind == "self"}
         want, plain_ms = cuda_ms(lambda: de.ring_stats_step_plain(
-            band_shard(loc, r, band), vis, t, n_dev, THRESHOLD, k, radio),
-            warmup=False)
-        count, low, ulp = hold_stats(rec, part, want,
-                                     f"{what} rows {r}..{r + band - 1}")
+            band_shard(loc, r, band), *step_args[1:]), warmup=False)
         if kind == "none":
-            hold_stats(rec, got, want, what)
+            part = ix.pair_stats_tiles(*band_args, **band_kw)
+            hold_stats(rec, part, want, f"{what} rows {r}..{r + band - 1}")
+            hold_stats(rec, de.ring_stats_step(*step_args), want, what)
             say(f"stats step {what}: nothing launched, empty on both: "
                 "exact")
             continue
-        compares = ring_compares(band_shard(loc, r, band), vis, kind, r)
-        b_band = bound(8, compares, CORE_OPS)
-        b_step = bound(8, ring_compares(loc, vis, kind), CORE_OPS)
-        rec["ring_stats"]["ms"].append(band_ms)
-        rec["ring_stats"]["plain_ms"].append(plain_ms)
-        rec["ring_stats"]["bound"].append(b_band)
+        ab = ab_times(lambda: de.ring_stats_step(*step_args), pde and (
+            lambda: pde.ring_stats_step(*step_args)), reps=10)
+        got, s_dev, s_call, _ = ab["change"]
+        abb = ab_times(lambda: ix.pair_stats_tiles(*band_args, **band_kw),
+                       pix and (lambda: pix.pair_stats_tiles(*band_args,
+                                                             **band_kw)),
+                       reps=10)
+        part, b_dev, b_call, _ = abb["change"]
+        count, low, ulp = hold_stats(rec, part, want,
+                                     f"{what} rows {r}..{r + band - 1}")
+        work_b = step_work(loc, vis, kind, r, band)
+        work_s = step_work(loc, vis, kind)
+        b_band = join_bound(step_bytes(loc, vis, r, band) + 8, work_b)
+        b_step = join_bound(step_bytes(loc, vis) + 8, work_s)
+        if label == "interior":  # the kernels line's case
+            rec["ring_stats"]["ms"].append(b_dev[0])
+            rec["ring_stats"]["plain_ms"].append(plain_ms)
+            rec["ring_stats"]["bound"].append(b_band)
+            rec["ring_stats"]["call_ms"] = b_call[0]
         say(f"stats step {what}: whole step {int(got[0])} pairs <= "
             f"{THRESHOLD}, min {float(got[1:].cpu().view(torch.float32))!r};"
-            f" kernel {ms:.3f} ms, bound {b_step[0]:.4f} ms ({b_step[1]}), "
-            f"at {b_step[0] / ms:.3f} of it; band rows {r}..{r + band - 1}:"
+            f" kernel {fmt_ms(s_dev)} ms, call {fmt_ms(s_call)} ms"
+            f"{parent_turns(ab, 'stats', got)}; the join visits "
+            f"{work_s[0]} entries and makes {work_s[1]} matches (the nested "
+            f"loop's compares {ring_compares(loc, vis, kind)}); bound "
+            f"{b_step[0]:.4f} ms ({b_step[1]}), at "
+            f"{b_step[0] / s_dev[0]:.3f} of it; band rows {r}..{r + band - 1}:"
             f" {count} pairs, min {low!r}, {ulp} ulp from the plain step; "
-            f"kernel {band_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_band[0]:.5f} ms; card {card}")
+            f"kernel {fmt_ms(b_dev)} ms, call {fmt_ms(b_call)} ms"
+            f"{parent_turns(abb, 'stats', part)}; plain {plain_ms:.3f} ms; "
+            f"the join visits {work_b[0]} entries and makes {work_b[1]} "
+            f"matches (the nested loop's compares "
+            f"{ring_compares(loc, vis, kind, r, band)}); bound "
+            f"{b_band[0]:.5f} ms ({b_band[1]}); card {card}")
+        if label == "interior":
+            want_c = ix.pair_counts_plain(loc.p0[r:r + band], vis.p0)
+            library_call(
+                rec, {"ring_stats": b_dev[0]},
+                (compact_of(loc.p0, None), r, band),
+                (compact_of(vis.p0, None), 0, shard),
+                lambda dense: torch.equal(dense, want_c),
+                f"stats step {what} rows {r}..{r + band - 1}")
+            del want_c
         if kind == "self":
             _, c_ms = cuda_ms(lambda: ix.pair_counts_tiles(
                 loc.p0, None, [0], [0], [1], shard), reps=3)
@@ -4181,9 +4517,13 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     # each kernel's first timed case, its bound and, for K1, K6 and the
     # bitmap and mask rings, the one PyTorch call that computes its
-    # product, for K3 torch.nonzero over the unpacked masks (no single call
-    # computes K2's, K4's, K5b's, K7's, K8's, the exact ring's or the LP
-    # round's function); launches from the run of the path that uses the
+    # product, for K3 torch.nonzero over the unpacked masks, for K4's
+    # counts and mask modes and the exact and stats rings torch.sparse.mm
+    # of the CSR incidences on the kernel's own case (the exact ring's
+    # interior 4096^2 step, the stats ring's 256-row band of it; a
+    # library_note where PyTorch refuses it; no
+    # single call computes K2's, K5b's, K7's, K8's or the LP round's
+    # function); launches from the run of the path that uses the
     # kernel (K4's counts mode is on no path: the dense engine takes its
     # mask mode; K3's from phase 11's first idx run, K7's from phase 13's
     # first device run, K8's and its id pass's from phase 14's WMH run,
@@ -4191,7 +4531,8 @@ def main() -> int:
     # the ring steps' and the LP slab round's ms and library_ms are kernel
     # times (device_ms); their call times, and the
     # bitmap ring's close, ride along as extra keys
-    extra = ("call_ms", "library_call_ms", "close_ms", "close_call_ms")
+    extra = ("call_ms", "library_call_ms", "library_note", "close_ms",
+             "close_call_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rec[name]["err"],

@@ -126,6 +126,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_pair_tiles.argtypes = [vp] * 18 + [ci] * 11 + [cf, cf, vp]
     lib.rtc_pair_common.restype = ci
     lib.rtc_pair_common.argtypes = [vp] * 12 + [ci] * 3 + [vp]
+    lib.rtc_div_rn_normal.restype = ci
+    lib.rtc_div_rn_normal.argtypes = [vp, vp, vp, ci, vp]
     lib.rtc_filter_mask.restype = ci
     lib.rtc_filter_mask.argtypes = [vp, vp, ci] + [vp] * 9 + [ci] * 4 + [
         cf, cf, cf, ci, cf, ci, ci, ci, vp, vp, vp]

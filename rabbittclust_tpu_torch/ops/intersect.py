@@ -3,7 +3,7 @@
 
 Kernels written by hand for Hopper in ``csrc/pair_counts.cu``, over the
 planes' compact form (``ops/pack.py::compact_planes``, built once per
-plane set):
+plane set; K4 joins its value-sorted bucket segments by search):
 
 * K4 ``pair_counts_tiles`` — counts for a batch of (rb x rb) tiles of the
   resident planes; replaces the Pallas kernel ``pair_counts_row_pallas``.
@@ -389,6 +389,27 @@ def pair_stats_tiles(p0: torch.Tensor, sizes: torch.Tensor, r0s, c0s, valid,
                   np.float32(threshold), np.float32(-(1.0 / kmer_size)))
     LAUNCHES["pair_stats_tiles"] += 1
     return stats
+
+
+def stats_division(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` of two contiguous float32 tensors of one shape by the
+    division K4's stats epilogue runs on the card (``csrc/pair_counts.cu::
+    div_rn_normal``, not IEEE's sequence in full), to hold it to IEEE
+    division over the epilogue's operands; on the CPU, torch's division."""
+    if a.device.type == "cpu":
+        return a / b
+    if (a.dtype != torch.float32 or b.dtype != torch.float32
+            or a.shape != b.shape or b.device != a.device
+            or not (a.is_contiguous() and b.is_contiguous())):
+        raise ValueError("a and b must be contiguous float32 tensors of "
+                         "one shape on one device")
+    from ..kernels._build import load_kernels
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        _launch(load_kernels().rtc_div_rn_normal, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), a.numel(),
+                torch.cuda.current_stream(a.device).cuda_stream)
+    return out
 
 
 def pair_common_plain(p0: torch.Tensor, p1: Optional[torch.Tensor],

@@ -29,7 +29,9 @@ Slot order: the real entries of a (genome, bucket) fill slots 0..occ-1
 and pads the rest (the stable sort by cell numbers them from 0).
 ``compact_planes`` keeps only the real entries, in the two orders the
 device kernels read; it finds them by the pad test, so it does not rely
-on the slot order.
+on the slot order.  Its grouped order holds each (group, bucket) segment
+sorted by value, so that K4 joins two segments by search instead of
+comparing every pair of their entries.
 """
 
 from __future__ import annotations
@@ -162,6 +164,9 @@ WINDOWS = (32, 16, 8, 4, 2, 1)
 # spare elements after every value array: the kernels copy 16-byte
 # granules and may read up to 15 bytes past a segment
 SPARE = 16
+# the compact form's layout, part of the key a kept form is found by: 2
+# since its grouped segments are sorted by value
+LAYOUT = 2
 
 
 @dataclass
@@ -173,9 +178,11 @@ class CompactPlanes:
     * genome-major, read by K5b: ``v0``/``v1`` hold genome g's entries in
       (bucket, slot) order from ``start[g]``; ``occ[g, k]`` counts them.
     * grouped, read by K4: genomes in groups of ``GROUP``; ``g0``/``g1``
-      hold group G's entries in (bucket, genome, slot) order from
-      ``start[GROUP * G]``, ``gid`` the genome within the group of each,
-      and ``goff[G, k]`` is the first entry of bucket k within the group.
+      hold group G's entries bucket by bucket from ``start[GROUP * G]``,
+      ``gid`` the genome within the group of each, and ``goff[G, k]`` is
+      the first entry of bucket k within the group.  Each (group, bucket)
+      segment is sorted by value (``sort_key``: unsigned, ``(g1, g0)``
+      for 64-bit hashes), ties by ``gid``.
 
     ``padsq[g]`` is the sum over buckets of (W - occ)^2: the matches of
     genome g's pads with its own pads, which the plain count has on the
@@ -205,11 +212,33 @@ class CompactPlanes:
         return CompactPlanes(**moved)
 
 
+def sort_key(v0: torch.Tensor, v1: Optional[torch.Tensor]) -> torch.Tensor:
+    """int64 key of entries with int32 values ``v0`` (and ``v1``): the
+    value read unsigned, ``v1`` the high word (csrc/pair_counts.cu::key_at
+    orders them the same way; a real ``v1`` has its top bit clear)."""
+    key = v0.long() & 0xFFFFFFFF
+    return key if v1 is None else key | (v1.long() << 32)
+
+
+def _sort_segments(seg_len: torch.Tensor, cols: dict) -> dict:
+    """The grouped entries ``cols`` (name: 1-D tensor, segment by segment,
+    ``seg_len`` entries each, genome order within a segment) with every
+    segment sorted by ``sort_key``, ties kept in genome order (two stable
+    sorts: by value, then by segment)."""
+    seg = torch.repeat_interleave(
+        torch.arange(len(seg_len), device=seg_len.device), seg_len)
+    order = torch.sort(sort_key(cols["g0"], cols.get("g1")),
+                       stable=True).indices
+    order = order[torch.sort(seg[order], stable=True).indices]
+    return {name: col[order] for name, col in cols.items()}
+
+
 def compact_planes(p0: torch.Tensor, p1: Optional[torch.Tensor],
                    chunk_groups: int = 8) -> CompactPlanes:
     """The compact form of (n_pad, W, K) int32 planes, on their device.
     Plain torch: it is layout.  Genomes are read ``chunk_groups`` groups at
-    a time, so the temporaries stay small beside the planes."""
+    a time, so the temporaries stay small beside the planes; a chunk holds
+    whole groups, so its segments are sorted within it."""
     n, w, k = p0.shape
     dev = p0.device
     top = p0 if p1 is None else p1
@@ -240,16 +269,20 @@ def compact_planes(p0: torch.Tensor, p1: Optional[torch.Tensor],
         real = torch.cat([real, real.new_zeros((short, w, k))])
         gm = real.transpose(1, 2)  # (genome, bucket, slot)
         gr = real.view(-1, GROUP, w, k).permute(0, 3, 1, 2)
+        grouped = {}
         for name, plane in (("0", p0), ("1", p1)):
             if plane is None:
                 continue
             vals = plane[lo:hi]
             vals = torch.cat([vals, vals.new_zeros((short, w, k))])
             parts["v" + name].append(vals.transpose(1, 2).masked_select(gm))
-            parts["g" + name].append(vals.view(-1, GROUP, w, k).permute(
-                0, 3, 1, 2).masked_select(gr))
-        parts["gid"].append(ids[None, None, :, None].expand(
-            gr.shape).masked_select(gr))
+            grouped["g" + name] = vals.view(-1, GROUP, w, k).permute(
+                0, 3, 1, 2).masked_select(gr)
+        grouped["gid"] = ids[None, None, :, None].expand(
+            gr.shape).masked_select(gr)
+        seg_len = gr.sum((2, 3)).flatten()  # (group, bucket) order
+        for name, col in _sort_segments(seg_len, grouped).items():
+            parts[name].append(col)
 
     def flat(name, dtype):
         if not parts[name]:
@@ -269,10 +302,10 @@ def compact_planes(p0: torch.Tensor, p1: Optional[torch.Tensor],
 def compact_of(p0: torch.Tensor,
                p1: Optional[torch.Tensor]) -> CompactPlanes:
     """``compact_planes(p0, p1)``, kept on ``p0`` and built again only
-    when ``p1`` is another tensor or either was modified in place."""
-    key = (p1, p0._version, None if p1 is None else p1._version)
+    when ``p1`` is another tensor, either was modified in place, or the
+    kept form has another ``LAYOUT``."""
     kept = getattr(p0, "_rtc_compact", None)
-    if kept is not None and kept[0][0] is p1 and kept[0][1:] == key[1:]:
+    if kept is not None and kept[0][0] is p1 and kept[0][1:] == _key(p0, p1):
         return kept[1]
     return keep_compact(p0, p1, compact_planes(p0, p1))
 
@@ -282,9 +315,14 @@ def keep_compact(p0: torch.Tensor, p1: Optional[torch.Tensor],
     """Record ``form`` as the compact form of ``(p0, p1)``, for
     ``compact_of`` to return (a form copied with its planes to another
     device, in place of building it again there)."""
-    p0._rtc_compact = ((p1, p0._version,
-                        None if p1 is None else p1._version), form)
+    p0._rtc_compact = ((p1, *_key(p0, p1)), form)
     return form
+
+
+def _key(p0: torch.Tensor, p1: Optional[torch.Tensor]) -> tuple:
+    """What a kept form must match besides ``p1`` itself: the layout and
+    the planes' versions."""
+    return LAYOUT, p0._version, None if p1 is None else p1._version
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

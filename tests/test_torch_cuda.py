@@ -26,7 +26,7 @@ from rabbittclust_tpu_torch.ops import labelprop as lp
 from rabbittclust_tpu_torch.ops.pack import pack_sketches, planes_to_device
 from torch_port_data import clear_list, clustered_sketches, \
     containment_sketches, dense_keep_table, kssd_window, planted_tokens, \
-    write_scale_genomes
+    shared_sketches, stats_division_operands, write_scale_genomes
 
 pytestmark = pytest.mark.cuda
 
@@ -153,6 +153,99 @@ def test_k4_counts_diagonal_padded_tail(gpu, use64):
     assert torch.equal(got[0], want)
     w, k = pk.width, pk.k
     assert (want.diagonal()[300 - 256:] == w * w * k).all()
+
+
+@pytest.mark.parametrize("use64,mode", [
+    (False, "counts"), (True, "counts"), (False, "mask"), (True, "mask"),
+    (False, "stats")])
+@pytest.mark.parametrize("bucket_bits", [None, 3],
+                         ids=["W_natural", "W_wide"])
+def test_k4_long_equal_runs_match_plain(gpu, use64, mode, bucket_bits):
+    """K4's sorted join where one value fills a bucket's run across all
+    128 genomes of a group (``shared_sketches``: 300 genomes, a ragged
+    tail group), in each mode against its plain version: the counts, the
+    masks and tile counts, the stats (count equal, minimum within 4 ulp).
+    W_wide (bucket_bits=3) makes a bucket's segment longer than a window
+    holds under the staging budget, so the kernel stages one bucket a
+    window in a larger ring."""
+    hashes = shared_sketches(n=300, dtype=np.uint64 if use64 else
+                             np.uint32)
+    pk = pack_sketches(hashes, use64, bucket_bits=bucket_bits,
+                       pad_n_to=128)
+    pl = planes_to_device(pk, gpu)
+    cf = pl.compact()
+    if bucket_bits == 3:
+        wb, _, smem = ix.tile_config(cf, use64, ix.COUNTS)
+        assert wb == 1 and smem - 4 * 128 * 128 > ix.STAGE_BUDGET
+    r0s, c0s, val = [0, 128, 256, 256, 0], [0, 0, 128, 256, 0], [1] * 4 + [0]
+    counts = ix._pair_counts_tiles_plain(pl.plane0, pl.plane1, r0s, c0s, val,
+                                         128)
+    assert int(counts[0].min()) >= 6  # the values every genome holds
+    if mode == "counts":
+        got = ix.pair_counts_tiles(pl.plane0, pl.plane1, r0s, c0s, val, 128)
+        assert all(torch.equal(got[t], counts[t]) for t in range(4))
+    elif mode == "mask":
+        args = (r0s, c0s, val, 44, 37, 290, 128)
+        cnt, packs = ix.pair_mask_tiles(pl.plane0, pl.plane1, pl.sizes,
+                                        *args)
+        want_c, want_p = ix.mask_epilogue(counts, pl.sizes, *args)
+        assert torch.equal(cnt, want_c) and torch.equal(packs, want_p)
+        assert int(want_c.sum()) > 0
+    else:  # j < i: the full steps' stats are the ring test's
+        got = ix.pair_stats_tiles(pl.plane0, pl.sizes, r0s, c0s, val, 44,
+                                  0.05, 21, 128)
+        want = ix.pair_stats_tiles_plain(pl.plane0, pl.sizes, r0s, c0s, val,
+                                         44, 0.05, 21, 128)
+        assert int(got[0]) == int(want[0]) > 0
+        assert _ulp_apart(got, want) <= 4
+
+
+def test_stats_division_is_ieee(gpu):
+    """The stats epilogue's divisions (``div_rn_normal``: IEEE's sequence
+    without its range check's slow path) bit-equal to IEEE float32
+    division (numpy's) over the operands the epilogue can give them:
+    common (0 included) over max(denom, 1) up to 2^32, and 2j / (1 + j)
+    with j near 2^-32 and near 1."""
+    a, b = stats_division_operands()
+    assert a.max() > 2 ** 30 and b.max() > 2 ** 31 and (a == 0).any()
+    got = ix.stats_division(torch.from_numpy(a).to(gpu),
+                            torch.from_numpy(b).to(gpu)).cpu().numpy()
+    want = a / b
+    bad = np.flatnonzero(got.view(np.int32) != want.view(np.int32))
+    assert len(bad) == 0, [(a[i], b[i], got[i], want[i]) for i in bad[:5]]
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
+def test_exact_ring_steps_long_runs_match_plain(gpu, use64):
+    """The exact ring's steps (K4's mask mode with the visiting shard's
+    column form, K3, K5b) and the stats ring's over 3 shards of the
+    ``shared_sketches`` corpus on [cuda:0] * 3: the self step and the full
+    steps against the plain steps, exact (the stats: count equal, minimum
+    within 4 ulp; one plane)."""
+    from rabbittclust_tpu_torch.parallel import dist_engine as de
+    mesh = de.make_mesh(devices=[gpu] * 3)
+    hashes = shared_sketches(n=330, dtype=np.uint64 if use64 else
+                             np.uint32)
+    p0, p1, sz = de._pack_rows_for_mesh(hashes, mesh)
+    shards = de._plane_shards(p0, p1, sz, mesh, p0.shape[0])
+    radio = de.size_ratio_limit(0.05, 20)
+    kinds = set()
+    for d in range(3):
+        for t in range(de._n_ring_steps(3)):
+            loc, vis = shards[d], shards[(d - t) % 3]
+            kinds.add(de._step_kind(t, 3, loc.lo, vis.lo))
+            got = de.ring_edges_step(loc, vis, t, 3, radio)
+            want = de.ring_edges_step_plain(loc, vis, t, 3, radio)
+            assert torch.equal(got[0], want[0]), (d, t)
+            assert torch.equal(got[1], want[1]), (d, t)
+            assert len(want[0]) > 0
+            if use64:
+                continue
+            got = de.ring_stats_step(loc, vis, t, 3, 0.05, 21, radio)
+            want = de.ring_stats_step_plain(loc, vis, t, 3, 0.05, 21, radio)
+            assert int(got[0]) == int(want[0]), (d, t)
+            assert _ulp_apart(got, want) <= 4, (d, t)
+    assert kinds == {"self", "full"}
 
 
 @pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])

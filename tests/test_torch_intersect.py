@@ -18,8 +18,8 @@ from rabbittclust_tpu_torch.ops import intersect as port
 from rabbittclust_tpu_torch.ops.pack import (GROUP, compact_of,
                                              compact_planes,
                                              pack_sketches as port_pack,
-                                             planes_to_device)
-from torch_port_data import clustered_sketches
+                                             planes_to_device, sort_key)
+from torch_port_data import clustered_sketches, shared_sketches
 
 CPU = torch.device("cpu")
 
@@ -198,8 +198,18 @@ def _scatter(g, b, vals, n_pad, w, k):
     return plane
 
 
+def _by_key(planes):
+    """``planes`` with the W slots of every (genome, bucket) sorted by
+    ``sort_key``: the grouped order keeps a cell's entries sorted by value,
+    not in slot order, so it rebuilds the planes up to this."""
+    key = sort_key(planes[0], planes[1] if len(planes) > 1 else None)
+    order = key.argsort(dim=1)
+    return [p.gather(1, order) for p in planes]
+
+
 def _rebuild(cf, n_pad, w, k):
-    """The planes again, from each of the two orders of ``cf``."""
+    """The planes again, from each of the two orders of ``cf`` (the
+    grouped one with its cells in value order, ``_by_key``)."""
     e = cf.entries
     occ = cf.occ.long()
     g = torch.repeat_interleave(torch.arange(n_pad), occ.sum(1))
@@ -214,9 +224,10 @@ def _rebuild(cf, n_pad, w, k):
                                           cf.goff[grp].diff().long()))
         gs.append(grp * GROUP + cf.gid[lo:hi].long())
     g, b = torch.cat(gs), torch.cat(bs)
-    grouped = [_scatter(g, b, v[:e], n_pad, w, k)
+    cell = torch.sort(g * k + b, stable=True).indices  # a cell's entries
+    grouped = [_scatter(g[cell], b[cell], v[:e][cell], n_pad, w, k)
                for v in (cf.g0, cf.g1) if v is not None]
-    return genome_major, grouped
+    return genome_major, _by_key(grouped)
 
 
 @pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
@@ -226,9 +237,10 @@ def test_compact_form_rebuilds_the_planes(use64, bucket_bits):
     n_pad, w, k = pl.plane0.shape
     assert cf.entries == sum(len(h) for h in hashes)
     want = [pl.plane0] + ([pl.plane1] if use64 else [])
-    for form in _rebuild(cf, n_pad, w, k):
-        assert len(form) == len(want)
-        for got, plane in zip(form, want):
+    for form, planes in zip(_rebuild(cf, n_pad, w, k),
+                            (want, _by_key(want))):
+        assert len(form) == len(planes)
+        for got, plane in zip(form, planes):
             assert torch.equal(got, plane)
     top = pl.plane1 if use64 else pl.plane0
     assert torch.equal(cf.occ.long(), (top >= 0).sum(1))
@@ -269,16 +281,142 @@ def test_pack_fills_real_slots_first(use64, bucket_bits):
     assert torch.equal(got.goff, want.goff)
 
 
-def _join_model(cf, r0, c0, rb, mask=None):
-    """K4's arithmetic in plain torch, for the tests: per block of GROUP x
-    GROUP pairs and per bucket, every real row entry against every real
-    column entry of the bucket (grouped order).  Counts: the matches plus
-    padsq on the diagonal.  ``mask = (sizes, radio, start_index, n)``:
-    the mask mode instead, a pair's bit on its first match, blocks with no
-    pair j < i or no row in [start_index, n) skipped, then the gates;
-    returns (count, packed mask)."""
+def _planted_shared(use64):
+    """``shared_sketches``: 200 genomes, planes padded to 256 (a ragged
+    tail group)."""
+    hashes = shared_sketches(dtype=np.uint64 if use64 else np.uint32)
+    pk = port_pack(hashes, use64, pad_n_to=128)
+    return hashes, pk, planes_to_device(pk, CPU)
+
+
+def _grouped_unsorted(pl):
+    """The grouped form built in numpy with each (group, bucket) segment in
+    genome-then-slot order, the order before its sort: {g0, g1 (or None),
+    gid, seg (the segment of each entry), start, goff, occ}."""
+    planes = [p.numpy() for p in (pl.plane0, pl.plane1) if p is not None]
+    n, w, k = planes[0].shape
+    n_groups = -(-n // GROUP)
+    n_virt = n_groups * GROUP
+    real = np.zeros((n_virt, w, k), dtype=bool)
+    real[:n] = planes[-1] >= 0
+
+    def grouped(a):  # (group, bucket, genome, slot)
+        return a.reshape(n_groups, GROUP, w, k).transpose(0, 3, 1, 2)
+
+    sel = grouped(real)
+    vals = []
+    for p in planes:
+        full = np.zeros((n_virt, w, k), dtype=np.int32)
+        full[:n] = p
+        vals.append(grouped(full)[sel])
+    occ = real.sum(1)
+    goff = np.zeros((n_groups, k + 1), dtype=np.int64)
+    goff[:, 1:] = occ.reshape(n_groups, GROUP, k).sum(1).cumsum(1)
+    return {"g0": vals[0], "g1": vals[1] if len(vals) > 1 else None,
+            "gid": np.broadcast_to(np.arange(GROUP)[None, None, :, None],
+                                   sel.shape)[sel],
+            "seg": np.broadcast_to(np.arange(n_groups * k).reshape(
+                n_groups, k)[:, :, None, None], sel.shape)[sel],
+            "start": np.concatenate([[0], occ.sum(1).cumsum()]),
+            "goff": goff, "occ": occ[:n]}
+
+
+SORT_CASES = W_CASES + [(False, "planted"), (True, "planted")]
+SORT_IDS = W_IDS + ["1plane-planted_shared", "2plane-planted_shared"]
+
+
+@pytest.mark.parametrize("use64,corpus", SORT_CASES, ids=SORT_IDS)
+def test_compact_segments_sorted_offsets_kept(use64, corpus):
+    """Every (group, bucket) segment of the grouped form is sorted by
+    ``sort_key`` (unsigned; ``(g1, g0)`` for 64-bit hashes), ties by
+    genome: it is the form before the sort (built here in numpy) sorted
+    so, and ``start``, ``goff``, ``occ``, ``padsq`` and ``window_max``
+    are the unsorted form's.  The planted case holds equal runs of 128
+    keys (a value in every genome of a group)."""
+    if corpus == "planted":
+        _, pk, pl = _planted_shared(use64)
+    else:
+        _, pk, pl = _ragged(use64, corpus)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    ref = _grouped_unsorted(pl)
+    assert np.array_equal(cf.start.numpy(), ref["start"])
+    assert np.array_equal(cf.goff.numpy(), ref["goff"])
+    assert np.array_equal(cf.occ.numpy(), ref["occ"])
+    w = pk.width
+    assert np.array_equal(cf.padsq.numpy(),
+                          ((w - ref["occ"]) ** 2).sum(1))
+    for wb, most in cf.window_max.items():
+        edges = list(range(0, pk.k, wb)) + [pk.k]
+        assert most == int((ref["goff"][:, edges[1:]] -
+                            ref["goff"][:, edges[:-1]]).max())
+    key = (ref["g0"].astype(np.int64) & 0xFFFFFFFF) | (
+        0 if ref["g1"] is None else ref["g1"].astype(np.int64) << 32)
+    order = np.lexsort((ref["gid"], key, ref["seg"]))
+    e = cf.entries
+    assert np.array_equal(cf.g0[:e].numpy(), ref["g0"][order])
+    assert np.array_equal(cf.gid[:e].numpy(), ref["gid"][order])
+    if use64:
+        assert np.array_equal(cf.g1[:e].numpy(), ref["g1"][order])
+    got = sort_key(cf.g0[:e], cf.g1[:e] if use64 else None)
+    same_seg = torch.from_numpy(ref["seg"][1:] == ref["seg"][:-1])
+    step = got[1:] - got[:-1]
+    gid = cf.gid[:e].long()
+    assert ((step > 0) | ((step == 0) & (gid[1:] > gid[:-1])))[
+        same_seg].all()
+    if corpus == "planted":  # a run of one key over a whole group
+        _, runs = torch.unique_consecutive(
+            torch.stack([torch.from_numpy(ref["seg"][order]), got]),
+            dim=1, return_counts=True)
+        assert int(runs.max()) == GROUP
+
+
+@pytest.mark.parametrize("use64", [False, True], ids=["32bit", "64bit"])
+def test_sorted_join_equals_plain_and_pallas(use64):
+    """The join the kernel runs, over the sorted grouped form
+    (``_join_model``), gives ``pair_counts_plain``'s counts and the JAX
+    Pallas kernel's (``pair_counts_row_pallas``, interpret mode) on every
+    tile of the planted corpus with shared values: the diagonal with its
+    pad term, the ragged tail group, equal runs of up to 128 keys."""
+    hashes, pk, pl = _planted_shared(use64)
+    jpk = pack_sketches(hashes, use64, pad_n_to=128)
+    assert np.array_equal(jpk.plane0, pk.plane0)
+    cf = compact_planes(pl.plane0, pl.plane1)
+    n_pad = pk.n
+    got = _join_model(cf, 0, 0, n_pad)
+    want = port.pair_counts_tiles(pl.plane0, pl.plane1, [0], [0], [1],
+                                  n_pad)[0]
+    assert torch.equal(got, want)
+    for r0 in range(0, n_pad, GROUP):
+        pallas = np.asarray(pair_counts_row(jpk.row_block(r0, GROUP), jpk,
+                                            gj_tile=GROUP,
+                                            backend="interpret"))
+        assert np.array_equal(got[r0:r0 + GROUP].numpy(), pallas), r0
+    assert (want.diagonal()[200:] == pk.width ** 2 * pk.k).all()
+    assert int(want[:200, :200].min()) >= 6  # the shared hashes
+
+
+def _group_entries(cf, g):
+    """Group ``g``'s entries in the grouped order: (key, bucket, gid)."""
     k = cf.goff.shape[1] - 1
-    two = cf.g1 is not None
+    lo, hi = int(cf.start[g * GROUP]), int(cf.start[(g + 1) * GROUP])
+    key = sort_key(cf.g0[lo:hi], None if cf.g1 is None else cf.g1[lo:hi])
+    bucket = torch.repeat_interleave(torch.arange(k),
+                                     cf.goff[g].diff().long())
+    return key, bucket, cf.gid[lo:hi].long()
+
+
+def _join_model(cf, r0, c0, rb, mask=None):
+    """K4's join in plain torch, the algorithm the kernel runs (for the
+    tests): per block of GROUP x GROUP pairs, each real row entry finds
+    the first column entry of its key in its bucket's column segment
+    (sorted by ``sort_key``) by a binary search and takes the equal run
+    from there (its end by the same search on the right; the kernel walks
+    it), each entry of the run a match.  The searches of all buckets run
+    as one, over the column group's (bucket, key) sequence, which the
+    sorted segments make sorted.  Counts: the matches plus padsq on the
+    diagonal.  ``mask = (sizes, radio, start_index, n)``: the mask mode
+    instead, blocks with no pair j < i or no row in [start_index, n)
+    skipped, then the gates; returns (count, packed mask)."""
     hits = torch.zeros((rb, rb), dtype=torch.int32)
     for tr in range(0, rb, GROUP):
         for tc in range(0, rb, GROUP):
@@ -289,19 +427,23 @@ def _join_model(cf, r0, c0, rb, mask=None):
                 if j0 >= i0 + GROUP - 1 or i0 + GROUP <= start_index \
                         or i0 >= n:
                     continue
-            for b in range(k):
-                rs = int(cf.start[gr * GROUP] + cf.goff[gr, b])
-                re = int(cf.start[gr * GROUP] + cf.goff[gr, b + 1])
-                cs = int(cf.start[gc * GROUP] + cf.goff[gc, b])
-                ce = int(cf.start[gc * GROUP] + cf.goff[gc, b + 1])
-                eq = cf.g0[rs:re, None] == cf.g0[None, cs:ce]
-                if two:
-                    eq &= cf.g1[rs:re, None] == cf.g1[None, cs:ce]
-                ri, ci = torch.nonzero(eq, as_tuple=True)
-                hits.index_put_((tr + cf.gid[rs:re][ri].long(),
-                                 tc + cf.gid[cs:ce][ci].long()),
-                                torch.ones(len(ri), dtype=torch.int32),
-                                accumulate=True)
+            xr, br, idr = _group_entries(cf, gr)
+            xc, bc, idc = _group_entries(cf, gc)
+            # (bucket, rank of the key among both groups' keys) orders the
+            # entries as (bucket, key) does, in an int64
+            _, rank = torch.unique(torch.cat([xr, xc]), return_inverse=True)
+            span = len(rank) + 1
+            pr = br * span + rank[:len(xr)]
+            pc = bc * span + rank[len(xr):]
+            assert bool((pc[1:] >= pc[:-1]).all())  # sorted segments
+            lo = torch.searchsorted(pc, pr, side="left")
+            run = torch.searchsorted(pc, pr, side="right") - lo
+            ri = torch.repeat_interleave(torch.arange(len(pr)), run)
+            first = torch.repeat_interleave(torch.cumsum(run, 0) - run, run)
+            ci = lo[ri] + torch.arange(len(ri)) - first
+            hits.index_put_((tr + idr[ri], tc + idc[ci]),
+                            torch.ones(len(ri), dtype=torch.int32),
+                            accumulate=True)
     span = torch.arange(rb)
     if mask is None:
         diag = (r0 + span)[:, None] == (c0 + span)[None, :]
@@ -319,9 +461,10 @@ def _join_model(cf, r0, c0, rb, mask=None):
 
 @pytest.mark.parametrize("use64,bucket_bits", W_CASES, ids=W_IDS)
 def test_join_model_equals_plain_counts(use64, bucket_bits):
-    """Real x real compares per bucket plus the diagonal pad term give
-    ``pair_counts_plain`` exactly: a diagonal tile, an off-diagonal one
-    and the diagonal tile of the padded tail (rows 300..383 all pads)."""
+    """The sorted join of real entries per bucket plus the diagonal pad
+    term gives ``pair_counts_plain`` exactly: a diagonal tile, an
+    off-diagonal one and the diagonal tile of the padded tail (rows
+    300..383 all pads)."""
     _, pk, pl = _ragged(use64, bucket_bits)
     cf = compact_planes(pl.plane0, pl.plane1)
     r0s, c0s = [0, 128, 256, 256], [0, 0, 128, 256]
@@ -394,3 +537,16 @@ def test_compact_form_is_kept_with_the_planes():
     assert compact_of(pl.plane0, pl.plane0) is not cf  # another plane1
     pl.plane0[0, 0, 0] = 5  # an in-place change builds it again
     assert compact_of(pl.plane0, None) is not cf
+
+
+def test_compact_form_of_another_layout_is_built_again():
+    """A form kept on the planes under another layout (as a package
+    without the sorted segments keeps it: no layout in its key) is not
+    taken for this layout's; the one built in its place is kept."""
+    _, _, pl = _ragged(False)
+    old = object()
+    pl.plane0._rtc_compact = ((None, pl.plane0._version, None), old)
+    cf = compact_of(pl.plane0, None)
+    assert cf is not old and compact_of(pl.plane0, None) is cf
+    fresh = compact_planes(pl.plane0, None)
+    assert torch.equal(cf.g0, fresh.g0) and torch.equal(cf.gid, fresh.gid)

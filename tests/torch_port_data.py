@@ -26,6 +26,19 @@ def clustered_sketches(n=220, s=150, n_clusters=10, seed=13,
     return out
 
 
+def shared_sketches(n=200, s=150, seed=5, dtype=np.uint32, n_common=6):
+    """``clustered_sketches`` in two planted clusters kept at 0.95, each
+    genome also holding the same ``n_common`` hashes: values repeated
+    across most genomes of a group of 128, and some across all of it
+    (long runs of one value in a bucket of the grouped compact form)."""
+    hashes = clustered_sketches(n=n, s=s, n_clusters=2, seed=seed,
+                                dtype=dtype, keep=0.95)
+    common = np.random.default_rng(seed + 1).integers(
+        0, 2 ** 60 if dtype == np.uint64 else 2 ** 31,
+        size=n_common).astype(dtype)
+    return [np.unique(np.concatenate([h, common])) for h in hashes]
+
+
 def containment_sketches(n=100, seed=5):
     """Subsets of one base of varied size plus noise (AAF containment)."""
     rng = np.random.default_rng(seed)
@@ -135,3 +148,36 @@ def write_scale_genomes(folder, n_clusters=20, per_cluster=20, length=25000,
     with open(lst, "w") as f:
         f.write("\n".join(files) + "\n")
     return lst
+
+
+def stats_division_operands(n=1 << 20, seed=0):
+    """(a, b) float32 operands of the stats epilogue's two divisions
+    (``ops/intersect.py::stats_epilogue``) over their ranges: common /
+    max(denom, 1) with sizes s0, s1 in [1, 2^31) (log-uniform) and common
+    in [0, min(s0, s1)] (uniform, log-uniform, 0, 1 and the minimum), and
+    denom = s0 + s1 - common in float32; then 2j / (1 + j) with those
+    quotients j in (0, 1) and j over [2^-32, 1): log-uniform, the 1,024
+    floats above 2^-32 and the 1,024 below 1."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    s = np.exp2(rng.uniform(0, 31, (2, n))).astype(np.int64).clip(
+        1, 2 ** 31 - 1)
+    mn = s.min(0)
+    c = (rng.uniform(0, 1, n) * (mn + 1)).astype(np.int64)
+    q = n // 8
+    c[:q] = np.exp2(rng.uniform(0, np.log2(mn[:q]))).astype(np.int64)
+    c[q:2 * q], c[2 * q:3 * q], c[3 * q:3 * q + 64] = mn[q:2 * q], 1, 0
+    c = c.clip(0, mn)
+    common = c.astype(f32)
+    a1 = common
+    b1 = np.maximum((s[0].astype(f32) + s[1].astype(f32)) - common, f32(1))
+    j = a1 / b1
+    tiny = np.float32(2.0 ** -32)
+    j = np.concatenate([
+        j[(j > 0) & (j < 1)],
+        np.exp2(rng.uniform(-32, 0, n)).astype(f32).clip(
+            tiny, np.nextafter(f32(1), f32(0))),
+        tiny + np.arange(1024, dtype=f32) * np.spacing(tiny),
+        f32(1) - np.arange(1, 1025, dtype=f32) * np.spacing(f32(0.5))])
+    return (np.concatenate([a1, f32(2) * j]),
+            np.concatenate([b1, f32(1) + j]))
