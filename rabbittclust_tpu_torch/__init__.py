@@ -50,8 +50,10 @@ Layout mirrors the JAX package:
                         purity), representatives, newick trees, simulated
                         corpora, taxonomy and genus analyses
     utils/native.py     the native library's loader
-    utils/profiling.py  RTC_PROFILE_DIR: torch.profiler traces of the
-                        engines' phases
+    utils/profiling.py  spans and counters, recorded in the job scope
+                        of compute_kssd_clusters (a record_function range
+                        only under a profiler session), CUDA-event timers,
+                        and RTC_PROFILE_DIR's torch.profiler traces
     kernels/_build.py   nvcc build of csrc/*.cu at first use
     device.py           explicit device selection (no CPU fallback)
 

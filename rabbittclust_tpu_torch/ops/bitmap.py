@@ -42,7 +42,6 @@ import contextlib
 import ctypes
 import math
 import os
-import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -51,6 +50,7 @@ import torch
 
 from ..distance.mash import min_jaccard_for_threshold, size_ratio_limit
 from ..utils import native as native_mod
+from ..utils.profiling import span
 from .intersect import _launch, _ptr, _upload
 from .pack import _to_device
 from .transfer import _host_async, _host_wait
@@ -262,8 +262,8 @@ def tile_mask_plain(xd, cd, sd, r0, c0, rb, jmin_num, jmin_den, c_min,
                                 else True)
     mask = (shared >= thresh) & ratio_ok
     if tri:
-        span = torch.arange(rb, dtype=torch.int32, device=dev)
-        mask &= (span[None, :] + c0) < (span[:, None] + r0)
+        iota = torch.arange(rb, dtype=torch.int32, device=dev)
+        mask &= (iota[None, :] + c0) < (iota[:, None] + r0)
     return mask
 
 
@@ -904,32 +904,30 @@ class Signatures:
 def stage_signatures(hashes: List[np.ndarray], bits: int, rb: int,
                      device: torch.device, bound: str = "mst",
                      row_sizes=None, col_sizes=None,
-                     stats: Optional[dict] = None) -> Signatures:
+                     stats: Optional[dict] = None,
+                     engine: str = "stream") -> Signatures:
     """One native pack (``pack_bitmaps_packed``) and one
-    host-to-device copy per array.  ``stats`` receives the seconds of the
-    pack (``pack_s``) and of the copies, waited for (``stage_s``)."""
-    clock = time.perf_counter
-    t0 = clock()
-    n = len(hashes)
-    xp, coll = pack_bitmaps_packed(hashes, bits=bits, pad_n_to=rb)
-    n_pad = xp.shape[0]
-    sizes = np.zeros(n_pad, dtype=np.int32)
-    if row_sizes is not None:
-        sizes[:n] = np.asarray(row_sizes, dtype=np.int64)[:n]
-    else:
-        sizes[:n] = [len(h) for h in hashes]
-    if bound == "minhash":
-        cs = np.zeros(n_pad, dtype=np.int32)
-        cs[:n] = np.asarray(col_sizes, dtype=np.int64)[:n]
-        sizes = np.stack([sizes, cs])
-    t1 = clock()
-    sig = Signatures(_to_device(xp, device), _to_device(coll, device),
-                     _to_device(sizes, device))
-    if stats is not None:
-        if device.type == "cuda":
+    host-to-device copy per array, the spans ``<engine>.pack`` and
+    ``<engine>.upload``.  ``stats`` receives their seconds (``pack_s``; the
+    copies, waited for, ``stage_s``)."""
+    with span(engine + ".pack", stats, "pack_s"):
+        n = len(hashes)
+        xp, coll = pack_bitmaps_packed(hashes, bits=bits, pad_n_to=rb)
+        n_pad = xp.shape[0]
+        sizes = np.zeros(n_pad, dtype=np.int32)
+        if row_sizes is not None:
+            sizes[:n] = np.asarray(row_sizes, dtype=np.int64)[:n]
+        else:
+            sizes[:n] = [len(h) for h in hashes]
+        if bound == "minhash":
+            cs = np.zeros(n_pad, dtype=np.int32)
+            cs[:n] = np.asarray(col_sizes, dtype=np.int64)[:n]
+            sizes = np.stack([sizes, cs])
+    with span(engine + ".upload", stats, "stage_s"):
+        sig = Signatures(_to_device(xp, device), _to_device(coll, device),
+                         _to_device(sizes, device))
+        if stats is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
-        stats["pack_s"] = t1 - t0
-        stats["stage_s"] = clock() - t1
     return sig
 
 

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -31,7 +30,7 @@ import torch
 
 from ..cluster.mst import clusters_from_forest, sort_edges
 from ..cluster.union_find import UnionFind
-from ..utils.profiling import maybe_trace
+from ..utils.profiling import EventTimer, count, maybe_trace, span
 from .bitmap import (
     CsrSketches,
     account_pull,
@@ -63,9 +62,12 @@ MIN_BAND = 128
 SPAN_MIN_BAND = 1024
 WARPS = 8
 
-# the last run's phases (host seconds), counts and the device milliseconds
-# of the builds and rounds (CUDA events); pulled bytes are in
-# ops.bitmap.PULL_STATS; trace_s is RTC_PROFILE_DIR's profiler, in no phase
+# the last run's phases (host seconds, each the total of a span: pack_s
+# lp.pack, stage_s lp.upload, csr_s lp.csr, pull_s lp.pull, verify_s
+# lp.verify, finish_s lp.finish, total_s lp.engine less trace_s), counts and
+# the device milliseconds of the builds and rounds (CUDA events); pulled
+# bytes are in ops.bitmap.PULL_STATS; trace_s is RTC_PROFILE_DIR's
+# profiler, in no phase
 LP_STATS = {"pack_s": 0.0, "stage_s": 0.0, "csr_s": 0.0, "pull_s": 0.0,
             "verify_s": 0.0, "finish_s": 0.0, "total_s": 0.0, "rounds": 0,
             "panels": 0, "proposals": 0, "build_ms": 0.0, "round_ms": 0.0,
@@ -301,18 +303,28 @@ def threshold_clusters_device_lp(
     reference MST cut), the clusters of the JAX
     ``threshold_clusters_device_lp``.  At most ``panel_tiles`` (default
     ``RTC_LP_PANEL_TILES`` = 512) mask tiles are resident at once."""
-    n = len(hashes)
-    if n == 0:
+    if len(hashes) == 0:
         return []
     from ..device import resolve_device
     device = resolve_device(device)
-    cuda = device.type == "cuda"
-    clock = time.perf_counter
     reset_lp_stats()
     if os.environ.get("RTC_LP_LABEL_DELTA", "0") == "1":
         print("-----note: RTC_LP_LABEL_DELTA is ignored (the port pushes "
               "the full labels every round)", file=sys.stderr)
-    t_all = clock()
+    with span("lp.engine") as whole:
+        clusters = _lp_clusters(hashes, threshold, kmer_size,
+                                is_containment, bits, row_block, max_rounds,
+                                panel_tiles, device)
+    # the profiler's start, stop and export are in no timer
+    LP_STATS["total_s"] = whole.seconds - LP_STATS["trace_s"]
+    return clusters
+
+
+def _lp_clusters(hashes, threshold, kmer_size, is_containment, bits,
+                 row_block, max_rounds, panel_tiles, device):
+    """The engine's body, between ``LP_STATS``' reset and its total."""
+    n = len(hashes)
+    cuda = device.type == "cuda"
     rb = min(row_block, max(128, 1 << max(n - 1, 1).bit_length()))
     n_pad = max(-(-n // rb) * rb, rb)  # pack_bitmaps_packed's padding
     tiles = triangle_tiles(n_pad, rb)
@@ -332,7 +344,8 @@ def threshold_clusters_device_lp(
                          f"(panel_tiles or RTC_LP_PANEL_TILES "
                          f"{panel_tiles}): K2 takes at most "
                          f"{MAX_LAUNCH_TILES} tiles per launch")
-    sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS)
+    sig = stage_signatures(hashes, bits, rb, device, stats=LP_STATS,
+                           engine="lp")
     assert sig.n_pad == n_pad
     scalars = filter_scalars(threshold, kmer_size)
 
@@ -340,9 +353,9 @@ def threshold_clusters_device_lp(
     panel_geo = [(min(r0 for r0, _ in panel),
                   max(r0 for r0, _ in panel) + rb) for panel in panels]
     multi = len(panels) > 1
-    span = cap = 0
+    row_span = cap = 0
     if multi:
-        span = min(n_pad, max(hi - lo for lo, hi in panel_geo))
+        row_span = min(n_pad, max(hi - lo for lo, hi in panel_geo))
         cap = min(n_pad, int(os.environ.get("RTC_LP_COL_CAP", "65536")))
     prefetch = os.environ.get("RTC_LP_PREFETCH", "1") != "0" and multi
 
@@ -353,27 +366,18 @@ def threshold_clusters_device_lp(
     kept_i: List[int] = []
     kept_j: List[int] = []
     kept_d: List[float] = []
-    build_events, round_events = [], []
+    build_timer, round_timer = EventTimer(device), EventTimer(device)
     g = np.arange(n_pad, dtype=np.int64)
 
-    def timed(events, fn, *args, **kw):
-        if not cuda:
-            return fn(*args, **kw)
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        ev0.record()
-        out = fn(*args, **kw)
-        ev1.record()
-        events.append((ev0, ev1))
-        return out
-
     def build(panel):
-        r0s = np.array([r0 for r0, _ in panel], dtype=np.int64)
-        c0s = np.array([c0 for _, c0 in panel], dtype=np.int64)
-        val = np.ones(len(panel), dtype=np.int64)
-        _counts, packs = timed(build_events, batched_mask, sig.xd, sig.cd,
-                               sig.sd, r0s, c0s, val, *scalars,
-                               is_containment, rb)
-        return packs, _upload(np.stack([r0s, c0s, val]), device)
+        with span("lp.build"):
+            r0s = np.array([r0 for r0, _ in panel], dtype=np.int64)
+            c0s = np.array([c0 for _, c0 in panel], dtype=np.int64)
+            val = np.ones(len(panel), dtype=np.int64)
+            _counts, packs = build_timer(batched_mask, sig.xd, sig.cd,
+                                         sig.sd, r0s, c0s, val, *scalars,
+                                         is_containment, rb)
+            return packs, _upload(np.stack([r0s, c0s, val]), device)
 
     def labels_arr():
         roots = np.empty(n_pad, dtype=np.int32)
@@ -382,127 +386,133 @@ def threshold_clusters_device_lp(
         roots[n:] = n + np.arange(n_pad - n, dtype=np.int32)
         return roots
 
+    def verify(fused, use_compact, r_lo, t_off):
+        """Verify the round's proposals exactly and merge the passes; the
+        next round's clear list."""
+        if use_compact:
+            ncol = int(fused[1])
+            row_p = np.full(n_pad, SENT, dtype=np.int32)
+            row_p[r_lo:r_lo + row_span] = fused[2:2 + row_span]
+            col_p = np.full(n_pad, SENT, dtype=np.int32)
+            k = min(ncol, cap)
+            col_p[fused[2 + row_span:2 + row_span + k]] = \
+                fused[2 + row_span + cap:2 + row_span + cap + k]
+        else:
+            row_p = fused[1:1 + n_pad]
+            col_p = fused[1 + n_pad:]
+        rp = row_p < SENT
+        cp = col_p < SENT
+        # rows first: they star-collapse most components, and the re-gate
+        # below then drops most column proposals
+        ri, rj = g[rp], row_p[rp].astype(np.int64)
+        LP_STATS["proposals"] += len(ri)
+        count("lp.proposals", len(ri))
+        ki, kj, kd, ok_r = gated_verify_merge(
+            uf, csr, sizes64, ri, rj, threshold, kmer_size, is_containment)
+        count("lp.kept", len(ki))
+        kept_i.extend(ki.tolist())
+        kept_j.extend(kj.tolist())
+        kept_d.extend(kd.tolist())
+        ci, cj = col_p[cp].astype(np.int64), g[cp]
+        roots = uf.roots_array()
+        alive = roots[ci] != roots[cj]
+        ci, cj = ci[alive], cj[alive]
+        LP_STATS["proposals"] += len(ci)
+        count("lp.proposals", len(ci))
+        ki, kj, kd, ok_c = gated_verify_merge(
+            uf, csr, sizes64, ci, cj, threshold, kmer_size, is_containment)
+        count("lp.kept", len(ki))
+        kept_i.extend(ki.tolist())
+        kept_j.extend(kj.tolist())
+        kept_d.extend(kd.tolist())
+        # failed pairs -> the next round's clear list, each bit once
+        fi = np.concatenate([ri[~ok_r], ci[~ok_c]])
+        fj = np.concatenate([rj[~ok_r], cj[~ok_c]])
+        if len(fi):
+            _, sel = np.unique(fi * n_pad + fj, return_index=True)
+            fi, fj = fi[sel], fj[sel]
+        return _encode_clear(fi, fj, rb, t_off)
+
     next_build = None
     with maybe_trace("labelprop_cluster", device) as trace:
         for p_idx, panel in enumerate(panels):
-            LP_STATS["panels"] += 1
-            t_off = p_idx * t_cap  # global index of the panel's first tile
-            packs, geo = next_build if next_build is not None else build(panel)
-            next_build = None
-            if csr is None:
-                t0 = clock()
-                csr = CsrSketches(hashes)
-                LP_STATS["csr_s"] += clock() - t0
-            r0s_d, c0s_d, val_d = geo
-            empty = np.empty(0, dtype=np.int64)
-            clr = _encode_clear(empty, empty, rb, t_off)
-            r_lo = min(panel_geo[p_idx][0], n_pad - span) if multi else 0
-            fused_buf = work = out = None
-            if cuda:  # the round's outputs, once per panel
-                fused_buf = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
-                                        device=device)
-                if multi:
-                    work = fused_buf
-                    out = torch.empty(2 + span + 2 * cap, dtype=torch.int32,
-                                      device=device)
-            rounds = 0
-            converged = False
-            while rounds < max_rounds:
-                rounds += 1
-                LP_STATS["rounds"] += 1
-                # panel 0 round 1: full pull; later rounds: compact pull
-                use_compact = multi and not (p_idx == 0 and rounds == 1)
-                labels_d = _upload(labels_arr(), device)
-                clr_d = _upload(np.stack([clr[0], clr[1], clr[2],
-                                          clr[3].astype(np.int32)]), device)
-                if use_compact:
-                    res = timed(round_events, lp_round_compact, packs,
-                                labels_d, clr_d, r0s_d, c0s_d, val_d, r_lo,
-                                rb, span, cap, work=work, out=out)
-                else:
-                    res = timed(round_events, lp_round, packs, labels_d, clr_d,
-                                r0s_d, c0s_d, val_d, rb, fused=fused_buf)
-                pending = _host_async(res)
-                if prefetch and rounds == 1 and p_idx + 1 < len(panels):
-                    # the next panel's build queues behind this round and runs
-                    # while the host verifies
-                    next_build = build(panels[p_idx + 1])
-                t0 = clock()
-                fused = _host_wait(pending)
-                LP_STATS["pull_s"] += clock() - t0
-                account_pull(fused.nbytes)
-                if int(fused[0]) == 0:
-                    converged = True
-                    break
-                t0 = clock()
-                if use_compact:
-                    ncol = int(fused[1])
-                    row_p = np.full(n_pad, SENT, dtype=np.int32)
-                    row_p[r_lo:r_lo + span] = fused[2:2 + span]
-                    col_p = np.full(n_pad, SENT, dtype=np.int32)
-                    k = min(ncol, cap)
-                    col_p[fused[2 + span:2 + span + k]] = \
-                        fused[2 + span + cap:2 + span + cap + k]
-                else:
-                    row_p = fused[1:1 + n_pad]
-                    col_p = fused[1 + n_pad:]
-                rp = row_p < SENT
-                cp = col_p < SENT
-                # rows first: they star-collapse most components, and the
-                # re-gate below then drops most column proposals
-                ri, rj = g[rp], row_p[rp].astype(np.int64)
-                LP_STATS["proposals"] += len(ri)
-                ki, kj, kd, ok_r = gated_verify_merge(
-                    uf, csr, sizes64, ri, rj, threshold, kmer_size,
-                    is_containment)
-                kept_i.extend(ki.tolist())
-                kept_j.extend(kj.tolist())
-                kept_d.extend(kd.tolist())
-                ci, cj = col_p[cp].astype(np.int64), g[cp]
-                roots = uf.roots_array()
-                alive = roots[ci] != roots[cj]
-                ci, cj = ci[alive], cj[alive]
-                LP_STATS["proposals"] += len(ci)
-                ki, kj, kd, ok_c = gated_verify_merge(
-                    uf, csr, sizes64, ci, cj, threshold, kmer_size,
-                    is_containment)
-                kept_i.extend(ki.tolist())
-                kept_j.extend(kj.tolist())
-                kept_d.extend(kd.tolist())
-                # failed pairs -> the next round's clear list, each bit once
-                fi = np.concatenate([ri[~ok_r], ci[~ok_c]])
-                fj = np.concatenate([rj[~ok_r], cj[~ok_c]])
-                if len(fi):
-                    _, sel = np.unique(fi * n_pad + fj, return_index=True)
-                    fi, fj = fi[sel], fj[sel]
-                clr = _encode_clear(fi, fj, rb, t_off)
-                LP_STATS["verify_s"] += clock() - t0
-            if not converged:  # the exact host finish, from the pulled masks
-                host_packs = packs.cpu().numpy()
-                account_pull(host_packs.nbytes)
-                _lp_fallback(host_packs, panel, rb, n, uf, csr, sizes64,
-                             threshold, kmer_size, is_containment, kept_i,
-                             kept_j, kept_d)
-            del packs  # free this panel's masks before the next build
+            with span("lp.panel"):
+                LP_STATS["panels"] += 1
+                t_off = p_idx * t_cap  # global index of the panel's first tile
+                packs, geo = (next_build if next_build is not None
+                              else build(panel))
+                next_build = None
+                if csr is None:
+                    with span("lp.csr", LP_STATS, "csr_s"):
+                        csr = CsrSketches(hashes)
+                r0s_d, c0s_d, val_d = geo
+                empty = np.empty(0, dtype=np.int64)
+                clr = _encode_clear(empty, empty, rb, t_off)
+                r_lo = (min(panel_geo[p_idx][0], n_pad - row_span)
+                        if multi else 0)
+                fused_buf = work = out = None
+                if cuda:  # the round's outputs, once per panel
+                    fused_buf = torch.empty(1 + 2 * n_pad, dtype=torch.int32,
+                                            device=device)
+                    if multi:
+                        work = fused_buf
+                        out = torch.empty(2 + row_span + 2 * cap,
+                                          dtype=torch.int32, device=device)
+                rounds = 0
+                converged = False
+                while rounds < max_rounds:
+                    rounds += 1
+                    LP_STATS["rounds"] += 1
+                    # panel 0 round 1: full pull; later rounds: compact pull
+                    use_compact = multi and not (p_idx == 0 and rounds == 1)
+                    with span("lp.round"):
+                        labels_d = _upload(labels_arr(), device)
+                        clr_d = _upload(np.stack([clr[0], clr[1], clr[2],
+                                                  clr[3].astype(np.int32)]),
+                                        device)
+                        if use_compact:
+                            res = round_timer(
+                                lp_round_compact, packs, labels_d, clr_d,
+                                r0s_d, c0s_d, val_d, r_lo, rb, row_span, cap,
+                                work=work, out=out)
+                        else:
+                            res = round_timer(lp_round, packs, labels_d, clr_d,
+                                              r0s_d, c0s_d, val_d, rb,
+                                              fused=fused_buf)
+                        pending = _host_async(res)
+                    if prefetch and rounds == 1 and p_idx + 1 < len(panels):
+                        # the next panel's build queues behind this round
+                        # and runs while the host verifies
+                        next_build = build(panels[p_idx + 1])
+                    with span("lp.pull", LP_STATS, "pull_s"):
+                        fused = _host_wait(pending)
+                    account_pull(fused.nbytes)
+                    if int(fused[0]) == 0:
+                        converged = True
+                        break
+                    with span("lp.verify", LP_STATS, "verify_s"):
+                        clr = verify(fused, use_compact, r_lo, t_off)
+                if not converged:  # the exact host finish, from the masks
+                    with span("lp.fallback"):
+                        host_packs = packs.cpu().numpy()
+                        account_pull(host_packs.nbytes)
+                        _lp_fallback(host_packs, panel, rb, n, uf, csr,
+                                     sizes64, threshold, kmer_size,
+                                     is_containment, kept_i, kept_j, kept_d)
+                del packs  # free this panel's masks before the next build
 
     LP_STATS["trace_s"] = trace.seconds
 
-    t0 = clock()
-    # the kept edges are union-find-gated, so they form a spanning forest
-    # already: sorting them gives Kruskal's order for the BFS
-    forest = sort_edges((np.asarray(kept_i, dtype=np.int64),
-                         np.asarray(kept_j, dtype=np.int64),
-                         np.asarray(kept_d, dtype=np.float64)))
-    clusters = clusters_from_forest(forest, n)
-    LP_STATS["finish_s"] = clock() - t0
+    with span("lp.finish", LP_STATS, "finish_s"):
+        # the kept edges are union-find-gated, so they form a spanning
+        # forest already: sorting them gives Kruskal's order for the BFS
+        forest = sort_edges((np.asarray(kept_i, dtype=np.int64),
+                             np.asarray(kept_j, dtype=np.int64),
+                             np.asarray(kept_d, dtype=np.float64)))
+        clusters = clusters_from_forest(forest, n)
     if cuda:
-        torch.cuda.synchronize(device)
-        LP_STATS["build_ms"] = sum(a.elapsed_time(z)
-                                   for a, z in build_events)
-        LP_STATS["round_ms"] = sum(a.elapsed_time(z)
-                                   for a, z in round_events)
-    # the profiler's start, stop and export are in no timer
-    LP_STATS["total_s"] = clock() - t_all - LP_STATS["trace_s"]
+        LP_STATS["build_ms"] = build_timer.ms()
+        LP_STATS["round_ms"] = round_timer.ms()
     return clusters
 
 

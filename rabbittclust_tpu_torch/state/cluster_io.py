@@ -19,6 +19,8 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from ..utils.profiling import span
+
 
 # Source: rabbittclust_tpu/state/cluster_io.py::format_cluster_result
 def format_cluster_result(clusters: Sequence[Sequence[int]], sketches,
@@ -45,8 +47,9 @@ def format_cluster_result(clusters: Sequence[Sequence[int]], sketches,
     return "".join(out)
 
 
-# Source: rabbittclust_tpu/state/cluster_io.py::write_cluster_file
+# Source: rabbittclust_tpu/state/cluster_io.py::write_cluster_file (the
+# span write.cluster)
 def write_cluster_file(path: str, clusters, sketches,
                        threshold: float = -1.0) -> None:
-    with open(path, "w") as f:
+    with span("write.cluster"), open(path, "w") as f:
         f.write(format_cluster_result(clusters, sketches, threshold))

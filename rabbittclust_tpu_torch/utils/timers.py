@@ -3,25 +3,29 @@
 from __future__ import annotations
 
 import sys
-import time
 from contextlib import contextmanager
+from typing import Optional
+
+from .profiling import span
 
 
-# Source: rabbittclust_tpu/utils/timers.py::Timer
+# Source: rabbittclust_tpu/utils/timers.py::Timer (each phase a span)
 class Timer:
-    """Accumulates named phase times; prints reference-style stderr lines."""
+    """Accumulates named phase times; prints reference-style stderr lines.
+    A phase is the span ``span_name`` (default: the phase's name)."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.phases = {}
 
     @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
+    def phase(self, name: str, span_name: Optional[str] = None):
+        sp = span(span_name or name)
         try:
-            yield
+            with sp:
+                yield
         finally:
-            dt = time.perf_counter() - t0
+            dt = sp.seconds
             self.phases[name] = self.phases.get(name, 0.0) + dt
             if self.enabled:
                 print(f"===================time of {name} is: {dt:.6f}",

@@ -51,7 +51,7 @@ from .sketch.minhash import (
 )
 from .state import sketch_io
 from .state.cluster_io import write_cluster_file
-from .utils.profiling import TRACE_STATS
+from .utils.profiling import TRACE_STATS, job, span
 from .utils.timers import Timer
 
 
@@ -225,8 +225,9 @@ def _mst_outputs(ss: SketchSet, res: MstResult, threshold: float,
                                    num_vertices=res.n)
     _emit_trees(ss, res.mst, output_file, opts)
 
-    forest = cut_forest(res.mst, threshold)
-    clusters = clusters_from_forest(forest, res.n)
+    with span("mst.cut"):
+        forest = cut_forest(res.mst, threshold)
+        clusters = clusters_from_forest(forest, res.n)
     write_cluster_file(output_file, clusters, ss,
                        threshold if kssd else -1.0)
     log(f"-----write the cluster result into: {output_file}")
@@ -320,13 +321,14 @@ def _compute_mst_engine(ss: SketchSet, threshold: float, kmer_size: int,
 
 def _save_mst_run(ss: SketchSet, res, folder: str, kssd: bool) -> None:
     """The MST run's files: genome info, edge.mst and, with --dense, the
-    density and ANI files."""
-    sketch_io.ensure_folder(folder)
-    sketch_io.save_genome_info(ss, folder, "mst", kssd=kssd)
-    sketch_io.save_mst(res.mst, folder)
-    if res.dense is not None:
-        sketch_io.save_dense(folder, res.dense)
-        sketch_io.save_ani(folder, res.ani)
+    density and ANI files (the span ``mst.save``)."""
+    with span("mst.save"):
+        sketch_io.ensure_folder(folder)
+        sketch_io.save_genome_info(ss, folder, "mst", kssd=kssd)
+        sketch_io.save_mst(res.mst, folder)
+        if res.dense is not None:
+            sketch_io.save_dense(folder, res.dense)
+            sketch_io.save_ani(folder, res.ani)
 
 
 def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
@@ -341,7 +343,7 @@ def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
     if threads == 1:
         log("-----using the MST-free device cluster engine "
             "(-t 1: reference serial member order)")
-        with timer.phase(phase):
+        with timer.phase(phase, "mst_free.clusters"):
             clusters, exact = threshold_clusters_device_exact_order(
                 ss.hashes, threshold, p.kmer_size,
                 is_containment=is_containment, device=device)
@@ -353,7 +355,7 @@ def _mst_free_clusters(ss: SketchSet, p: KssdParams, threshold: float,
         log("-----using the MST-free device cluster engine "
             "(partition-exact; member order is deterministic but not the "
             "serial reference's — use -t 1 for that)")
-        with timer.phase(phase):
+        with timer.phase(phase, "mst_free.clusters"):
             clusters = threshold_clusters_device(
                 ss.hashes, threshold, p.kmer_size,
                 is_containment=is_containment, device=device)
@@ -439,7 +441,16 @@ def compute_kssd_clusters(ss: SketchSet, p: KssdParams, threshold: float,
     """The JAX ``compute_kssd_clusters``: the greedy module, or the MST
     module.  There ``-e`` with no MST consumer takes the MST-free engines,
     under the JAX package's condition (``RTC_MST_CLUSTERS_FAST=0``
-    restores the dense engine)."""
+    restores the dense engine).  The call is one job scope
+    (``utils/profiling.py::job``): given ``stats``, it receives the job's
+    ``spans`` and ``counters`` too."""
+    with job(stats):
+        return _kssd_clusters(ss, p, threshold, output_file, is_containment,
+                              opts, folder, device, stats, threads, module)
+
+
+def _kssd_clusters(ss, p, threshold, output_file, is_containment, opts,
+                   folder, device, stats, threads, module):
     if module == "greedy":
         gres, ss2 = _greedy_clusters(ss, p, threshold, output_file, device,
                                      stats)
@@ -456,10 +467,10 @@ def compute_kssd_clusters(ss: SketchSet, p: KssdParams, threshold: float,
                                   is_containment, threads, device, stats)
     timer = Timer()
     traced = TRACE_STATS["trace_s"]
-    with timer.phase("computing mst"):
+    with timer.phase("computing mst", "mst.compute"):
         res = _compute_mst_engine(ss, threshold, p.kmer_size, is_containment,
                                   opts, device, stats)
-    with timer.phase("outputs"):
+    with timer.phase("outputs", "mst.outputs"):
         if not opts.no_save and folder:
             _save_mst_run(ss, res, folder, kssd=True)
         clusters, used = _mst_outputs(ss, res, threshold, output_file, opts,
