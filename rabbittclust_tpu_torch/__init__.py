@@ -54,7 +54,8 @@ Layout mirrors the JAX package:
                         of compute_kssd_clusters (a record_function range
                         only under a profiler session), CUDA-event timers,
                         and RTC_PROFILE_DIR's torch.profiler traces
-    kernels/_build.py   nvcc build of csrc/*.cu at first use
+    kernels/_build.py   nvcc build of csrc/*.cu and g++ build of
+                        hostsrc/*.cpp (the Kruskal), each at first use
     device.py           explicit device selection (no CPU fallback)
 
 Importing the package tunes glibc's malloc (``_tune_malloc``;

@@ -1,14 +1,22 @@
-"""Build the port's CUDA sources into a plain-C shared library, at first use.
+"""Build the port's compiled sources into plain-C shared libraries, at
+first use.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles each ``csrc/*.cu``
-(no PyTorch headers) into an object file, one process per source, all
-started together; one more ``nvcc`` links them into
-``build/librtc_kernels_<hash>.so``, keyed by a hash of the sources and
-flags, and the library is loaded with ``ctypes``.  Nothing runs at import
-time.  A missing ``nvcc`` or a failed build raises with the compiler's
-output; there is no fallback.  Processes that start together (the ranks
-of a multi-process run) build one at a time under a file lock, and those
-that waited load the library the first one built.
+Two libraries, each keyed by a hash of its sources and flags
+(``build/<stem>_<hash>.so``) and loaded with ``ctypes``:
+
+- the CUDA kernels (``build``, ``load_kernels``): ``nvcc -gencode
+  arch=compute_90a,code=sm_90a`` compiles each ``csrc/*.cu`` (no PyTorch
+  headers) into an object file, one process per source, all started
+  together; one more ``nvcc`` links them into ``librtc_kernels_<hash>.so``;
+- the host code (``build_host``, ``load_host``): ``g++ -O3 -fopenmp``
+  compiles ``hostsrc/*.cpp`` into ``librtc_host_<hash>.so``, without
+  ``nvcc``.
+
+Nothing runs at import time.  A missing compiler or a failed build raises
+with the compiler's output; there is no fallback.  Processes that start
+together (the ranks of a multi-process run) build a library one at a time
+under a file lock, and those that waited load the library the first one
+built; a library is built once a checkout.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from functools import lru_cache
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+HOSTSRC_DIR = os.path.join(_PKG_DIR, "hostsrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -34,11 +43,17 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # nvcc's defaults without it).
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# No -march=native: a checkout's build must load on any x86-64 host.
+GXX_FLAGS = ["-std=c++17", "-O3", "-fopenmp", "-shared", "-fPIC"]
 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) +
                   glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _host_sources():
+    return sorted(glob.glob(os.path.join(HOSTSRC_DIR, "*.cpp")))
 
 
 def _nvcc() -> str:
@@ -52,21 +67,26 @@ def _nvcc() -> str:
                        "port's CUDA kernels cannot be built")
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def _keyed_path(stem: str, flags, sources) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"librtc_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> dict:
-    """Compile the sources unless the keyed library exists.  Returns
-    ``{"path", "seconds", "log"}``: build seconds (0.0 when it was already
-    built) and the compiler's ``-Xptxas -v`` report (registers, shared
-    memory, spills per kernel)."""
-    path = library_path()
+def library_path() -> str:
+    return _keyed_path("librtc_kernels", NVCC_FLAGS, _sources())
+
+
+def host_library_path() -> str:
+    return _keyed_path("librtc_host", GXX_FLAGS, _host_sources())
+
+
+def _build_once(path: str, compile_fn) -> dict:
+    """``compile_fn(path)`` unless the keyed library exists, under the
+    build directory's file lock."""
     if os.path.exists(path):
         return _built(path)
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -74,7 +94,21 @@ def build() -> dict:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if os.path.exists(path):  # another process built it meanwhile
             return _built(path)
-        return _compile(path)
+        return compile_fn(path)
+
+
+def build() -> dict:
+    """Compile the CUDA sources unless the keyed library exists.  Returns
+    ``{"path", "seconds", "log"}``: build seconds (0.0 when it was already
+    built) and the compiler's ``-Xptxas -v`` report (registers, shared
+    memory, spills per kernel)."""
+    return _build_once(library_path(), _compile)
+
+
+def build_host() -> dict:
+    """Compile the host sources with g++ unless the keyed library exists;
+    returns as ``build`` does."""
+    return _build_once(host_library_path(), _compile_host)
 
 
 def _built(path: str) -> dict:
@@ -113,6 +147,22 @@ def _compile(path: str) -> dict:
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)  # atomic: no reader sees a half-written library
+    return {"path": path, "seconds": seconds, "log": log}
+
+
+def _compile_host(path: str) -> dict:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = ["g++", *GXX_FLAGS, "-o", tmp, *_host_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    log = proc.stderr + proc.stdout
+    with open(path[:-3] + ".log", "w") as f:
+        f.write(log)
+    os.replace(tmp, path)
     return {"path": path, "seconds": seconds, "log": log}
 
 
@@ -166,4 +216,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.rtc_tuple_match.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, vp, vp]
     lib.rtc_tuple_ids.restype = ci
     lib.rtc_tuple_ids.argtypes = [vp, ci, ci, ci, vp, vp, vp]
+    return lib
+
+
+@lru_cache(maxsize=1)
+def load_host() -> ctypes.CDLL:
+    """The built host library with its entry points' signatures declared."""
+    lib = ctypes.CDLL(build_host()["path"])
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.rtc_kruskal.restype = i64
+    lib.rtc_kruskal.argtypes = [vp, vp, vp, i64, i64, ctypes.c_int, vp]
     return lib

@@ -179,7 +179,13 @@ def test_dense_job_fills_spans_and_engine_stats(tmp_path, monkeypatch):
     assert stats["outputs_s"] == spans["mst.outputs"]["total_s"]
     for name in ("mst.save", "mst.cut", "write.cluster"):
         assert spans[name]["n"] == 1, name
-    assert stats["counters"] == {}
+    # the Kruskal passes take every candidate once, and each budget flush
+    # hands its forest (at most n - 1 edges) to the next pass
+    assert set(stats["counters"]) == {"mst.kruskal_edges"}
+    flushes = spans["dense.kruskal"]["n"] - 1
+    assert flushes >= 1
+    assert (stats["candidates"] < stats["counters"]["mst.kruskal_edges"]
+            <= stats["candidates"] + flushes * (120 - 1))
     outputs = spans["mst.outputs"]
     assert outputs["self_s"] < outputs["total_s"]
     assert os.path.exists(tmp_path / "run" / "edge.mst")
