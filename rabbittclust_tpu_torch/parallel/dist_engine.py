@@ -51,13 +51,24 @@ pass a gate and are dropped before any output.
 rings' sweep over it (nothing goes to the host between its first step and
 its last); ``parallel/multihost.py`` runs it over a mesh of processes by
 giving it a shift that hands the last local shard to the next process.
+
+Spans and counters (``utils/profiling.py``): every ring opens ``mesh.ring``
+and a ``mesh.hop`` a shift, and counts ``mesh.steps`` (its (shard, step)
+pairs, the empty antipodal ones too) and, under the default shift,
+``mesh.hop_bytes`` (what the copies move between distinct devices).
+``distributed_mst`` counts ``mesh.cards``; over the exact ring it opens
+``mesh.pack``, ``mesh.upload``, ``mesh.step_wait`` a step (on the card K3's
+enqueue and the pull of its total, the step's one sync), ``mesh.decode``
+and ``mesh.kruskal``, and counts ``mesh.candidates`` (the edges ``kruskal``
+is given) and, on the card, ``mesh.card_peak_bytes`` (the largest
+``max_memory_allocated`` over the mesh's devices).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,6 +89,7 @@ from ..ops.labelprop import MAX_RB, SENT, _clear_quantum, lp_round
 from ..ops.pack import (GROUP, _to_device, compact_of, keep_compact,
                         pack_sketches)
 from ..ops.transfer import _host_async, _host_wait
+from ..utils.profiling import count, span
 
 # the ring step's launches of the bitmap ring count as "ring_bitmap", of the
 # mask ring as "ring_masks"; the bitmap ring's closing K3 counts in
@@ -178,6 +190,9 @@ class BitShard:
         return replace(self, xp=self.xp.to(device),
                        coll=self.coll.to(device), sizes=self.sizes.to(device))
 
+    def nbytes(self) -> int:
+        return _nbytes(self.xp, self.coll, self.sizes)
+
 
 @dataclass
 class PlaneShard:
@@ -200,6 +215,18 @@ class PlaneShard:
                          compact_of(self.p0, self.p1).to(device))
         return moved
 
+    def nbytes(self) -> int:
+        """Bytes of the planes, the sizes and the compact form: what a
+        move to another device copies."""
+        form = compact_of(self.p0, self.p1)
+        return _nbytes(self.p0, self.p1, self.sizes,
+                       *(getattr(form, f.name) for f in fields(form)))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
 
 def _rows(shard: int, mesh: Mesh, cpu_quantum: int = 1) -> int:
     """Rows of a shard's buffers: the logical shard, padded on the card to
@@ -217,20 +244,31 @@ def _ring(mesh: Mesh, shards: list, step, shift=None,
     moves every visiting shard one place along the ring (the
     ``ppermute``): by default to the next device of the mesh, so device d
     holds shard (d - t) mod n at step t.  ``parallel/multihost.py`` passes
-    a shift that sends the last local shard to the next process."""
+    a shift that sends the last local shard to the next process.  The
+    ring is the span ``mesh.ring``, each shift a ``mesh.hop``; it counts
+    ``mesh.steps`` and, under the default shift, ``mesh.hop_bytes``."""
     n_dev = mesh.size if n_dev is None else n_dev
     n_steps = _n_ring_steps(n_dev)
     if shift is None:
         def shift(vis):
-            return [vis[(d - 1) % len(vis)].to(mesh.devices[d])
-                    for d in range(len(vis))]
+            out = []
+            for d in range(len(vis)):
+                src = vis[(d - 1) % len(vis)]
+                moved = src.to(mesh.devices[d])
+                if moved.sizes.device != src.sizes.device:
+                    count("mesh.hop_bytes", moved.nbytes())
+                out.append(moved)
+            return out
     out = [[None] * n_steps for _ in shards]
     vis = list(shards)
-    for t in range(n_steps):
-        for d in range(len(shards)):
-            out[d][t] = step(d, t, shards[d], vis[d])
-        if t + 1 < n_steps:
-            vis = shift(vis)
+    with span("mesh.ring"):
+        for t in range(n_steps):
+            for d in range(len(shards)):
+                out[d][t] = step(d, t, shards[d], vis[d])
+            count("mesh.steps", len(shards))
+            if t + 1 < n_steps:
+                with span("mesh.hop"):
+                    vis = shift(vis)
     return out
 
 
@@ -480,7 +518,8 @@ def ring_edges_step_plain(local: PlaneShard, visiting: PlaneShard, t: int,
     if radio:
         ok &= torch.maximum(s0, s1) <= radio * mn
     ok &= _ownership_mask(t, n_dev, _ids(local), _ids(visiting))
-    flat = torch.nonzero(ok.reshape(-1)).reshape(-1)
+    with span("mesh.step_wait"):  # the step's size, as K3's total on the card
+        flat = torch.nonzero(ok.reshape(-1)).reshape(-1)
     return flat.to(torch.int32), counts.reshape(-1)[flat]
 
 
@@ -504,7 +543,8 @@ def ring_edges_step(local: PlaneShard, visiting: PlaneShard, t: int,
         cols=(visiting.p0, visiting.p1, visiting.sizes),
         tri=kind == "self")
     # K3 from K4's count on the card; the step's one sync is K3's total
-    flat = bm.compact_sized(packs, cnts, codes="local")
+    with span("mesh.step_wait"):
+        flat = bm.compact_sized(packs, cnts, codes="local")
     pairs = torch.stack([flat // rows, flat % rows]).contiguous()
     common = pair_common_launch(local.p0, local.p1, pairs,
                                 cols=(visiting.p0, visiting.p1))
@@ -676,13 +716,16 @@ def distributed_candidate_edges(packed_plane0: np.ndarray,
         radio = size_ratio_limit(threshold, kmer_size - 1)
     shard = n // n_dev
     rows = _rows(shard, mesh)
-    shards = _plane_shards(packed_plane0, packed_plane1,
-                           np.asarray(sizes), mesh, first_pad_id=n)
+    with span("mesh.upload"):
+        shards = _plane_shards(packed_plane0, packed_plane1,
+                               np.asarray(sizes), mesh, first_pad_id=n)
     out = _ring(mesh, shards, lambda d, t, loc, vis: ring_edges_step(
         loc, vis, t, n_dev, radio))
-    ii, jj = _decode([[f for f, _ in o] for o in out], shard, rows, n_dev)
-    cc = [c.cpu().numpy().astype(np.int64) for o in out for _, c in o]
-    cc = np.concatenate(cc) if cc else np.empty(0, dtype=np.int64)
+    with span("mesh.decode"):
+        ii, jj = _decode([[f for f, _ in o] for o in out], shard, rows,
+                         n_dev)
+        cc = [c.cpu().numpy().astype(np.int64) for o in out for _, c in o]
+        cc = np.concatenate(cc) if cc else np.empty(0, dtype=np.int64)
     # canonical host orientation (i > j) — see the bitmap ring decode
     return np.maximum(ii, jj), np.minimum(ii, jj), cc
 
@@ -770,6 +813,7 @@ def distributed_mst(hashes, threshold: float, kmer_size: int,
     every cut <= threshold but may lack candidate edges above it."""
     if mesh is None:
         mesh = make_mesh()
+    count("mesh.cards", mesh.size)
     if engine == "auto":
         engine = "exact" if full_mst else "bitmap"
     if engine == "bitmap":
@@ -787,17 +831,25 @@ def distributed_mst(hashes, threshold: float, kmer_size: int,
             d = mash_distance(common, s[ii], s[jj], kmer_size)
         return MstResult(mst=kruskal((ii, jj, d), n), n=n)
     n = len(hashes)
-    plane0, plane1, sizes = _pack_rows_for_mesh(hashes, mesh)
+    with span("mesh.pack"):
+        plane0, plane1, sizes = _pack_rows_for_mesh(hashes, mesh)
     ii, jj, common = distributed_candidate_edges(
         plane0, sizes, threshold, kmer_size, mesh=mesh, packed_plane1=plane1)
-    keep = (ii < n) & (jj < n)
-    ii, jj, common = ii[keep], jj[keep], common[keep]
-    s = np.array([len(h) for h in hashes], dtype=np.int64)
-    if is_containment:
-        d = aaf_distance(common, s[ii], s[jj], kmer_size)
-    else:
-        d = mash_distance(common, s[ii], s[jj], kmer_size)
-    return MstResult(mst=kruskal((ii, jj, d), n), n=n)
+    with span("mesh.kruskal"):
+        keep = (ii < n) & (jj < n)
+        ii, jj, common = ii[keep], jj[keep], common[keep]
+        count("mesh.candidates", len(ii))
+        s = np.array([len(h) for h in hashes], dtype=np.int64)
+        if is_containment:
+            d = aaf_distance(common, s[ii], s[jj], kmer_size)
+        else:
+            d = mash_distance(common, s[ii], s[jj], kmer_size)
+        mst = kruskal((ii, jj, d), n)
+    if mesh.cuda:
+        count("mesh.card_peak_bytes", max(
+            torch.cuda.max_memory_allocated(dev)
+            for dev in dict.fromkeys(mesh.devices)))
+    return MstResult(mst=mst, n=n)
 
 
 # Source: rabbittclust_tpu/parallel/dist_engine.py::

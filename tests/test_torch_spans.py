@@ -11,9 +11,11 @@ from contextlib import contextmanager
 import pytest
 import torch
 
+from portbench import harness
 from portbench import trace as bench_trace
 from rabbittclust_tpu_torch import workflows
 from rabbittclust_tpu_torch.ops import labelprop as port_lp
+from rabbittclust_tpu_torch.parallel import dist_engine
 from rabbittclust_tpu_torch.sketch.base import SketchSet
 from rabbittclust_tpu_torch.sketch.kssd import KssdParams
 from rabbittclust_tpu_torch.utils import profiling
@@ -30,6 +32,14 @@ DENSE_KEYS = {"pack_s": "dense.pack", "h2d_s": "dense.upload",
               "sweep_wait_s": "dense.sweep_wait", "decode_s": "dense.decode",
               "pair_common_s": "dense.pair_common", "edges_s": "dense.edges",
               "kruskal_s": "dense.kruskal"}
+# the mesh engine's span readers (portbench/metrics) and their spans
+MESH_READERS = {"mesh.pack_s": "mesh.pack", "mesh.ring_s": "mesh.ring",
+                "mesh.step_wait_s": "mesh.step_wait",
+                "mesh.decode_s": "mesh.decode",
+                "mesh.kruskal_s": "mesh.kruskal"}
+MESH_SPANS = set(MESH_READERS.values()) | {"mesh.upload", "mesh.hop"}
+MESH_METRICS = sorted(MESH_READERS) + ["mesh.candidates",
+                                       "mesh.card_peak_gib"]
 
 
 def sketch_set(n):
@@ -189,6 +199,86 @@ def test_dense_job_fills_spans_and_engine_stats(tmp_path, monkeypatch):
     outputs = spans["mst.outputs"]
     assert outputs["self_s"] < outputs["total_s"]
     assert os.path.exists(tmp_path / "run" / "edge.mst")
+
+
+def run_of(*stats):
+    """A benchmark ``Run`` whose window holds a job of each ``stats``."""
+    return harness.Run(config={}, traffic={}, corpus=None, jobs=[
+        {"wall_s": 1.0, "stats": st, "lp_stats": {"panels": 0}}
+        for st in stats])
+
+
+def test_mesh_job_fills_spans_and_counters(tmp_path, monkeypatch):
+    """``clust-mst --device`` with ``edge.mst`` saved over four shards:
+    the exact ring's spans, each ring step's wait, and the counters the
+    benchmark's mesh metrics read."""
+    monkeypatch.delenv("RTC_MESH", raising=False)
+    monkeypatch.setattr(workflows, "mesh_devices",
+                        lambda device: [device] * 4)
+    given = []
+    real = dist_engine.kruskal
+
+    def spy(e, n, *args, **kw):
+        given.append(len(e[0]))
+        return real(e, n, *args, **kw)
+    monkeypatch.setattr(dist_engine, "kruskal", spy)
+    stats, _ = run_job(tmp_path, "dense")
+    spans, counters = stats["spans"], stats["counters"]
+    assert MESH_SPANS <= set(spans)
+    assert not [name for name in spans if name.startswith("dense.")]
+    for name in ("mesh.pack", "mesh.upload", "mesh.ring", "mesh.decode",
+                 "mesh.kruskal"):
+        assert spans[name]["n"] == 1, name
+    assert spans["mesh.hop"]["n"] == 2  # 3 steps on 4 shards
+    assert spans["mesh.step_wait"]["n"] == 12
+    assert spans["mesh.ring"]["total_s"] >= (
+        spans["mesh.step_wait"]["total_s"] + spans["mesh.hop"]["total_s"])
+    assert counters["mesh.cards"] == 4 and counters["mesh.steps"] == 12
+    assert given == [counters["mesh.candidates"]]
+    assert counters["mesh.candidates"] == counters["mst.kruskal_edges"]
+    # one device and no card: no hop crosses, no card's peak is read
+    assert "mesh.hop_bytes" not in counters
+    assert "mesh.card_peak_bytes" not in counters
+
+    run = run_of(stats)
+    for metric, name in MESH_READERS.items():
+        assert harness.read_metric(metric, run) == spans[name]["total_s"]
+    assert harness.read_metric("mesh.candidates", run) == \
+        counters["mesh.candidates"]
+    assert harness.read_metric("mesh.card_peak_gib", run) is None
+
+
+@pytest.mark.parametrize("metric", MESH_METRICS)
+def test_mesh_readers_find_nothing_without_the_mesh(metric, tmp_path,
+                                                    monkeypatch):
+    monkeypatch.setenv("RTC_MESH", "0")
+    stats, _ = run_job(tmp_path, "dense", n=40)
+    assert harness.read_metric(metric, run_of(stats, {})) is None
+
+
+def test_card_peak_reader_means_the_jobs_that_counted_it():
+    jobs = [{"counters": {"mesh.card_peak_bytes": 3 * 2 ** 30}},
+            {"counters": {"mesh.card_peak_bytes": 2 ** 30}},
+            {"counters": {}}, {}]
+    assert harness.read_metric("mesh.card_peak_gib", run_of(*jobs)) == 2.0
+
+
+def test_hop_bytes_count_what_crosses_devices():
+    """The default shift counts a shard's bytes only where it moves to
+    another device: here shard 0 onto the ``meta`` device."""
+    mesh = dist_engine.Mesh((CPU, torch.device("meta")))
+
+    def shard(lo):
+        return dist_engine.BitShard(torch.zeros((8, 1024), dtype=torch.uint8),
+                                    torch.zeros(8, dtype=torch.int32),
+                                    torch.zeros(8, dtype=torch.int32), lo)
+    shards = [shard(0), shard(8)]
+    stats = {}
+    with profiling.job(stats):
+        dist_engine._ring(mesh, shards, lambda d, t, loc, vis: vis.lo)
+    assert stats["counters"] == {"mesh.steps": 4,
+                                 "mesh.hop_bytes": 8 * 1024 + 2 * 8 * 4}
+    assert stats["spans"]["mesh.hop"]["n"] == 1
 
 
 def test_spans_are_ranges_of_a_profiler_session(tmp_path):
